@@ -1,0 +1,277 @@
+"""MetricCollection: a dict of metrics with static compute groups.
+
+Counterpart of ``metrics_tpu/core/collections.py``. Groups come from
+``Metric._update_signature()`` at construction: metrics whose updates
+provably produce identical state (the stat-scores family with equal init
+args) declare equal keys, the collection updates only each group's leader
+and its members share the leader's state tensors by reference (state is
+never written in place, see ``core/metric.py``). The JAX package's fused
+dispatcher and engine hooks have no counterpart here.
+"""
+from __future__ import annotations
+
+from copy import deepcopy
+from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple, Union
+
+from metrics_tpu_torch.core.metric import Metric, StateDict
+
+
+class MetricCollection:
+    """Ordered dict of metrics sharing one call signature.
+
+    Args:
+        metrics: a Metric, a sequence of Metrics, or a dict name->Metric.
+        additional_metrics: more metrics when ``metrics`` is a single one.
+        prefix / postfix: added to every output key.
+        compute_groups: enable static compute-group sharing (default True).
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Accuracy, MetricCollection, Recall
+        >>> target = torch.tensor([0, 2, 0, 2, 0, 1, 0, 2])
+        >>> preds = torch.tensor([2, 1, 2, 0, 1, 2, 2, 2])
+        >>> metrics = MetricCollection([
+        ...     Accuracy(device="cpu"),
+        ...     Recall(num_classes=3, average="macro", device="cpu"),
+        ... ])
+        >>> metrics.update(preds, target)
+        >>> {k: round(float(v), 4) for k, v in metrics.compute().items()}
+        {'Accuracy': 0.125, 'Recall': 0.1111}
+    """
+
+    def __init__(
+        self,
+        metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]],
+        *additional_metrics: Metric,
+        prefix: Optional[str] = None,
+        postfix: Optional[str] = None,
+        compute_groups: bool = True,
+    ) -> None:
+        self._metrics: Dict[str, Metric] = {}
+        self.prefix = self._check_arg(prefix, "prefix")
+        self.postfix = self._check_arg(postfix, "postfix")
+        self._enable_compute_groups = compute_groups
+        self._groups: List[List[str]] = []
+        self.add_metrics(metrics, *additional_metrics)
+
+    @staticmethod
+    def _check_arg(arg: Optional[str], name: str) -> Optional[str]:
+        if arg is None or isinstance(arg, str):
+            return arg
+        raise ValueError(f"Expected input `{name}` to be a string, but got {type(arg)}")
+
+    # ------------------------------------------------------------------ #
+    # construction
+    # ------------------------------------------------------------------ #
+    def add_metrics(self, metrics: Union[Metric, Sequence[Metric], Dict[str, Metric]], *additional_metrics: Metric) -> None:
+        """Add metrics to the collection."""
+        if isinstance(metrics, Metric):
+            metrics = [metrics]
+        if isinstance(metrics, Sequence):
+            metrics = list(metrics)
+            remain: list = []
+            for m in additional_metrics:
+                (metrics if isinstance(m, Metric) else remain).append(m)
+            if remain:
+                raise ValueError(
+                    f"MetricCollection received positional arguments that are not Metric instances: {remain}"
+                )
+        elif additional_metrics:
+            raise ValueError(
+                f"MetricCollection was given a dict of metrics plus extra positional arguments "
+                f"{additional_metrics}; pass either a single dict or a sequence of metrics, not both."
+            )
+
+        if isinstance(metrics, dict):
+            for name in sorted(metrics.keys()):
+                metric = metrics[name]
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"MetricCollection entry {name!r} must be a Metric or "
+                        f"MetricCollection, got {type(metric).__name__}: {metric!r}"
+                    )
+                if isinstance(metric, Metric):
+                    self._metrics[name] = metric
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        self._metrics[f"{name}_{k}"] = v
+        elif isinstance(metrics, Sequence):
+            for metric in metrics:
+                if not isinstance(metric, (Metric, MetricCollection)):
+                    raise ValueError(
+                        f"MetricCollection members must be Metric or MetricCollection "
+                        f"instances, got {type(metric).__name__}: {metric!r}"
+                    )
+                if isinstance(metric, Metric):
+                    name = metric.__class__.__name__
+                    if name in self._metrics:
+                        raise ValueError(
+                            f"Two metrics in the sequence share the class name {name!r}; "
+                            "use a dict of metrics to give them distinct keys."
+                        )
+                    self._metrics[name] = metric
+                else:
+                    for k, v in metric.items(keep_base=False):
+                        self._metrics[k] = v
+        else:
+            raise ValueError("Unknown input to MetricCollection.")
+        self._rebuild_groups()
+
+    def _rebuild_groups(self) -> None:
+        """Static grouping by update signature."""
+        self._groups = []
+        if not self._enable_compute_groups:
+            self._groups = [[k] for k in self._metrics]
+            return
+        sig_to_group: Dict[Hashable, List[str]] = {}
+        for name, metric in self._metrics.items():
+            sig = metric._update_signature()
+            if sig is None:
+                self._groups.append([name])
+            else:
+                sig_to_group.setdefault(sig, []).append(name)
+        self._groups.extend(sig_to_group.values())
+
+    @property
+    def compute_groups(self) -> Dict[int, List[str]]:
+        """Group index -> member names."""
+        return {i: list(g) for i, g in enumerate(self._groups)}
+
+    # ------------------------------------------------------------------ #
+    # dict interface with prefix/postfix handling
+    # ------------------------------------------------------------------ #
+    def _set_name(self, base: str) -> str:
+        name = base if self.prefix is None else self.prefix + base
+        return name if self.postfix is None else name + self.postfix
+
+    def keys(self, keep_base: bool = False) -> List[str]:
+        if keep_base:
+            return list(self._metrics.keys())
+        return [self._set_name(k) for k in self._metrics.keys()]
+
+    def items(self, keep_base: bool = False) -> List[Tuple[str, Metric]]:
+        if keep_base:
+            return list(self._metrics.items())
+        return [(self._set_name(k), v) for k, v in self._metrics.items()]
+
+    def values(self) -> List[Metric]:
+        return list(self._metrics.values())
+
+    def __getitem__(self, key: str) -> Metric:
+        if key in self._metrics:
+            return self._metrics[key]
+        for k in self._metrics:  # lookup by prefixed name
+            if self._set_name(k) == key:
+                return self._metrics[k]
+        raise KeyError(key)
+
+    def __setitem__(self, key: str, metric: Metric) -> None:
+        self._metrics[key] = metric
+        self._rebuild_groups()
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._metrics
+
+    def __iter__(self):
+        return iter(self._metrics)
+
+    def __len__(self) -> int:
+        return len(self._metrics)
+
+    # ------------------------------------------------------------------ #
+    # metric interface
+    # ------------------------------------------------------------------ #
+    def forward(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Per-member forward (batch value + accumulation)."""
+        res = {self._set_name(k): m(*args, **m._filter_kwargs(**kwargs)) for k, m in self._metrics.items()}
+        return _flatten_results(res)
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        return self.forward(*args, **kwargs)
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """One update per compute group; members share the leader's state."""
+        for group in self._groups:
+            leader = self._metrics[group[0]]
+            leader.update(*args, **leader._filter_kwargs(**kwargs))
+            if len(group) > 1:
+                state = leader.get_state()
+                for name in group[1:]:
+                    m = self._metrics[name]
+                    m.set_state(state)
+                    m._update_count = leader._update_count
+                    m._computed = None
+
+    def compute(self) -> Dict[str, Any]:
+        """Value per member."""
+        return _flatten_results({self._set_name(k): m.compute() for k, m in self._metrics.items()})
+
+    def reset(self) -> None:
+        for m in self._metrics.values():
+            m.reset()
+
+    def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
+        mc = deepcopy(self)
+        if prefix:
+            mc.prefix = self._check_arg(prefix, "prefix")
+        if postfix:
+            mc.postfix = self._check_arg(postfix, "postfix")
+        return mc
+
+    def persistent(self, mode: bool = True) -> None:
+        for m in self._metrics.values():
+            m.persistent(mode)
+
+    def state_dict(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for k, m in self._metrics.items():
+            out.update(m.state_dict(prefix=f"{k}."))
+        return out
+
+    def load_state_dict(self, state_dict: Dict[str, Any], strict: bool = True) -> None:
+        for k, m in self._metrics.items():
+            m.load_state_dict(state_dict, prefix=f"{k}.", strict=strict)
+
+    # ------------------------------------------------------------------ #
+    # pure protocol over per-group states
+    # ------------------------------------------------------------------ #
+    def init_state(self) -> Dict[str, StateDict]:
+        """One state per compute group, keyed by leader name."""
+        return {g[0]: self._metrics[g[0]].init_state() for g in self._groups}
+
+    def update_state(self, states: Dict[str, StateDict], *args: Any, **kwargs: Any) -> Dict[str, StateDict]:
+        """Pure update of every group's state."""
+        out = {}
+        for group in self._groups:
+            leader = self._metrics[group[0]]
+            out[group[0]] = leader.update_state(states[group[0]], *args, **leader._filter_kwargs(**kwargs))
+        return out
+
+    def compute_state(self, states: Dict[str, StateDict]) -> Dict[str, Any]:
+        """Pure compute over per-group states."""
+        res = {}
+        for group in self._groups:
+            for name in group:
+                res[self._set_name(name)] = self._metrics[name].compute_state(states[group[0]])
+        return _flatten_results(res)
+
+    def __repr__(self) -> str:
+        repr_str = self.__class__.__name__ + "(\n"
+        for k, v in self._metrics.items():
+            repr_str += f"  ({k}): {repr(v)}\n"
+        if self.prefix:
+            repr_str += f"  prefix={self.prefix}\n"
+        if self.postfix:
+            repr_str += f"  postfix={self.postfix}\n"
+        return repr_str + ")"
+
+
+def _flatten_results(res: Dict[str, Any]) -> Dict[str, Any]:
+    """Flatten nested dict results one level."""
+    out: Dict[str, Any] = {}
+    for k, v in res.items():
+        if isinstance(v, dict):
+            out.update(v)
+        else:
+            out[k] = v
+    return out

@@ -1,0 +1,536 @@
+"""The Metric base: a pure state protocol behind a stateful facade.
+
+Counterpart of ``metrics_tpu/core/metric.py``: ``add_state`` with the sum,
+mean, max, min and cat reduction tags, the pure ``init_state`` /
+``update_state`` / ``compute_state`` / ``merge_states`` protocol, the
+``update`` / ``compute`` / ``forward`` / ``reset`` facade, ``state_dict`` and
+``CompositionalMetric``. The JAX package's compiled engines, sharding,
+sketches, incremental sync, tracer and resilience guard have no counterpart
+here.
+
+State lives on one explicit device. ``device=None`` means CUDA; without a
+card the constructor raises instead of quietly running on the CPU, so CPU
+callers (the tests) pass ``device="cpu"``. Inputs on another device than the
+state raise.
+
+State tensors are treated as immutable: every update rebinds the attribute
+to a new tensor (``self.tp = self.tp + tp``) and never writes in place, so a
+``MetricCollection`` can share one group leader's tensors with its members by
+reference.
+"""
+from __future__ import annotations
+
+import functools
+import inspect
+from copy import deepcopy
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import torch
+import torch.distributed as dist
+from torch import Tensor
+
+from metrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+StateValue = Union[Tensor, List[Tensor]]
+StateDict = Dict[str, StateValue]
+
+_PROTECTED_PROPERTIES = ("is_differentiable", "higher_is_better", "full_state_update")
+_REDUCTIONS = ("sum", "mean", "cat", "max", "min", None)
+
+
+def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
+    """The device metric state lives on: CUDA unless the caller names another.
+
+    Raises when CUDA is asked for (explicitly or by default) and no card is
+    present, so a metric never falls back to the CPU unasked.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "metric state defaults to CUDA, but no CUDA device is available; "
+                "pass device='cpu' to keep the state on the CPU"
+            )
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _copy_state_value(value: StateValue) -> StateValue:
+    """A fresh leaf: tensors are cloned (so no caller can write into a
+    default), lists are re-wrapped."""
+    if isinstance(value, list):
+        return list(value)
+    return value.clone()
+
+
+def _check_single_process() -> None:
+    """Sync over ``torch.distributed`` is not ported yet: refuse to return
+    unsynced per-rank values from a multi-rank run."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "metrics_tpu_torch does not sync metric state across processes yet; "
+            f"compute() found a process group of world size {dist.get_world_size()}"
+        )
+
+
+class Metric:
+    """Base class for all metrics.
+
+    Args:
+        device: where the state lives. ``None`` (default) is the current CUDA
+            device and raises when there is none; pass ``"cpu"`` to run on
+            the CPU.
+
+    Example (a custom metric):
+        >>> import torch
+        >>> from metrics_tpu_torch import Metric
+        >>> class SumOfInputs(Metric):
+        ...     full_state_update = False
+        ...     def __init__(self, **kwargs):
+        ...         super().__init__(**kwargs)
+        ...         self.add_state("total", torch.tensor(0.0), dist_reduce_fx="sum")
+        ...     def update(self, x):
+        ...         self.total = self.total + x.sum()
+        ...     def compute(self):
+        ...         return self.total
+        >>> metric = SumOfInputs(device="cpu")
+        >>> metric.update(torch.tensor([1.0, 2.0]))
+        >>> float(metric.compute())
+        3.0
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = True
+
+    def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
+        if kwargs:
+            raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
+        self._device = resolve_device(device)
+        self._defaults: Dict[str, StateValue] = {}
+        self._persistent: Dict[str, bool] = {}
+        self._reductions: Dict[str, Optional[Union[str, Callable]]] = {}
+        self._update_count = 0
+        self._forward_cache: Any = None
+        self._computed: Any = None
+
+        # wrap the subclass update/compute with bookkeeping
+        self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
+        self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+
+    # ------------------------------------------------------------------ #
+    # state registry
+    # ------------------------------------------------------------------ #
+    def add_state(
+        self,
+        name: str,
+        default: StateValue,
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Register a state variable.
+
+        ``default`` is a tensor (fixed-shape state, moved to the metric's
+        device) or an empty list (a ``cat`` buffer). ``dist_reduce_fx`` is
+        one of ``"sum"|"mean"|"max"|"min"|"cat"``, a callable applied to the
+        stacked values, or None (keep every value).
+        """
+        if not isinstance(default, Tensor) and not (isinstance(default, list) and default == []):
+            raise ValueError("state variable must be a tensor or an empty list")
+        if dist_reduce_fx not in _REDUCTIONS and not callable(dist_reduce_fx):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        if isinstance(default, Tensor):
+            default = default.to(self._device)
+        self._defaults[name] = _copy_state_value(default)
+        self._persistent[name] = persistent
+        self._reductions[name] = dist_reduce_fx
+        setattr(self, name, _copy_state_value(default))
+
+    @property
+    def metric_state(self) -> StateDict:
+        """Current state values keyed by registered name."""
+        return {attr: getattr(self, attr) for attr in self._defaults}
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # ------------------------------------------------------------------ #
+    # pure functional protocol
+    # ------------------------------------------------------------------ #
+    def init_state(self) -> StateDict:
+        """Fresh state from the registered defaults."""
+        return {k: _copy_state_value(v) for k, v in self._defaults.items()}
+
+    def get_state(self) -> StateDict:
+        return {k: getattr(self, k) for k in self._defaults}
+
+    def set_state(self, state: StateDict) -> None:
+        for k, v in state.items():
+            setattr(self, k, list(v) if isinstance(v, list) else v)
+
+    def update_state(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
+        """Pure: return ``state`` advanced by one batch. The stateful
+        ``update`` and this function share one implementation."""
+        prev = self.get_state()
+        try:
+            self.set_state(state)
+            self._check_input_devices(args, kwargs)
+            self._update(*args, **kwargs)
+            return self.get_state()
+        finally:
+            self.set_state(prev)
+
+    def compute_state(self, state: StateDict) -> Any:
+        """Pure: metric value from a state (no cache)."""
+        prev = self.get_state()
+        try:
+            self.set_state(state)
+            return self._compute()
+        finally:
+            self.set_state(prev)
+
+    def merge_states(self, state: StateDict, incoming: StateDict, update_counts: Tuple[int, int] = (1, 1)) -> StateDict:
+        """Pure cross-batch merge by reduction tag."""
+        n_a, n_b = update_counts
+        out: StateDict = {}
+        for attr in self._defaults:
+            a, b = state[attr], incoming[attr]
+            reduce_fn = self._reductions[attr]
+            if reduce_fn == "sum":
+                out[attr] = a + b
+            elif reduce_fn == "mean":
+                out[attr] = (n_a * a + n_b * b) / max(n_a + n_b, 1)
+            elif reduce_fn == "max":
+                out[attr] = torch.maximum(a, b)
+            elif reduce_fn == "min":
+                out[attr] = torch.minimum(a, b)
+            elif reduce_fn == "cat":
+                out[attr] = list(a) + list(b) if isinstance(a, list) else torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)])
+            elif reduce_fn is None and isinstance(a, list):
+                out[attr] = _flatten([list(a), list(b)])
+            elif reduce_fn is None:
+                out[attr] = torch.stack([a, b])
+            else:
+                out[attr] = reduce_fn(torch.stack([a, b]))
+        return out
+
+    # ------------------------------------------------------------------ #
+    # stateful facade: forward / update / compute
+    # ------------------------------------------------------------------ #
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return self.forward(*args, **kwargs)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Compute the metric on the batch AND accumulate into the global state."""
+        if self.full_state_update or self.full_state_update is None:
+            self._forward_cache = self._forward_full_state_update(*args, **kwargs)
+        else:
+            self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
+        return self._forward_cache
+
+    def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """Two updates: one into the global state, one on a fresh state for
+        the batch value."""
+        self.update(*args, **kwargs)
+        update_count = self._update_count
+        global_state = self.get_state()
+        self.reset()
+        self.update(*args, **kwargs)
+        batch_val = self.compute()
+        self.set_state(global_state)
+        self._update_count = update_count
+        self._computed = None
+        return batch_val
+
+    def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """One update on a fresh state, then a merge into the global state."""
+        global_state = self.get_state()
+        update_count = self._update_count
+        self.reset()
+        self.update(*args, **kwargs)
+        batch_val = self.compute()
+        self._update_count = update_count + 1
+        # global state first: cat states keep their accumulation order
+        self.set_state(self.merge_states(global_state, self.get_state(), (update_count, 1)))
+        self._computed = None
+        return batch_val
+
+    def _check_input_devices(self, args: Tuple, kwargs: Dict) -> None:
+        for value in (*args, *kwargs.values()):
+            if isinstance(value, Tensor) and value.device != self._device:
+                raise ValueError(
+                    f"{type(self).__name__} keeps its state on {self._device}, "
+                    f"but an input lies on {value.device}"
+                )
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        @functools.wraps(update)
+        def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            self._check_input_devices(args, kwargs)
+            self._computed = None
+            self._update_count += 1
+            update(*args, **kwargs)
+
+        self._update = update  # unwrapped, used by the pure protocol
+        return wrapped_func
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            _check_single_process()
+            if self._update_count == 0:
+                rank_zero_warn(
+                    f"The ``compute`` method of metric {self.__class__.__name__}"
+                    " was called before the ``update`` method which may lead to errors,"
+                    " as metric states have not yet been updated.",
+                    UserWarning,
+                )
+            if self._computed is not None:
+                return self._computed
+            self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            return self._computed
+
+        self._compute = compute  # unwrapped, used by the pure protocol
+        return wrapped_func
+
+    def update(self, *args: Any, **kwargs: Any) -> None:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def compute(self) -> Any:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------ #
+    # lifecycle
+    # ------------------------------------------------------------------ #
+    def reset(self) -> None:
+        """Restore registered states to their defaults."""
+        self._update_count = 0
+        self._forward_cache = None
+        self._computed = None
+        for attr, default in self._defaults.items():
+            setattr(self, attr, _copy_state_value(default))
+
+    def clone(self) -> "Metric":
+        return deepcopy(self)
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name in _PROTECTED_PROPERTIES and hasattr(self, "_defaults"):
+            raise RuntimeError(f"Can't change const `{name}`.")
+        object.__setattr__(self, name, value)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """Drop the wrapped bound methods for pickling and deep copies."""
+        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_update", "_compute")}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self.update = self._wrap_update(type(self).update.__get__(self))  # type: ignore[method-assign]
+        self.compute = self._wrap_compute(type(self).compute.__get__(self))  # type: ignore[method-assign]
+
+    def to(self, device: Union[str, torch.device]) -> "Metric":
+        """Move all states (and defaults) to ``device``."""
+        self._device = resolve_device(device)
+
+        def move(val: StateValue) -> StateValue:
+            return [v.to(self._device) for v in val] if isinstance(val, list) else val.to(self._device)
+
+        for attr in self._defaults:
+            setattr(self, attr, move(getattr(self, attr)))
+        self._defaults = {k: move(d) for k, d in self._defaults.items()}
+        self._computed = None
+        return self
+
+    # ------------------------------------------------------------------ #
+    # serialization
+    # ------------------------------------------------------------------ #
+    def persistent(self, mode: bool = False) -> None:
+        for key in self._persistent:
+            self._persistent[key] = mode
+
+    def state_dict(self, prefix: str = "") -> Dict[str, Any]:
+        """Snapshot of the persistent states (detached clones)."""
+        out: Dict[str, Any] = {}
+        for key in self._defaults:
+            if self._persistent[key]:
+                current = getattr(self, key)
+                if isinstance(current, list):
+                    out[prefix + key] = [v.detach().clone() for v in current]
+                else:
+                    out[prefix + key] = current.detach().clone()
+        return out
+
+    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:
+        for key in self._defaults:
+            name = prefix + key
+            if name in state_dict:
+                val = state_dict[name]
+                if isinstance(val, list):
+                    setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
+                else:
+                    setattr(self, key, torch.as_tensor(val, device=self._device))
+            elif strict and self._persistent[key]:
+                raise KeyError(f"Missing key {name!r} in state_dict")
+        self._computed = None
+        self._forward_cache = None
+
+    # ------------------------------------------------------------------ #
+    # misc
+    # ------------------------------------------------------------------ #
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """Keep only kwargs the (unwrapped) update accepts."""
+        params = inspect.signature(self._update).parameters
+        if any(p.kind == inspect.Parameter.VAR_KEYWORD for p in params.values()):
+            return kwargs
+        return {
+            k: v
+            for k, v in kwargs.items()
+            if k in params and params[k].kind is not inspect.Parameter.VAR_POSITIONAL
+        }
+
+    def _update_signature(self) -> Optional[Tuple]:
+        """Static compute-group key: metrics returning equal keys share identical
+        state trajectories, so a MetricCollection updates one of them and
+        shares its state. None = never grouped."""
+        return None
+
+    def __hash__(self) -> int:
+        return hash((self.__class__.__name__, id(self)))
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}()"
+
+    # ------------------------------------------------------------------ #
+    # operator overloads -> CompositionalMetric
+    # ------------------------------------------------------------------ #
+    def __add__(self, other): return CompositionalMetric(torch.add, self, other)
+    def __radd__(self, other): return CompositionalMetric(torch.add, other, self)
+    def __sub__(self, other): return CompositionalMetric(torch.sub, self, other)
+    def __rsub__(self, other): return CompositionalMetric(torch.sub, other, self)
+    def __mul__(self, other): return CompositionalMetric(torch.mul, self, other)
+    def __rmul__(self, other): return CompositionalMetric(torch.mul, other, self)
+    def __truediv__(self, other): return CompositionalMetric(torch.true_divide, self, other)
+    def __rtruediv__(self, other): return CompositionalMetric(torch.true_divide, other, self)
+    def __floordiv__(self, other): return CompositionalMetric(torch.floor_divide, self, other)
+    def __rfloordiv__(self, other): return CompositionalMetric(torch.floor_divide, other, self)
+    def __mod__(self, other): return CompositionalMetric(torch.remainder, self, other)
+    def __rmod__(self, other): return CompositionalMetric(torch.remainder, other, self)
+    def __pow__(self, other): return CompositionalMetric(torch.pow, self, other)
+    def __rpow__(self, other): return CompositionalMetric(torch.pow, other, self)
+    def __matmul__(self, other): return CompositionalMetric(torch.matmul, self, other)
+    def __rmatmul__(self, other): return CompositionalMetric(torch.matmul, other, self)
+    def __and__(self, other): return CompositionalMetric(torch.bitwise_and, self, other)
+    def __rand__(self, other): return CompositionalMetric(torch.bitwise_and, other, self)
+    def __or__(self, other): return CompositionalMetric(torch.bitwise_or, self, other)
+    def __ror__(self, other): return CompositionalMetric(torch.bitwise_or, other, self)
+    def __xor__(self, other): return CompositionalMetric(torch.bitwise_xor, self, other)
+    def __rxor__(self, other): return CompositionalMetric(torch.bitwise_xor, other, self)
+    def __eq__(self, other): return CompositionalMetric(torch.eq, self, other)  # type: ignore[override]
+    def __ne__(self, other): return CompositionalMetric(torch.ne, self, other)  # type: ignore[override]
+    def __lt__(self, other): return CompositionalMetric(torch.lt, self, other)
+    def __le__(self, other): return CompositionalMetric(torch.le, self, other)
+    def __gt__(self, other): return CompositionalMetric(torch.gt, self, other)
+    def __ge__(self, other): return CompositionalMetric(torch.ge, self, other)
+    def __abs__(self): return CompositionalMetric(torch.abs, self, None)
+    def __neg__(self): return CompositionalMetric(_neg, self, None)
+    def __pos__(self): return CompositionalMetric(torch.abs, self, None)
+    def __invert__(self): return CompositionalMetric(torch.logical_not, self, None)
+    def __getitem__(self, idx): return CompositionalMetric(lambda x: x[idx], self, None)
+
+
+def _neg(x: Tensor) -> Tensor:
+    return -torch.abs(x)
+
+
+class CompositionalMetric(Metric):
+    """Lazy arithmetic composition of metrics.
+
+    Built by applying python operators to metrics; ``compute`` evaluates the
+    operands first, then the operator. Lives on the device of its first
+    metric operand; constant operands are moved there.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Accuracy
+        >>> first = Accuracy(device="cpu")
+        >>> combined = 1 - first
+        >>> type(combined).__name__
+        'CompositionalMetric'
+        >>> combined.update(torch.tensor([0, 1, 1, 0]), torch.tensor([0, 1, 0, 0]))
+        >>> float(combined.compute())
+        0.25
+    """
+
+    full_state_update = True
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, int, Tensor, None],
+        metric_b: Union[Metric, float, int, Tensor, None],
+    ) -> None:
+        operand = metric_a if isinstance(metric_a, Metric) else metric_b
+        super().__init__(device=operand.device)
+        self.op = operator
+        self.metric_a = self._as_operand(metric_a)
+        self.metric_b = self._as_operand(metric_b)
+
+    def _as_operand(self, value: Union[Metric, float, int, Tensor, None]) -> Union[Metric, Tensor, None]:
+        if value is None or isinstance(value, Metric):
+            return value
+        return torch.as_tensor(value, device=self.device)
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        return kwargs
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        # caching and the compute-before-update warning belong to the operands
+        return compute
+
+    def update(self, *args: Any, **kwargs: Any) -> None:  # type: ignore[override]
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:  # type: ignore[override]
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs)) if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs)) if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = self.op(val_a) if not isinstance(self.metric_b, Metric) else None
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+        self._update_count = 0
+        self._forward_cache = None
+        self._computed = None
+
+    def persistent(self, mode: bool = False) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.persistent(mode=mode)
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.persistent(mode=mode)
+
+    def __repr__(self) -> str:
+        op_name = self.op.__name__ if hasattr(self.op, "__name__") else "op"
+        return f"{self.__class__.__name__}(\n  {op_name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def __hash__(self) -> int:
+        return hash((self.__class__.__name__, id(self)))
