@@ -19,6 +19,7 @@ from metrics_tpu_torch.classification import (
 )
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.detection import MeanAveragePrecision
 
 __all__ = [
     "Accuracy",
@@ -28,6 +29,7 @@ __all__ = [
     "CompositionalMetric",
     "F1Score",
     "FBetaScore",
+    "MeanAveragePrecision",
     "Metric",
     "MetricCollection",
     "Precision",

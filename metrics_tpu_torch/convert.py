@@ -8,6 +8,10 @@ in ``metrics_tpu`` and continue in ``metrics_tpu_torch``; ``state_to_numpy``
 goes the other way. Dtype and shape are checked against the port metric's
 registered defaults, so an int64 or float64 array never slips into int32 or
 float32 state.
+
+A ``CatBuffer`` state travels as its valid rows: on the JAX side that is
+``np.asarray(buf.to_array())``. It loads into a port buffer of capacity
+``max(default capacity, rows)``, with its dtype and item shape checked.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
+from metrics_tpu_torch.core.buffers import CatBuffer
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import Metric, StateDict, resolve_device
 
@@ -32,6 +37,9 @@ def _metric_state_from_numpy(metric: Metric, arrays: Arrays, device: torch.devic
         if isinstance(default, list):
             raise ValueError(f"{type(metric).__name__}.{name} is a list state; only tensor states convert")
         arr = np.asarray(arrays[name])
+        if isinstance(default, CatBuffer):
+            state[name] = _buffer_from_numpy(metric, name, default, arr, device)
+            continue
         want = torch.empty((), dtype=default.dtype).numpy().dtype
         if arr.dtype != want or tuple(arr.shape) != tuple(default.shape):
             raise ValueError(
@@ -40,6 +48,17 @@ def _metric_state_from_numpy(metric: Metric, arrays: Arrays, device: torch.devic
             )
         state[name] = torch.from_numpy(np.array(arr, copy=True)).to(device)
     return state
+
+
+def _buffer_from_numpy(metric: Metric, name: str, default: CatBuffer, arr: np.ndarray, device: torch.device) -> CatBuffer:
+    if default.materialized:
+        want = torch.empty((), dtype=default.data.dtype).numpy().dtype
+        if arr.dtype != want or tuple(arr.shape[1:]) != default.item_shape:
+            raise ValueError(
+                f"{type(metric).__name__}.{name}: expected rows of {want} {default.item_shape}, "
+                f"got {arr.dtype} {tuple(arr.shape[1:])}"
+            )
+    return CatBuffer.from_array(torch.from_numpy(np.array(arr, copy=True)).to(device), capacity=default.capacity)
 
 
 def state_from_numpy(
@@ -78,4 +97,7 @@ def state_to_numpy(metric: Union[Metric, MetricCollection]) -> Dict:
     """The current state as numpy arrays (per group leader for a collection)."""
     if isinstance(metric, MetricCollection):
         return {g[0]: state_to_numpy(metric[g[0]]) for g in metric.compute_groups.values()}
-    return {name: value.detach().cpu().numpy() for name, value in metric.get_state().items()}
+    return {
+        name: (value.to_array() if isinstance(value, CatBuffer) else value).detach().cpu().numpy()
+        for name, value in metric.get_state().items()
+    }

@@ -29,10 +29,12 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
+from metrics_tpu_torch.core.buffers import CatBuffer
 from metrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
-StateValue = Union[Tensor, List[Tensor]]
+StateValue = Union[Tensor, List[Tensor], CatBuffer]
 StateDict = Dict[str, StateValue]
 
 _PROTECTED_PROPERTIES = ("is_differentiable", "higher_is_better", "full_state_update")
@@ -58,11 +60,25 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
 
 
 def _copy_state_value(value: StateValue) -> StateValue:
-    """A fresh leaf: tensors are cloned (so no caller can write into a
-    default), lists are re-wrapped."""
+    """A fresh leaf: tensors and buffers are cloned (so no caller can write
+    into a default), lists are re-wrapped."""
     if isinstance(value, list):
         return list(value)
+    if isinstance(value, CatBuffer):
+        return value.copy()
     return value.clone()
+
+
+def _tensors_in(value: Any):
+    """Every tensor in ``value``, walking lists, tuples and dicts."""
+    if isinstance(value, Tensor):
+        yield value
+    elif isinstance(value, (list, tuple)):
+        for item in value:
+            yield from _tensors_in(item)
+    elif isinstance(value, dict):
+        for item in value.values():
+            yield from _tensors_in(item)
 
 
 def _check_single_process() -> None:
@@ -82,6 +98,10 @@ class Metric:
         device: where the state lives. ``None`` (default) is the current CUDA
             device and raises when there is none; pass ``"cpu"`` to run on
             the CPU.
+        buffer_capacity: when set, every state registered with ``default=[]``
+            and ``dist_reduce_fx="cat"`` becomes a :class:`CatBuffer` of this
+            many rows instead of a list; metrics with buffer states of their
+            own take it as their row capacity.
 
     Example (a custom metric):
         >>> import torch
@@ -105,9 +125,17 @@ class Metric:
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = True
 
-    def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
+    def __init__(
+        self,
+        device: Optional[Union[str, torch.device]] = None,
+        buffer_capacity: Optional[int] = None,
+        **kwargs: Any,
+    ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
+        if buffer_capacity is not None and (not isinstance(buffer_capacity, int) or buffer_capacity <= 0):
+            raise ValueError(f"Expected keyword argument `buffer_capacity` to be a positive int but got {buffer_capacity}")
+        self.buffer_capacity = buffer_capacity
         self._device = resolve_device(device)
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
@@ -133,15 +161,27 @@ class Metric:
         """Register a state variable.
 
         ``default`` is a tensor (fixed-shape state, moved to the metric's
-        device) or an empty list (a ``cat`` buffer). ``dist_reduce_fx`` is
-        one of ``"sum"|"mean"|"max"|"min"|"cat"``, a callable applied to the
-        stacked values, or None (keep every value).
+        device), an empty list (a ``cat`` list), or a :class:`CatBuffer`
+        (a ``cat`` buffer of fixed item shape). ``dist_reduce_fx`` is one of
+        ``"sum"|"mean"|"max"|"min"|"cat"``, a callable applied to the
+        stacked values, or None (keep every value). With ``buffer_capacity``
+        set, an empty-list ``cat`` state becomes a buffer of that capacity.
         """
-        if not isinstance(default, Tensor) and not (isinstance(default, list) and default == []):
-            raise ValueError("state variable must be a tensor or an empty list")
+        if not isinstance(default, (Tensor, CatBuffer)) and not (isinstance(default, list) and default == []):
+            raise ValueError("state variable must be a tensor, an empty list or a CatBuffer")
         if dist_reduce_fx not in _REDUCTIONS and not callable(dist_reduce_fx):
             raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
-        if isinstance(default, Tensor):
+        if isinstance(default, CatBuffer) and dist_reduce_fx != "cat":
+            raise ValueError(f"state {name!r}: a CatBuffer default needs dist_reduce_fx='cat'")
+        if isinstance(default, list) and self.buffer_capacity is not None:
+            if dist_reduce_fx != "cat":
+                raise MetricsUserError(
+                    f"{type(self).__name__} does not support `buffer_capacity`: state {name!r} is "
+                    "a list of per-element entries (not a flat dim-0 concatenation), so it cannot "
+                    "be stored in a fixed-capacity CatBuffer. Remove the `buffer_capacity` argument."
+                )
+            default = CatBuffer.empty(self.buffer_capacity)
+        if isinstance(default, (Tensor, CatBuffer)):
             default = default.to(self._device)
         self._defaults[name] = _copy_state_value(default)
         self._persistent[name] = persistent
@@ -173,10 +213,11 @@ class Metric:
 
     def update_state(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
         """Pure: return ``state`` advanced by one batch. The stateful
-        ``update`` and this function share one implementation."""
+        ``update`` and this function share one implementation. Buffers are
+        copied first, since appends write into them in place."""
         prev = self.get_state()
         try:
-            self.set_state(state)
+            self.set_state({k: v.copy() if isinstance(v, CatBuffer) else v for k, v in state.items()})
             self._check_input_devices(args, kwargs)
             self._update(*args, **kwargs)
             return self.get_state()
@@ -207,6 +248,8 @@ class Metric:
                 out[attr] = torch.maximum(a, b)
             elif reduce_fn == "min":
                 out[attr] = torch.minimum(a, b)
+            elif isinstance(a, CatBuffer):
+                out[attr] = a.merge(b)
             elif reduce_fn == "cat":
                 out[attr] = list(a) + list(b) if isinstance(a, list) else torch.cat([torch.atleast_1d(a), torch.atleast_1d(b)])
             elif reduce_fn is None and isinstance(a, list):
@@ -259,8 +302,8 @@ class Metric:
         return batch_val
 
     def _check_input_devices(self, args: Tuple, kwargs: Dict) -> None:
-        for value in (*args, *kwargs.values()):
-            if isinstance(value, Tensor) and value.device != self._device:
+        for value in _tensors_in((args, kwargs)):
+            if value.device != self._device:
                 raise ValueError(
                     f"{type(self).__name__} keeps its state on {self._device}, "
                     f"but an input lies on {value.device}"
@@ -358,6 +401,11 @@ class Metric:
                 current = getattr(self, key)
                 if isinstance(current, list):
                     out[prefix + key] = [v.detach().clone() for v in current]
+                elif isinstance(current, CatBuffer):
+                    # the compact valid prefix, as the JAX package checkpoints it
+                    out[prefix + key] = (
+                        current.to_array().detach().clone() if current else torch.zeros((0,), dtype=torch.float32)
+                    )
                 else:
                     out[prefix + key] = current.detach().clone()
         return out
@@ -367,7 +415,13 @@ class Metric:
             name = prefix + key
             if name in state_dict:
                 val = state_dict[name]
-                if isinstance(val, list):
+                default = self._defaults[key]
+                if isinstance(default, CatBuffer):
+                    if isinstance(val, list):
+                        val = torch.cat([torch.atleast_1d(torch.as_tensor(v)) for v in val]) if val else torch.zeros(0)
+                    arr = torch.as_tensor(val, device=self._device)
+                    setattr(self, key, default.copy() if arr.shape[0] == 0 else CatBuffer.from_array(arr, capacity=default.capacity))
+                elif isinstance(val, list):
                     setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
                 else:
                     setattr(self, key, torch.as_tensor(val, device=self._device))

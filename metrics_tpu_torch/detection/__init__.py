@@ -1,0 +1,3 @@
+from metrics_tpu_torch.detection.mean_ap import MeanAveragePrecision
+
+__all__ = ["MeanAveragePrecision"]

@@ -62,7 +62,7 @@ class Kernel:
 
     name: str
     source: str  # file name under csrc/
-    replaces: str  # the TPU kernel it replaces, file:line
+    replaces: str  # the JAX function it replaces, file:line
     signatures: Dict[str, Tuple[Sequence, object]]  # C symbol -> (argtypes, restype)
     launches: int = 0
     build_log: str = ""
@@ -119,6 +119,26 @@ KERNELS: Dict[str, Kernel] = {
             # preds, target, thr_sorted, order, hist, tp, fp, fn, n, c, t, stream
             "binned_counts_launch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), ctypes.c_int),
             "binned_counts_class_block": ((_I, _I), ctypes.c_int),
+        },
+    ),
+    "pairwise_iou": Kernel(
+        name="pairwise_iou",
+        source="pairwise_iou.cu",
+        replaces="metrics_tpu/ops/kernels/iou_matching.py:41",
+        signatures={
+            # det, gt, out, b, d, g, stream
+            "pairwise_iou_launch": ((_P, _P, _P, _I, _I, _I, _P), ctypes.c_int),
+        },
+    ),
+    "greedy_match": Kernel(
+        name="greedy_match",
+        source="greedy_match.cu",
+        # not a Pallas kernel: the lax.scan of _merged_greedy_match
+        replaces="metrics_tpu/ops/kernels/iou_matching.py:83",
+        signatures={
+            # ious, det_ok, det_labels, gt_labels, gt_ok, gt_ignore, thresholds, out, b, a, t, d, g, stream
+            "greedy_match_launch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+            "greedy_match_max_g": ((), ctypes.c_int),
         },
     ),
 }

@@ -195,6 +195,7 @@ def test_metrics_default_to_cuda_and_never_fall_back(monkeypatch):
         lambda: mt_torch.Accuracy(),
         lambda: mt_torch.F1Score(num_classes=C, average="macro"),
         lambda: mt_torch.BinnedAveragePrecision(num_classes=C),
+        lambda: mt_torch.MeanAveragePrecision(),
         lambda: mt_torch.Accuracy(device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -224,7 +225,8 @@ def test_reset_restores_defaults_and_keeps_them_intact():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
-        "import metrics_tpu_torch, metrics_tpu_torch.convert, metrics_tpu_torch.ops\n"
+        "import metrics_tpu_torch, metrics_tpu_torch.convert, metrics_tpu_torch.ops, metrics_tpu_torch.detection\n"
+        "import metrics_tpu_torch.ops.kernels.iou_matching\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -259,6 +261,9 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.ops.classification.accuracy",
     "metrics_tpu_torch.ops.classification.precision_recall",
     "metrics_tpu_torch.ops.classification.f_beta",
+    "metrics_tpu_torch.core.buffers",
+    "metrics_tpu_torch.ops.detection.boxes",
+    "metrics_tpu_torch.detection.mean_ap",
 ]
 
 
