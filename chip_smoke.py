@@ -27,9 +27,22 @@ is missing. Phases:
    forced onto their plain versions. Every result must match bit for bit,
    each kernel must have launched once per 256-image chunk, and the
    metric's docstring example must give its documented values on the card.
+3c. The text path: BERTScore at roberta-large width (an encoder with
+   roberta-large's published configuration and seeded random weights, passed
+   as the user's model) over 2,000 sentence pairs, the size of WMT19 de-en
+   newstest2019, made on the card from a seed and padded to 512 tokens. The
+   maxsim kernel must have launched once for the one compute; it is then held
+   against its plain version on that very compute's (2000, 1, 512, 1024)
+   embeddings. Every score must be finite, identical pairs must score 1, and
+   the metric's docstring example must give its documented values.
 4. Timing with CUDA events (median after warm-up): each kernel beside its
-   plain version and its bound, one whole update step of each path, compute,
-   and the device's idle share from the profiler.
+   plain version, its bound and, where one exists, a PyTorch call computing
+   the same function; one whole update step of each path, compute, and the
+   device's idle share from the profiler.
+
+Phase 2 holds the integer and IoU kernels bit for bit against their plain
+versions; maxsim (2c) sums in another order than the plain version's matrix
+product, so it is held within 1e-5 of it and of a float64 recomputation.
 
 The line before the last is the card's name and power limit as nvidia-smi
 reports them; before it, one JSON line ``{"kernels": [...]}``; the last line
@@ -49,12 +62,21 @@ N_SAMPLES, N_CLASSES, BATCH, N_THRESHOLDS = 50_000, 1000, 1024, 100
 # COCO val2017: 5,000 images, 80 classes, maxDets=100, 36,781 instances
 COCO_IMAGES, COCO_CLASSES, COCO_DETS, COCO_BATCH = 5000, 80, 100, 16
 COCO_W, COCO_H, COCO_GT_RATE, COCO_MAX_GT = 640.0, 480.0, 6.4, 64
+# WMT19 de-en newstest2019: 2,000 sentence pairs; 8 of them identical (controls)
+BERT_PAIRS, BERT_BATCH, BERT_MAX_LEN, BERT_CONTROLS = 2000, 64, 512, 8
+# roberta-large's published configuration (Hugging Face roberta-large config.json)
+ROBERTA_LARGE = dict(vocab=50265, hidden=1024, layers=24, heads=16, ffn=4096, positions=514, eps=1e-5,
+                     pad=1, bos=0, eos=2)
+MAXSIM_ATOL, PRF_RTOL = 1e-5, 1e-4
 CLASSIFICATION_KERNELS = ("binned_counts",)
 DETECTION_KERNELS = ("pairwise_iou", "greedy_match")
-# HBM rate by card (NVIDIA data sheets); the H100 SXM part is the default
+TEXT_KERNELS = ("maxsim",)
+# HBM rate and float32 rate outside the tensor cores by card (NVIDIA data
+# sheets); the H100 SXM part (named "H100 80GB HBM3") is the default
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
+FP32_FLOP_PER_S = {"H100 PCIe": 51e12, "H100 NVL": 60e12}
 H100_SXM_HBM = 3.35e12
-FP32_PEAK = 67e12  # H100 SXM, outside the tensor cores
+H100_SXM_FP32 = 67e12
 
 
 def fail(message: str) -> None:
@@ -75,17 +97,18 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hbm_rate(name: str) -> float:
-    for key, rate in HBM_BYTES_PER_S.items():
+def card_rate(table: dict, default: float, name: str) -> float:
+    for key, rate in table.items():
         if key in name:
             return rate
-    return H100_SXM_HBM
+    return default
 
 
 def bound(bytes_moved: float, ops: float, name: str):
     """The least time in ms for the work (the larger of bytes over the memory
     rate and float32 operations over the peak rate) and which one bounds it."""
-    t_bytes, t_ops = bytes_moved / hbm_rate(name), ops / FP32_PEAK
+    t_bytes = bytes_moved / card_rate(HBM_BYTES_PER_S, H100_SXM_HBM, name)
+    t_ops = ops / card_rate(FP32_FLOP_PER_S, H100_SXM_FP32, name)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -118,14 +141,25 @@ def profile_window(torch, fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    device_us, host_us = {}, {}
+    return {"wall_us": wall_us, **split_profile(prof, reps)}
+
+
+def split_profile(prof, reps: int = 1) -> dict:
+    """Device time by kernel and host time by op, per call of ``reps``, and
+    the device time per recorded launch of each kernel. A run of the
+    profiler may miss some launches' records, so a kernel's own time is
+    taken per recorded launch; CUPTI's "Activity Buffer Request" is its own
+    bookkeeping, not device work."""
+    device_us, per_launch_us, recorded, host_us = {}, {}, {}, {}
     for evt in prof.key_averages():
         dev = getattr(evt, "self_device_time_total", 0.0)
-        if dev > 0 and not evt.key.startswith(("aten::", "cuda")):
-            device_us[evt.key] = dev / reps
-        elif evt.key.startswith("aten::") or evt.key.startswith("cuda"):
+        if evt.key.startswith(("aten::", "cuda")):
             host_us[evt.key] = evt.self_cpu_time_total / reps
-    return {"wall_us": wall_us, "device_us": device_us, "host_us": host_us}
+        elif dev > 0 and evt.key != "Activity Buffer Request":
+            device_us[evt.key] = dev / reps
+            per_launch_us[evt.key] = dev / evt.count
+            recorded[evt.key] = evt.count
+    return {"device_us": device_us, "per_launch_us": per_launch_us, "recorded": recorded, "host_us": host_us}
 
 
 def report_profile(label: str, prof: dict) -> None:
@@ -136,7 +170,8 @@ def report_profile(label: str, prof: dict) -> None:
     idle = max(0.0, 1.0 - busy / prof["wall_us"])
     print(f"  profile [{label}]: wall {prof['wall_us']:.1f} us/call, device busy {busy:.1f} us/call, idle share {idle:.3f}")
     for key, us in sorted(prof["device_us"].items(), key=lambda kv: -kv[1])[:6]:
-        print(f"    device {us:9.2f} us  {key[:110]}")
+        print(f"    device {us:9.2f} us  ({prof['recorded'][key]} launches recorded, {prof['per_launch_us'][key]:.2f} us each)"
+              f"  {key[:110]}")
     for key, us in sorted(prof["host_us"].items(), key=lambda kv: -kv[1])[:6]:
         print(f"    host   {us:9.2f} us  {key[:110]}")
 
@@ -492,14 +527,7 @@ def profile_compute(torch, metric) -> dict:
         metric.compute()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device_us, host_us = {}, {}
-    for evt in prof.key_averages():
-        dev = getattr(evt, "self_device_time_total", 0.0)
-        if dev > 0 and not evt.key.startswith(("aten::", "cuda")):
-            device_us[evt.key] = dev
-        elif evt.key.startswith("aten::") or evt.key.startswith("cuda"):
-            host_us[evt.key] = evt.self_cpu_time_total
-    return {"wall_us": wall_us, "device_us": device_us, "host_us": host_us}
+    return {"wall_us": wall_us, **split_profile(prof)}
 
 
 def detection_phase(torch, mt, kernels_mod):
@@ -556,8 +584,8 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     match_prof = profile_window(torch, lambda: im.greedy_match(*match_args), reps=20)
     report_profile("pairwise_iou wrapper", iou_prof)
     report_profile("greedy_match wrapper", match_prof)
-    iou_device_us = sum(us for k, us in iou_prof["device_us"].items() if "pairwise_iou" in k) or None
-    match_device_us = sum(us for k, us in match_prof["device_us"].items() if "greedy_match" in k) or None
+    iou_device_us = sum(us for k, us in iou_prof["per_launch_us"].items() if "pairwise_iou" in k) or None
+    match_device_us = sum(us for k, us in match_prof["per_launch_us"].items() if "greedy_match" in k) or None
 
     fresh = mt.MeanAveragePrecision(class_metrics=True)
     times, host = [], []
@@ -610,6 +638,328 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     }
 
 
+# --------------------------------------------------------------------------- #
+# phase 2c: the maxsim kernel against its plain version
+# --------------------------------------------------------------------------- #
+def unit_vectors(torch, gen, *shape):
+    x = torch.randn(shape, generator=gen, device="cuda")
+    return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+def maxsim_cases(torch):
+    """(label, preds (B, L, P, D), target (B, L, R, D)) of unit vectors on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    cases = [(f"random {b}x{l}x{p}x{r}x{d}", unit_vectors(torch, gen, b, l, p, d), unit_vectors(torch, gen, b, l, r, d))
+             for b, l, p, r, d in ((3, 1, 7, 5, 16), (4, 3, 33, 65, 48), (2, 25, 40, 37, 64), (5, 1, 129, 257, 7),
+                                   (64, 1, 512, 512, 1024))]
+    pe, te = unit_vectors(torch, gen, 3, 1, 7, 16), unit_vectors(torch, gen, 3, 1, 5, 16)
+    pe[1, 0, 2, 5] = float("nan")
+    te[2, 0, 4, 0] = float("nan")
+    cases.append(("NaN in both operands", pe, te))
+    pe, te = unit_vectors(torch, gen, 4, 1, 130, 40), unit_vectors(torch, gen, 4, 1, 70, 40)
+    pe[:, :, 0], pe[:, :, 100:], te[:, :, -1] = 0.0, 0.0, 0.0
+    pe[3], te[3] = 0.0, 0.0
+    cases.append(("all-zero rows and an all-zero pair", pe, te))
+    flat = torch.zeros(2 * 20 * 32 + 1, device="cuda")
+    flat[1:] = unit_vectors(torch, gen, 2, 1, 20, 32).reshape(-1)
+    cases.append(("rows not 16-byte aligned", flat[1:].view(2, 1, 20, 32), unit_vectors(torch, gen, 2, 1, 9, 32)))
+    return cases
+
+
+def maxsim_errors(torch, got, want):
+    """Largest absolute difference over non-NaN entries; NaN where the other has none is a failure."""
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or not torch.equal(torch.isnan(g), torch.isnan(w)):
+            return math.inf
+    return max(float(torch.nan_to_num(g - w, nan=0.0).abs().max()) for g, w in zip(got, want))
+
+
+def check_maxsim_pair(torch, cm, label, pe, te, gen):
+    """maxsim against its plain version and, on the first 8 pairs, a float64
+    recomputation; P/R/F1 through both against each other."""
+    got = cm.maxsim(pe, te)
+    torch.cuda.synchronize()
+    want = cm.maxsim(pe, te, plain=True)
+    torch.cuda.synchronize()
+    err = maxsim_errors(torch, got, want)
+    check(err <= MAXSIM_ATOL, f"maxsim [{label}]: kernel differs from plain by {err}")
+    sim64 = torch.einsum("blpd,blrd->blpr", pe[:8].double(), te[:8].double())
+    err64 = maxsim_errors(torch, [g[:8].double() for g in got], [sim64.amax(dim=3), sim64.amax(dim=2)])
+    check(err64 <= MAXSIM_ATOL, f"maxsim [{label}]: kernel differs from float64 by {err64}")
+    b, _, p, _ = pe.shape
+    pw = 0.1 + 0.9 * torch.rand((b, p), generator=gen, device="cuda")
+    tw = 0.1 + 0.9 * torch.rand((b, te.shape[2]), generator=gen, device="cuda")
+    for g, w, name in zip(cm.pairwise_cosine_pr(pe, te, pw, tw), cm._pr_f1_reference(pe, te, pw, tw),
+                          ("precision", "recall", "f1")):
+        check(torch.allclose(g, w, rtol=PRF_RTOL, atol=0.0, equal_nan=True), f"maxsim [{label}]: {name} outside rtol {PRF_RTOL}")
+    return max(err, err64)
+
+
+def check_maxsim_kernel(torch, kernels_mod, cm):
+    kernel = kernels_mod.KERNELS["maxsim"]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    worst = 0.0
+    for label, pe, te in maxsim_cases(torch):
+        before = kernel.launches
+        err = check_maxsim_pair(torch, cm, label, pe, te, gen)
+        check(kernel.launches - before == 2, f"maxsim [{label}]: launches {kernel.launches - before} for 2 calls")
+        worst = max(worst, err)
+        print(f"  maxsim [{label}] preds {tuple(pe.shape)} target {tuple(te.shape)}: max abs err {err:.3g}"
+              f" (bound {MAXSIM_ATOL}); P/R/F1 within rtol {PRF_RTOL}")
+    return worst
+
+
+# --------------------------------------------------------------------------- #
+# phase 3c: BERTScore at roberta-large width
+# --------------------------------------------------------------------------- #
+def roberta_large_encoder(torch, seed: int):
+    """An encoder with roberta-large's widths, post-LN, GELU, attention that
+    honours the mask; float32 weights normal(0, 0.02) from a seed (the
+    user's model of the own-model route: plain matmul and softmax)."""
+    nn, cfg = torch.nn, ROBERTA_LARGE
+    hidden, heads = cfg["hidden"], cfg["heads"]
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.qkv = nn.Linear(hidden, 3 * hidden)
+            self.out = nn.Linear(hidden, hidden)
+            self.ln1 = nn.LayerNorm(hidden, eps=cfg["eps"])
+            self.ffn_in = nn.Linear(hidden, cfg["ffn"])
+            self.ffn_out = nn.Linear(cfg["ffn"], hidden)
+            self.ln2 = nn.LayerNorm(hidden, eps=cfg["eps"])
+
+        def forward(self, x, bias):
+            b, s, _ = x.shape
+            q, k, v = self.qkv(x).view(b, s, 3, heads, hidden // heads).permute(2, 0, 3, 1, 4)
+            scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hidden // heads) + bias
+            ctx = torch.matmul(torch.softmax(scores, dim=-1), v).transpose(1, 2).reshape(b, s, hidden)
+            x = self.ln1(x + self.out(ctx))
+            return self.ln2(x + self.ffn_out(torch.nn.functional.gelu(self.ffn_in(x))))
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.word = nn.Embedding(cfg["vocab"], hidden)
+            self.position = nn.Embedding(cfg["positions"], hidden)
+            self.token_type = nn.Parameter(torch.zeros(hidden))
+            self.ln = nn.LayerNorm(hidden, eps=cfg["eps"])
+            self.layers = nn.ModuleList(Layer() for _ in range(cfg["layers"]))
+
+        def forward(self, input_ids, attention_mask):
+            mask = attention_mask.to(torch.int64)
+            positions = torch.cumsum(mask, dim=1) * mask + cfg["pad"]  # roberta's position ids
+            x = self.ln(self.word(input_ids) + self.position(positions) + self.token_type)
+            bias = (1.0 - attention_mask[:, None, None, :].to(x.dtype)) * torch.finfo(x.dtype).min
+            for layer in self.layers:
+                x = layer(x, bias)
+            return x
+
+    with torch.device("cuda"):
+        encoder = Encoder()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, param in encoder.named_parameters():
+            if name.endswith("weight") and param.ndim == 2:
+                param.normal_(0.0, 0.02, generator=gen)
+            elif name.startswith("token_type"):
+                param.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("bias"):
+                param.zero_()
+            else:
+                param.fill_(1.0)  # LayerNorm scales
+        encoder.word.weight[cfg["pad"]] = 0.0
+    return encoder.eval()
+
+
+class IdTokenizer:
+    """A sentence is its content token ids, space-separated; adds <s> and
+    </s> and pads with <pad> to max_length, taking transformers' keywords."""
+
+    def __call__(self, text, padding="max_length", max_length=512, truncation=True, return_tensors="np"):
+        import numpy as np
+
+        cfg = ROBERTA_LARGE
+        ids = np.full((len(text), max_length), cfg["pad"], dtype=np.int64)
+        mask = np.zeros((len(text), max_length), dtype=np.int64)
+        for row, sentence in enumerate(text):
+            tokens = [cfg["bos"]] + [int(t) for t in sentence.split()][: max_length - 2] + [cfg["eos"]]
+            ids[row, : len(tokens)] = tokens
+            mask[row, : len(tokens)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def wmt_sized_pairs(torch):
+    """2,000 (pred, target) sentence pairs made on the card from a seed:
+    targets of 8-80 content tokens, preds with 30% of them (and at least the
+    first) replaced by other random ids; the first BERT_CONTROLS pairs are
+    identical."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    n, longest, vocab = BERT_PAIRS, 80, ROBERTA_LARGE["vocab"]
+    lengths = torch.randint(8, longest + 1, (n,), generator=gen, device="cuda")
+    target = torch.randint(3, vocab, (n, longest), generator=gen, device="cuda")  # ids 0-2 are special
+    replace = torch.rand((n, longest), generator=gen, device="cuda") < 0.3
+    replace[:, 0] = True  # every pair but the controls differs
+    replace[:BERT_CONTROLS] = False
+    shift = torch.randint(1, vocab - 3, (n, longest), generator=gen, device="cuda")  # a different content id
+    preds = torch.where(replace, 3 + (target - 3 + shift) % (vocab - 3), target)
+    lengths, target, preds = lengths.tolist(), target.tolist(), preds.tolist()  # set-up: sentences are host strings
+    return ([" ".join(map(str, preds[i][: lengths[i]])) for i in range(n)],
+            [" ".join(map(str, target[i][: lengths[i]])) for i in range(n)])
+
+
+def run_bert(torch, mt, bert_ops, encoder, preds, target):
+    """The main text path: BERTScore updated 64 pairs at a time, then one
+    compute under the profiler. CUDA events around the encoder, the
+    embedding finalisation and the matching split the compute without
+    synchronising; the matching's inputs are kept for the checks."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spans = {"encoder": [], "finalize": [], "matching": []}
+    captured = {}
+
+    def timed(label, fn, keep=False):
+        def wrapper(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[label].append((start, end))
+            if keep:
+                captured["args"] = args
+            return out
+        return wrapper
+
+    metric = mt.BERTScore(model=encoder, user_tokenizer=IdTokenizer(), max_length=BERT_MAX_LEN,
+                          batch_size=BERT_BATCH, idf=False,
+                          user_forward_fn=timed("encoder", lambda model, batch: model(batch["input_ids"], batch["attention_mask"])))
+    t0 = time.perf_counter()
+    for start in range(0, len(preds), BERT_BATCH):
+        metric.update(preds[start:start + BERT_BATCH], target[start:start + BERT_BATCH])
+    update_s = time.perf_counter() - t0
+    saved = bert_ops._finalize_embeddings, bert_ops._precision_recall_f1
+    bert_ops._finalize_embeddings = timed("finalize", saved[0])
+    bert_ops._precision_recall_f1 = timed("matching", saved[1], keep=True)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            result = metric.compute()
+            torch.cuda.synchronize()
+            compute_s = time.perf_counter() - t0
+    finally:
+        bert_ops._finalize_embeddings, bert_ops._precision_recall_f1 = saved
+    split_ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    return metric, result, update_s, compute_s, split_ms, split_profile(prof)["device_us"], captured["args"]
+
+
+def check_bert_docstring_example(torch, mt):
+    import numpy as np
+
+    vocab = ["[CLS]", "[SEP]", "[PAD]", "hello", "there", "master", "kenobi"]
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.normal(size=(len(vocab), 8)).astype(np.float32)).cuda()
+
+    def tokenizer(sentences):
+        ids = np.full((len(sentences), 6), vocab.index("[PAD]"), dtype=np.int32)
+        mask = np.zeros((len(sentences), 6), dtype=np.int32)
+        for row, sent in enumerate(sentences):
+            for col, word in enumerate(["[CLS]"] + sent.split()[:4] + ["[SEP]"]):
+                ids[row, col] = vocab.index(word)
+                mask[row, col] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+    score = mt.BERTScore(model=object(), user_tokenizer=tokenizer, max_length=6,
+                         user_forward_fn=lambda model, batch: table[batch["input_ids"]])
+    score.update(["hello there", "master kenobi"], ["hello there", "hello kenobi"])
+    got = {key: [round(float(v), 4) for v in values] for key, values in score.compute().items()}
+    want = {"precision": [1.0, 0.5], "recall": [1.0, 0.8545], "f1": [1.0, 0.6309]}
+    check(got == want, f"BERTScore docstring example gives {got}, documented {want}")
+    print(f"  docstring example on the card: {got}, as documented")
+
+
+def text_phase(torch, mt, kernels_mod, cm, bert_ops):
+    """Phase 3c: BERTScore at roberta-large width over 2,000 pairs, the kernel
+    held against its plain version on the compute's own embeddings."""
+    t0 = time.perf_counter()
+    encoder = roberta_large_encoder(torch, SEED + 9)
+    preds, target = wmt_sized_pairs(torch)
+    n_params = sum(p.numel() for p in encoder.parameters())
+    print(f"phase 3c: encoder of roberta-large width ({n_params / 1e6:.1f} M float32 parameters) and {len(preds)}"
+          f" pairs made on the card in {time.perf_counter() - t0:.1f} s")
+    kernels_mod.reset_launch_counts()
+    metric, result, update_s, compute_s, split_ms, device_us, args = run_bert(torch, mt, bert_ops, encoder, preds, target)
+    launches = kernels_mod.launch_counts()
+    pe, te, pw, tw = args
+    busy_us = sum(device_us.values())
+    idle = max(0.0, 1.0 - busy_us / (compute_s * 1e6)) if device_us else None
+    print(f"  {len(metric.preds_input_ids)} updates in {update_s:.2f} s; compute {compute_s:.2f} s under the profiler"
+          f" (encoder {split_ms['encoder']:.1f} ms, finalize {split_ms['finalize']:.1f} ms,"
+          f" matching {split_ms['matching']:.1f} ms by events), device busy {busy_us / 1e3:.1f} ms,"
+          f" idle share {'not measured' if idle is None else f'{idle:.4f}'}; launches {launches}")
+    for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"    device {us:12.1f} us  {key[:110]}")
+    check(launches["maxsim"] == 1, f"maxsim launched {launches['maxsim']} times for one compute")
+    check(tuple(pe.shape) == (BERT_PAIRS, 1, BERT_MAX_LEN, ROBERTA_LARGE["hidden"]) and pe.shape == te.shape,
+          f"matching ran at {tuple(pe.shape)} x {tuple(te.shape)}")
+    scores = {key: torch.tensor(result[key], dtype=torch.float64) for key in ("precision", "recall", "f1")}
+    for key, value in scores.items():
+        check(value.shape == (BERT_PAIRS,) and bool(torch.isfinite(value).all()), f"{key} is not {BERT_PAIRS} finite values")
+        control = float((value[:BERT_CONTROLS] - 1.0).abs().max())
+        check(control <= MAXSIM_ATOL, f"identical pairs score {key} off 1.0 by {control}")
+    noisy = scores["f1"][BERT_CONTROLS:]
+    check(bool(((noisy > 0) & (noisy < 1)).all()),
+          f"a pair that differs has F1 outside (0, 1): F1 from {float(noisy.min())!r} to {float(noisy.max())!r}")
+
+    # the kernel against its plain version on this compute's embeddings
+    got = cm.maxsim(pe, te)
+    want = cm.maxsim(pe, te, plain=True)
+    err = maxsim_errors(torch, got, want)
+    check(err <= MAXSIM_ATOL, f"maxsim on the compute's embeddings differs from plain by {err}")
+    sim64 = torch.einsum("blpd,blrd->blpr", pe[:8].double(), te[:8].double())
+    err64 = maxsim_errors(torch, [g[:8].double() for g in got], [sim64.amax(dim=3), sim64.amax(dim=2)])
+    check(err64 <= MAXSIM_ATOL, f"maxsim on the compute's embeddings differs from float64 by {err64}")
+    del got, want, sim64
+    for (key, value), ref in zip(scores.items(), cm._pr_f1_reference(pe, te, pw, tw)):
+        check(torch.allclose(value, ref.double().cpu(), rtol=PRF_RTOL, atol=0.0), f"{key} outside rtol {PRF_RTOL} of the plain version")
+    print(f"  maxsim on the compute's {tuple(pe.shape)} embeddings: max abs err {err:.3g} against plain,"
+          f" {err64:.3g} against float64 (first 8 pairs); P/R/F1 within rtol {PRF_RTOL}; identical pairs score 1;"
+          f" mean P {float(scores['precision'].mean()):.6f}, R {float(scores['recall'].mean()):.6f},"
+          f" F1 {float(scores['f1'].mean()):.6f} (pairs that differ: F1 {float(noisy.min()):.6f} to {float(noisy.max()):.6f})")
+    check_bert_docstring_example(torch, mt)
+    return {"launches": launches, "max_abs_err": max(err, err64), "embeddings": (pe, te), "update_s": update_s,
+            "compute_s": compute_s, "split_ms": split_ms, "device_busy_ms": busy_us / 1e3, "idle_share": idle}
+
+
+def text_timing(torch, cm, pe, te, name, smi):
+    """Phase 4 for the text path: maxsim at the full and at one 64-pair
+    chunk's shape, beside its plain version, its bound and bmm + amax."""
+    out = {}
+    for label, (p_emb, t_emb) in (("full", (pe, te)), ("chunk", (pe[:BERT_BATCH], te[:BERT_BATCH]))):
+        b, l, p, d = p_emb.shape
+        r = t_emb.shape[2]
+
+        def library(p_emb=p_emb, t_emb=t_emb, b=b, l=l, p=p, r=r, d=d):
+            sim = torch.bmm(p_emb.view(b * l, p, d), t_emb.view(b * l, r, d).transpose(1, 2))
+            return sim.amax(dim=2), sim.amax(dim=1)
+
+        reps = 30
+        ms = time_ms(torch, lambda: cm.maxsim(p_emb, t_emb), reps=reps)
+        plain_ms = time_ms(torch, lambda: cm.maxsim(p_emb, t_emb, plain=True), reps=reps)
+        library_ms = time_ms(torch, library, reps=reps)
+        prof = profile_window(torch, lambda: cm.maxsim(p_emb, t_emb), reps=5 if label == "full" else 20)
+        device_us = sum(us for k, us in prof["per_launch_us"].items() if "maxsim" in k or "decode_kernel" in k) or None
+        bytes_moved = (b * l * (p + r) * d + b * l * (p + r)) * 4  # both operands read, both maxima written
+        bound_ms, bound_by = bound(bytes_moved, 2 * b * l * p * r * d, name)
+        out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          device_us=device_us, shape=[b, l, p, r, d])
+        print(f"phase 4 text ({smi}): maxsim at {(b, l, p, r, d)}: {ms * 1e3:.1f} us/call (device {device_us} us),"
+              f" plain {plain_ms * 1e3:.1f} us, bmm + amax {library_ms * 1e3:.1f} us,"
+              f" bound {bound_ms * 1e3:.1f} us ({bound_by})")
+        report_profile(f"maxsim wrapper, {label}", prof)
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -620,7 +970,9 @@ def main() -> None:
         import metrics_tpu_torch as mt
         from metrics_tpu_torch.ops import kernels as kernels_mod
         from metrics_tpu_torch.ops.classification import binned_counts as binned
+        from metrics_tpu_torch.ops.kernels import cosine_matching as cm
         from metrics_tpu_torch.ops.kernels import iou_matching as im
+        from metrics_tpu_torch.ops.text import bert as bert_ops
     except ImportError as exc:
         fail(f"the metrics_tpu_torch package is not importable here ({exc})")
     check(not any(m == "jax" or m.startswith(("jax.", "metrics_tpu.")) or m == "metrics_tpu" for m in sys.modules),
@@ -646,6 +998,7 @@ def main() -> None:
         "binned_counts": check_binned_kernel(torch, kernels_mod, binned),
         "pairwise_iou": check_iou_kernel(torch, kernels_mod, im),
         "greedy_match": check_match_kernel(torch, kernels_mod, im),
+        "maxsim": check_maxsim_kernel(torch, kernels_mod, cm),
     }
 
     # ---- phase 3: the classification path, kernel against plain
@@ -678,6 +1031,11 @@ def main() -> None:
     # ---- phase 3b: the detection path, kernels against plain
     map_metric, coco, det_launches = detection_phase(torch, mt, kernels_mod)
     launches.update({k: det_launches[k] for k in DETECTION_KERNELS})
+
+    # ---- phase 3c: the text path at roberta-large width, kernel against plain
+    text = text_phase(torch, mt, kernels_mod, cm, bert_ops)
+    launches.update({k: text["launches"][k] for k in TEXT_KERNELS})
+    worst_err["maxsim"] = max(worst_err["maxsim"], text["max_abs_err"])
 
     # ---- phase 4: timing
     logits, probs, target = next(batches(torch))
@@ -728,9 +1086,10 @@ def main() -> None:
 
     report_profile("update step (collection + binned AP)", profile_window(torch, one_step, reps=10))
     report_profile("compute (collection + binned AP)", profile_window(torch, compute_all, reps=5))
-    kernel_device_us = sum(us for k, us in kernel_prof["device_us"].items() if "binned_" in k)
+    kernel_device_us = sum(us for k, us in kernel_prof["per_launch_us"].items() if "binned_" in k)
 
     det = detection_timing(torch, mt, im, map_metric, coco, name, smi)
+    txt = text_timing(torch, cm, *text["embeddings"], name, smi)
 
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
@@ -745,7 +1104,7 @@ def main() -> None:
             "plain_ms": timing["plain_ms"],
             "bound_ms": timing["bound_ms"],
             "bound_by": timing["bound_by"],
-            "library_ms": None,
+            "library_ms": timing.get("library_ms"),
             "ok": True,
             **us,
             **extra,
@@ -765,6 +1124,13 @@ def main() -> None:
                map_update_us=det["map_update_us"], map_update_host_us=det["map_update_host_us"],
                map_compute_eval_s=det["map_compute_eval_s"], map_compute_calc_s=det["map_compute_calc_s"],
                map_compute_idle_share=det["map_compute_idle_share"]),
+        record("maxsim", {k: v for k, v in txt["full"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+               library_note="torch.bmm then two amax, TF32 off (three calls; the port never calls them)",
+               shape=txt["full"]["shape"], device_us=txt["full"]["device_us"],
+               chunk={k: v for k, v in txt["chunk"].items()},
+               bert_update_s=text["update_s"], bert_compute_s=text["compute_s"],
+               bert_compute_split_ms=text["split_ms"], bert_compute_device_busy_ms=text["device_busy_ms"],
+               bert_compute_idle_share=text["idle_share"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

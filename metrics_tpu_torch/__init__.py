@@ -20,9 +20,11 @@ from metrics_tpu_torch.classification import (
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.detection import MeanAveragePrecision
+from metrics_tpu_torch.text import BERTScore
 
 __all__ = [
     "Accuracy",
+    "BERTScore",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",

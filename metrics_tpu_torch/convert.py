@@ -12,10 +12,14 @@ float32 state.
 A ``CatBuffer`` state travels as its valid rows: on the JAX side that is
 ``np.asarray(buf.to_array())``. It loads into a port buffer of capacity
 ``max(default capacity, rows)``, with its dtype and item shape checked.
+
+A ``cat`` list state (BERTScore's token batches) travels as a list of numpy
+arrays, one per update: on the JAX side ``[np.asarray(x) for x in state]``.
+Each must be int32 or float32, what the JAX package keeps with x64 off.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -24,7 +28,8 @@ from metrics_tpu_torch.core.buffers import CatBuffer
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import Metric, StateDict, resolve_device
 
-Arrays = Mapping[str, np.ndarray]
+Arrays = Mapping[str, Union[np.ndarray, Sequence[np.ndarray]]]
+_LIST_DTYPES = (np.dtype(np.int32), np.dtype(np.float32))
 
 
 def _metric_state_from_numpy(metric: Metric, arrays: Arrays, device: torch.device) -> StateDict:
@@ -35,7 +40,8 @@ def _metric_state_from_numpy(metric: Metric, arrays: Arrays, device: torch.devic
     state: StateDict = {}
     for name, default in metric._defaults.items():
         if isinstance(default, list):
-            raise ValueError(f"{type(metric).__name__}.{name} is a list state; only tensor states convert")
+            state[name] = _list_from_numpy(metric, name, arrays[name], device)
+            continue
         arr = np.asarray(arrays[name])
         if isinstance(default, CatBuffer):
             state[name] = _buffer_from_numpy(metric, name, default, arr, device)
@@ -48,6 +54,18 @@ def _metric_state_from_numpy(metric: Metric, arrays: Arrays, device: torch.devic
             )
         state[name] = torch.from_numpy(np.array(arr, copy=True)).to(device)
     return state
+
+
+def _list_from_numpy(metric: Metric, name: str, arrays: Sequence[np.ndarray], device: torch.device) -> List[torch.Tensor]:
+    if not isinstance(arrays, (list, tuple)):
+        raise ValueError(f"{type(metric).__name__}.{name} is a list state: pass a list of arrays, one per update")
+    out = []
+    for i, item in enumerate(arrays):
+        arr = np.asarray(item)
+        if arr.dtype not in _LIST_DTYPES:
+            raise ValueError(f"{type(metric).__name__}.{name}[{i}]: expected int32 or float32, got {arr.dtype}")
+        out.append(torch.from_numpy(np.array(arr, copy=True)).to(device))
+    return out
 
 
 def _buffer_from_numpy(metric: Metric, name: str, default: CatBuffer, arr: np.ndarray, device: torch.device) -> CatBuffer:
@@ -97,7 +115,10 @@ def state_to_numpy(metric: Union[Metric, MetricCollection]) -> Dict:
     """The current state as numpy arrays (per group leader for a collection)."""
     if isinstance(metric, MetricCollection):
         return {g[0]: state_to_numpy(metric[g[0]]) for g in metric.compute_groups.values()}
-    return {
-        name: (value.to_array() if isinstance(value, CatBuffer) else value).detach().cpu().numpy()
-        for name, value in metric.get_state().items()
-    }
+    out: Dict = {}
+    for name, value in metric.get_state().items():
+        if isinstance(value, list):
+            out[name] = [v.detach().cpu().numpy() for v in value]
+        else:
+            out[name] = (value.to_array() if isinstance(value, CatBuffer) else value).detach().cpu().numpy()
+    return out

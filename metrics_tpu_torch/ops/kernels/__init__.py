@@ -26,6 +26,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
+import torch
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -38,6 +40,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def find_nvcc() -> str:
@@ -141,7 +144,32 @@ KERNELS: Dict[str, Kernel] = {
             "greedy_match_max_g": ((), ctypes.c_int),
         },
     ),
+    "maxsim": Kernel(
+        name="maxsim",
+        source="maxsim.cu",
+        replaces="metrics_tpu/ops/kernels/cosine_matching.py:53",
+        signatures={
+            # preds, target, keys, rowmax, colmax, pairs, p, r, d, stream
+            "maxsim_launch": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _P), ctypes.c_int),
+        },
+    ),
 }
+
+
+def check_kernel_inputs(name: str, device: torch.device, **tensors: "tuple[torch.Tensor, torch.dtype]") -> None:
+    """Raise unless every tensor lies on ``device`` with its dtype, contiguous."""
+    for arg, (x, dtype) in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name}: {arg} lies on {x.device}, the first input on {device}")
+        if x.dtype != dtype:
+            raise TypeError(f"{name} kernel takes {dtype} {arg}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} kernel takes contiguous tensors; {arg} is not")
+
+
+def current_stream(x: torch.Tensor) -> int:
+    """PyTorch's current stream on ``x``'s device, as the handle a C entry takes."""
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def build_all() -> None:

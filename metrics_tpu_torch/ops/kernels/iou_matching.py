@@ -33,7 +33,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops.detection.boxes import box_area, box_iou
-from metrics_tpu_torch.ops.kernels import KERNELS
+from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, current_stream
 
 __all__ = ["evaluate_matches", "greedy_match", "greedy_match_plain", "pairwise_iou", "pairwise_iou_plain"]
 
@@ -41,20 +41,6 @@ IOU_KERNEL = KERNELS["pairwise_iou"]
 MATCH_KERNEL = KERNELS["greedy_match"]
 
 _MAX_GRID_YZ = 65535
-
-
-def _check_kernel_inputs(name: str, device: torch.device, **tensors: "tuple[Tensor, torch.dtype]") -> None:
-    for arg, (x, dtype) in tensors.items():
-        if x.device != device:
-            raise ValueError(f"{name}: {arg} lies on {x.device}, the first input on {device}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name} kernel takes {dtype} {arg}, got {x.dtype}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous tensors; {arg} is not")
-
-
-def _stream(x: Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _u8(x: Tensor) -> Tensor:
@@ -89,7 +75,7 @@ def pairwise_iou(det_boxes: Tensor, gt_boxes: Tensor, *, plain: bool = False) ->
         return pairwise_iou_plain(det_boxes, gt_boxes)
     if det_boxes.device.type != "cuda":
         raise ValueError(f"pairwise_iou runs on CPU or CUDA tensors, got {det_boxes.device}")
-    _check_kernel_inputs(
+    check_kernel_inputs(
         "pairwise_iou", det_boxes.device, det_boxes=(det_boxes, torch.float32), gt_boxes=(gt_boxes, torch.float32)
     )
     b, d, _ = det_boxes.shape
@@ -102,7 +88,7 @@ def pairwise_iou(det_boxes: Tensor, gt_boxes: Tensor, *, plain: bool = False) ->
     lib = IOU_KERNEL.lib()
     with torch.cuda.device(det_boxes.device):
         err = lib.pairwise_iou_launch(
-            det_boxes.data_ptr(), gt_boxes.data_ptr(), out.data_ptr(), b, d, g, _stream(det_boxes)
+            det_boxes.data_ptr(), gt_boxes.data_ptr(), out.data_ptr(), b, d, g, current_stream(det_boxes)
         )
     if err != 0:
         raise RuntimeError(f"pairwise_iou kernel launch failed with CUDA error {err}")
@@ -168,7 +154,7 @@ def greedy_match(
         return greedy_match_plain(ious, det_ok, det_labels, gt_labels, gt_ok, gt_ignore, thresholds)
     if ious.device.type != "cuda":
         raise ValueError(f"greedy_match runs on CPU or CUDA tensors, got {ious.device}")
-    _check_kernel_inputs(
+    check_kernel_inputs(
         "greedy_match", ious.device,
         ious=(ious, torch.float32), det_ok=(det_ok, torch.bool), det_labels=(det_labels, torch.int32),
         gt_labels=(gt_labels, torch.int32), gt_ok=(gt_ok, torch.bool), gt_ignore=(gt_ignore, torch.bool),
@@ -187,7 +173,7 @@ def greedy_match(
         err = lib.greedy_match_launch(
             ious.data_ptr(), _u8(det_ok).data_ptr(), det_labels.data_ptr(), gt_labels.data_ptr(),
             _u8(gt_ok).data_ptr(), _u8(gt_ignore).data_ptr(), thresholds.data_ptr(), _u8(out).data_ptr(),
-            b, a, t, d, g, _stream(ious),
+            b, a, t, d, g, current_stream(ious),
         )
     if err != 0:
         raise RuntimeError(f"greedy_match kernel launch failed with CUDA error {err}")

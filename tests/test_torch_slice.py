@@ -196,6 +196,7 @@ def test_metrics_default_to_cuda_and_never_fall_back(monkeypatch):
         lambda: mt_torch.F1Score(num_classes=C, average="macro"),
         lambda: mt_torch.BinnedAveragePrecision(num_classes=C),
         lambda: mt_torch.MeanAveragePrecision(),
+        lambda: mt_torch.BERTScore(model=object()),
         lambda: mt_torch.Accuracy(device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -226,7 +227,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import metrics_tpu_torch, metrics_tpu_torch.convert, metrics_tpu_torch.ops, metrics_tpu_torch.detection\n"
-        "import metrics_tpu_torch.ops.kernels.iou_matching\n"
+        "import metrics_tpu_torch.ops.kernels.iou_matching, metrics_tpu_torch.ops.kernels.cosine_matching\n"
+        "import metrics_tpu_torch.text, metrics_tpu_torch.ops.text.bert, metrics_tpu_torch.utils.imports\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -264,6 +266,8 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.core.buffers",
     "metrics_tpu_torch.ops.detection.boxes",
     "metrics_tpu_torch.detection.mean_ap",
+    "metrics_tpu_torch.ops.text.bert",
+    "metrics_tpu_torch.text.bert",
 ]
 
 
