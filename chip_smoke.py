@@ -31,17 +31,25 @@ is missing. Phases:
    roberta-large's published configuration and seeded random weights, passed
    as the user's model) over 2,000 sentence pairs, the size of WMT19 de-en
    newstest2019, made on the card from a seed and padded to 512 tokens. The
-   maxsim kernel must have launched once for the one compute; it is then held
-   against its plain version on that very compute's (2000, 1, 512, 1024)
-   embeddings. Every score must be finite, identical pairs must score 1, and
-   the metric's docstring example must give its documented values.
+   tensor-core maxsim kernel (3xTF32) must have launched once for the one
+   compute, on the operands as they are; it is then held against its plain
+   version on that very compute's (2000, 1, 512, 1024) embeddings. Every
+   score must be finite, identical pairs must score 1, and the metric's
+   docstring example must give its documented values.
 4. Timing with CUDA events (median after warm-up): each kernel beside its
    plain version, its bound and, where one exists, a PyTorch call computing
    the same function; one whole update step of each path, compute, and the
-   device's idle share from the profiler.
+   device's idle share from the profiler. maxsim is timed at the compute's
+   full shape and at one 64-pair chunk beside the plain version and
+   torch.bmm + two amax, with its bound (3xTF32 at the TF32 tensor-core
+   peak); the matcher at the COCO compute's (256, 4, 10, 128, 32) and at
+   G = 64.
 
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
-versions; maxsim (2c) sums in another order than the plain version's matrix
+versions, the matcher also on every staging path (D in double-buffered slabs,
+bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
+maxsim kernel (2c, on shapes TMA describes as they are and on padded copies
+of the others) sums in another order than the plain version's matrix
 product, so it is held within 1e-5 of it and of a float64 recomputation.
 
 The line before the last is the card's name and power limit as nvidia-smi
@@ -70,13 +78,16 @@ ROBERTA_LARGE = dict(vocab=50265, hidden=1024, layers=24, heads=16, ffn=4096, po
 MAXSIM_ATOL, PRF_RTOL = 1e-5, 1e-4
 CLASSIFICATION_KERNELS = ("binned_counts",)
 DETECTION_KERNELS = ("pairwise_iou", "greedy_match")
-TEXT_KERNELS = ("maxsim",)
-# HBM rate and float32 rate outside the tensor cores by card (NVIDIA data
-# sheets); the H100 SXM part (named "H100 80GB HBM3") is the default
+TEXT_KERNELS = ("maxsim_tf32x3",)
+# HBM rate, float32 rate outside the tensor cores and dense TF32 tensor-core
+# rate by card (NVIDIA data sheets); the H100 SXM part (named "H100 80GB
+# HBM3") is the default
 HBM_BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 FP32_FLOP_PER_S = {"H100 PCIe": 51e12, "H100 NVL": 60e12}
+TF32_FLOP_PER_S = {"H100 PCIe": 378e12, "H100 NVL": 417.5e12}
 H100_SXM_HBM = 3.35e12
 H100_SXM_FP32 = 67e12
+H100_SXM_TF32 = 495e12
 
 
 def fail(message: str) -> None:
@@ -104,11 +115,15 @@ def card_rate(table: dict, default: float, name: str) -> float:
     return default
 
 
-def bound(bytes_moved: float, ops: float, name: str):
+def bound(bytes_moved: float, ops: float, name: str, tf32: bool = False):
     """The least time in ms for the work (the larger of bytes over the memory
-    rate and float32 operations over the peak rate) and which one bounds it."""
+    rate and operations over the peak rate: float32 outside the tensor cores,
+    or TF32 on them) and which one bounds it."""
     t_bytes = bytes_moved / card_rate(HBM_BYTES_PER_S, H100_SXM_HBM, name)
-    t_ops = ops / card_rate(FP32_FLOP_PER_S, H100_SXM_FP32, name)
+    if tf32:
+        t_ops = ops / card_rate(TF32_FLOP_PER_S, H100_SXM_TF32, name)
+    else:
+        t_ops = ops / card_rate(FP32_FLOP_PER_S, H100_SXM_FP32, name)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -379,17 +394,48 @@ def match_case(torch, im, gen, b, a, t, d, g, n_labels=3, ties=False, det_ok_p=0
     )
 
 
+def threshold_tie_case(torch, gen, b=16, a=4, t=10, d=8, g=32):
+    """Image i's first detection has one candidate, ground truth 0, whose IoU
+    is thresholds[i % T] to the bit: it matches below that threshold and not
+    at it, since the test is strictly greater."""
+    thresholds = torch.linspace(0.5, 0.95, t, device="cuda")
+    ious = torch.rand((b, d, g), generator=gen, device="cuda")
+    ious[:, 0, 0] = thresholds[torch.arange(b, device="cuda") % t]
+    det_labels = torch.ones((b, d), dtype=torch.int32, device="cuda")
+    gt_labels = torch.ones((b, g), dtype=torch.int32, device="cuda")
+    det_labels[:, 0], gt_labels[:, 0] = 0, 0  # the only ground truth of label 0
+    return (ious, torch.ones((b, d), dtype=torch.bool, device="cuda"), det_labels, gt_labels,
+            torch.ones((b, g), dtype=torch.bool, device="cuda"), torch.zeros((b, a, g), dtype=torch.bool, device="cuda"),
+            thresholds)
+
+
 def check_match_kernel(torch, kernels_mod, im):
     kernel = kernels_mod.KERNELS["greedy_match"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [
         ("COCO chunk B=256 A=4 T=10 D=128 G=64", match_case(torch, im, gen, 256, 4, 10, 128, 64)),
+        ("COCO compute's shape B=256 A=4 T=10 D=128 G=32", match_case(torch, im, gen, 256, 4, 10, 128, 32)),
+        ("G=33, the first strided case", match_case(torch, im, gen, 64, 4, 10, 128, 33)),
+        ("80 labels: most detections without a candidate", match_case(torch, im, gen, 64, 4, 10, 128, 32, n_labels=80)),
+        ("80 labels, G=64", match_case(torch, im, gen, 64, 4, 10, 128, 64, n_labels=80)),
+        ("only candidate's IoU equal to a threshold", threshold_tie_case(torch, gen)),
         ("G=128", match_case(torch, im, gen, 32, 4, 10, 128, 128)),
         ("G=256", match_case(torch, im, gen, 16, 4, 10, 64, 256)),
         ("D=1", match_case(torch, im, gen, 8, 4, 10, 1, 64, ties=True)),
         ("all-invalid rows", match_case(torch, im, gen, 8, 4, 10, 32, 16, det_ok_p=0.0, gt_ok_p=0.0)),
+        # D staged in double-buffered slabs (D * (4G + 5) > 128 KB): bulk copies
+        # of every operand over 2 and over 11 slabs (both mbarrier parities),
+        # then plain loads where rows are not 16-byte multiples
+        ("slabs, bulk copies: D=512 G=64", match_case(torch, im, gen, 8, 4, 10, 512, 64)),
+        ("11 slabs, bulk copies: D=2048 G=100", match_case(torch, im, gen, 3, 4, 10, 2048, 100)),
+        ("slabs, plain loads: D=1001 G=33", match_case(torch, im, gen, 4, 4, 10, 1001, 33)),
+        ("G=300, the 32-slot path", match_case(torch, im, gen, 8, 4, 10, 128, 300, n_labels=2)),
+        ("G=1500, the word-mask path", match_case(torch, im, gen, 4, 4, 10, 96, 1500, n_labels=2)),
+        ("G=32768, the word-mask path", match_case(torch, im, gen, 2, 4, 10, 24, 32768, n_labels=2)),
+        ("G=38741", match_case(torch, im, gen, 1, 4, 10, 16, 38741, n_labels=2)),
         ("duplicate ground truths, tied IoUs", match_case(torch, im, gen, 64, 4, 10, 48, 24, n_labels=2, ties=True)),
     ]
+    check(kernel.lib().greedy_match_max_g() >= 38741, f"greedy_match takes G up to {kernel.lib().greedy_match_max_g()} only")
     # exact duplicates: ground truth 1 repeats ground truth 0 in every row
     ious, det_ok, det_labels, gt_labels, gt_ok, gt_ignore, thr = cases[-1][1]
     ious[:, :, 1], gt_labels[:, 1], gt_ok[:, 1], gt_ignore[:, :, 1] = ious[:, :, 0], gt_labels[:, 0], gt_ok[:, 0], gt_ignore[:, :, 0]
@@ -404,6 +450,11 @@ def check_match_kernel(torch, kernels_mod, im):
         differ = int((got != want).sum())
         check(differ == 0, f"greedy_match [{label}]: kernel differs from plain in {differ} flags")
         print(f"  greedy_match [{label}] out {tuple(got.shape)}, {int(got.sum())} matches: bitwise equal")
+    # the tie case, by its construction: detection 0 of image i matches at threshold index t < i % T only
+    got = im.greedy_match(*dict(cases)["only candidate's IoU equal to a threshold"])[:, :, :, 0]
+    t = got.shape[2]
+    want = torch.arange(t, device="cuda")[None, :] < (torch.arange(got.shape[0], device="cuda") % t)[:, None]
+    check(torch.equal(got, want[:, None, :].expand_as(got)), "greedy_match: an IoU equal to its threshold matched")
     return 0.0
 
 
@@ -586,6 +637,14 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     report_profile("greedy_match wrapper", match_prof)
     iou_device_us = sum(us for k, us in iou_prof["per_launch_us"].items() if "pairwise_iou" in k) or None
     match_device_us = sum(us for k, us in match_prof["per_launch_us"].items() if "greedy_match" in k) or None
+    # the matcher at G=64, the padded width of images with 33-64 ground truths
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    wide_args = match_case(torch, im, gen, b, a, t, d, 64)
+    wide_ms = time_ms(torch, lambda: im.greedy_match(*wide_args))
+    wide_prof = profile_window(torch, lambda: im.greedy_match(*wide_args), reps=20)
+    wide_device_us = sum(us for k, us in wide_prof["per_launch_us"].items() if "greedy_match" in k) or None
+    wide_bytes = b * d * 64 * 4 + b * d * (1 + 4) + b * 64 * (4 + 1) + b * a * 64 + t * 4 + b * a * t * d
+    wide_bound_ms, wide_by = bound(wide_bytes, 2 * b * a * t * d * 64, name)
 
     fresh = mt.MeanAveragePrecision(class_metrics=True)
     times, host = [], []
@@ -617,7 +676,8 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     print(f"phase 4 detection ({smi}): pairwise_iou {iou_ms * 1e3:.1f} us/call (device {iou_device_us} us),"
           f" plain {iou_plain_ms * 1e3:.1f} us, bound {iou_bound_ms * 1e3:.2f} us ({iou_by});"
           f" greedy_match {match_ms * 1e3:.1f} us/call (device {match_device_us} us), plain {match_plain_ms * 1e3:.1f} us,"
-          f" bound {match_bound_ms * 1e3:.2f} us ({match_by})")
+          f" bound {match_bound_ms * 1e3:.2f} us ({match_by}); at G=64 {wide_ms * 1e3:.1f} us/call (device"
+          f" {wide_device_us} us), bound {wide_bound_ms * 1e3:.2f} us ({wide_by})")
     print(f"  update of {COCO_BATCH} images: {update_ms * 1e3:.1f} us by events, {update_host_ms * 1e3:.1f} us of host time;"
           f" compute: device evaluation {eval_s:.3f} s + host curves {calc_s:.3f} s;"
           f" profiled compute {prof['wall_us'] / 1e6:.3f} s, device busy {busy / 1e3:.1f} ms,"
@@ -629,7 +689,9 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
         "pairwise_iou": dict(ms=iou_ms, plain_ms=iou_plain_ms, bound_ms=iou_bound_ms, bound_by=iou_by,
                              device_us=iou_device_us, shape=shapes["pairwise_iou"]),
         "greedy_match": dict(ms=match_ms, plain_ms=match_plain_ms, bound_ms=match_bound_ms, bound_by=match_by,
-                             device_us=match_device_us, shape=shapes["greedy_match"]),
+                             device_us=match_device_us, shape=shapes["greedy_match"],
+                             g64=dict(ms=wide_ms, device_us=wide_device_us, bound_ms=wide_bound_ms, bound_by=wide_by,
+                                      shape=[b, a, t, d, 64])),
         "map_update_us": update_ms * 1e3,
         "map_update_host_us": update_host_ms * 1e3,
         "map_compute_eval_s": eval_s,
@@ -663,6 +725,14 @@ def maxsim_cases(torch):
     flat = torch.zeros(2 * 20 * 32 + 1, device="cuda")
     flat[1:] = unit_vectors(torch, gen, 2, 1, 20, 32).reshape(-1)
     cases.append(("rows not 16-byte aligned", flat[1:].view(2, 1, 20, 32), unit_vectors(torch, gen, 2, 1, 9, 32)))
+    # every product positive and each row's maximum its own norm, 1: the sum a
+    # truncating accumulator would pull furthest below the bound
+    same = unit_vectors(torch, gen, 16, 1, 200, 1024).abs()
+    cases.append(("identical all-positive unit vectors, D=1024", same, same.clone()))
+    # every similarity negative, P and R not multiples of the 128 tile: a
+    # zero-filled row or column that leaked into a maximum would show as 0
+    cases.append(("every maximum negative, P=130 R=200", unit_vectors(torch, gen, 3, 1, 130, 64).abs(),
+                  -unit_vectors(torch, gen, 3, 1, 200, 64).abs()))
     return cases
 
 
@@ -676,7 +746,8 @@ def maxsim_errors(torch, got, want):
 
 def check_maxsim_pair(torch, cm, label, pe, te, gen):
     """maxsim against its plain version and, on the first 8 pairs, a float64
-    recomputation; P/R/F1 through both against each other."""
+    recomputation; P/R/F1 through both against each other. Returns the
+    maxima and the larger error."""
     got = cm.maxsim(pe, te)
     torch.cuda.synchronize()
     want = cm.maxsim(pe, te, plain=True)
@@ -692,19 +763,28 @@ def check_maxsim_pair(torch, cm, label, pe, te, gen):
     for g, w, name in zip(cm.pairwise_cosine_pr(pe, te, pw, tw), cm._pr_f1_reference(pe, te, pw, tw),
                           ("precision", "recall", "f1")):
         check(torch.allclose(g, w, rtol=PRF_RTOL, atol=0.0, equal_nan=True), f"maxsim [{label}]: {name} outside rtol {PRF_RTOL}")
-    return max(err, err64)
+    return got, max(err, err64)
 
 
 def check_maxsim_kernel(torch, kernels_mod, cm):
-    kernel = kernels_mod.KERNELS["maxsim"]
+    """The 3xTF32 kernel on every case: operands TMA describes as they are,
+    and padded copies of the others (D = 7, a base not 16-byte aligned).
+    Returns the worst error."""
+    kernel = kernels_mod.KERNELS["maxsim_tf32x3"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = 0.0
     for label, pe, te in maxsim_cases(torch):
+        operands = "as they are" if cm._tma_route(pe, te) else "padded copies"
         before = kernel.launches
-        err = check_maxsim_pair(torch, cm, label, pe, te, gen)
+        got, err = check_maxsim_pair(torch, cm, label, pe, te, gen)
         check(kernel.launches - before == 2, f"maxsim [{label}]: launches {kernel.launches - before} for 2 calls")
         worst = max(worst, err)
-        print(f"  maxsim [{label}] preds {tuple(pe.shape)} target {tuple(te.shape)}: max abs err {err:.3g}"
+        line = f"max abs err {err:.3g}"
+        if label.startswith("identical"):
+            off = max(float((g - 1.0).abs().max()) for g in got)
+            check(off <= MAXSIM_ATOL, f"maxsim [{label}]: identical rows off 1.0 by {off}")
+            line += f", off 1.0 by {off:.3g}"
+        print(f"  maxsim [{label}] preds {tuple(pe.shape)} target {tuple(te.shape)}: operands {operands}, {line}"
               f" (bound {MAXSIM_ATOL}); P/R/F1 within rtol {PRF_RTOL}")
     return worst
 
@@ -899,7 +979,7 @@ def text_phase(torch, mt, kernels_mod, cm, bert_ops):
           f" idle share {'not measured' if idle is None else f'{idle:.4f}'}; launches {launches}")
     for key, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]:
         print(f"    device {us:12.1f} us  {key[:110]}")
-    check(launches["maxsim"] == 1, f"maxsim launched {launches['maxsim']} times for one compute")
+    check(launches["maxsim_tf32x3"] == 1, f"the compute launched maxsim_tf32x3 {launches['maxsim_tf32x3']} times, expected once")
     check(tuple(pe.shape) == (BERT_PAIRS, 1, BERT_MAX_LEN, ROBERTA_LARGE["hidden"]) and pe.shape == te.shape,
           f"matching ran at {tuple(pe.shape)} x {tuple(te.shape)}")
     scores = {key: torch.tensor(result[key], dtype=torch.float64) for key in ("precision", "recall", "f1")}
@@ -912,6 +992,7 @@ def text_phase(torch, mt, kernels_mod, cm, bert_ops):
           f"a pair that differs has F1 outside (0, 1): F1 from {float(noisy.min())!r} to {float(noisy.max())!r}")
 
     # the kernel against its plain version on this compute's embeddings
+    check(cm._tma_route(pe, te), "the compute's embeddings need a padded copy for TMA")
     got = cm.maxsim(pe, te)
     want = cm.maxsim(pe, te, plain=True)
     err = maxsim_errors(torch, got, want)
@@ -933,7 +1014,8 @@ def text_phase(torch, mt, kernels_mod, cm, bert_ops):
 
 def text_timing(torch, cm, pe, te, name, smi):
     """Phase 4 for the text path: maxsim at the full and at one 64-pair
-    chunk's shape, beside its plain version, its bound and bmm + amax."""
+    chunk's shape, beside its plain version, its bound (3xTF32 at the TF32
+    tensor-core peak) and bmm + amax."""
     out = {}
     for label, (p_emb, t_emb) in (("full", (pe, te)), ("chunk", (pe[:BERT_BATCH], te[:BERT_BATCH]))):
         b, l, p, d = p_emb.shape
@@ -950,12 +1032,12 @@ def text_timing(torch, cm, pe, te, name, smi):
         prof = profile_window(torch, lambda: cm.maxsim(p_emb, t_emb), reps=5 if label == "full" else 20)
         device_us = sum(us for k, us in prof["per_launch_us"].items() if "maxsim" in k or "decode_kernel" in k) or None
         bytes_moved = (b * l * (p + r) * d + b * l * (p + r)) * 4  # both operands read, both maxima written
-        bound_ms, bound_by = bound(bytes_moved, 2 * b * l * p * r * d, name)
+        bound_ms, bound_by = bound(bytes_moved, 3 * 2 * b * l * p * r * d, name, tf32=True)
         out[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
                           device_us=device_us, shape=[b, l, p, r, d])
         print(f"phase 4 text ({smi}): maxsim at {(b, l, p, r, d)}: {ms * 1e3:.1f} us/call (device {device_us} us),"
               f" plain {plain_ms * 1e3:.1f} us, bmm + amax {library_ms * 1e3:.1f} us,"
-              f" bound {bound_ms * 1e3:.1f} us ({bound_by})")
+              f" bound {bound_ms * 1e3:.1f} us ({bound_by}, 3xTF32 at the TF32 peak)")
         report_profile(f"maxsim wrapper, {label}", prof)
     return out
 
@@ -992,13 +1074,13 @@ def main() -> None:
     print(f"phase 2: built {sorted(kernels_mod.KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for kernel in kernels_mod.KERNELS.values():
         for line in kernel.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line or "arning" in line:
                 print(f"  ptxas {kernel.name}: {line.strip()}")
     worst_err = {
         "binned_counts": check_binned_kernel(torch, kernels_mod, binned),
         "pairwise_iou": check_iou_kernel(torch, kernels_mod, im),
         "greedy_match": check_match_kernel(torch, kernels_mod, im),
-        "maxsim": check_maxsim_kernel(torch, kernels_mod, cm),
+        "maxsim_tf32x3": check_maxsim_kernel(torch, kernels_mod, cm),
     }
 
     # ---- phase 3: the classification path, kernel against plain
@@ -1035,7 +1117,7 @@ def main() -> None:
     # ---- phase 3c: the text path at roberta-large width, kernel against plain
     text = text_phase(torch, mt, kernels_mod, cm, bert_ops)
     launches.update({k: text["launches"][k] for k in TEXT_KERNELS})
-    worst_err["maxsim"] = max(worst_err["maxsim"], text["max_abs_err"])
+    worst_err["maxsim_tf32x3"] = max(worst_err["maxsim_tf32x3"], text["max_abs_err"])
 
     # ---- phase 4: timing
     logits, probs, target = next(batches(torch))
@@ -1121,10 +1203,10 @@ def main() -> None:
         record("greedy_match", {k: v for k, v in det["greedy_match"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes the greedy COCO matching",
                shape=det["greedy_match"]["shape"], device_us=det["greedy_match"]["device_us"],
-               map_update_us=det["map_update_us"], map_update_host_us=det["map_update_host_us"],
+               g64=det["greedy_match"]["g64"], map_update_us=det["map_update_us"], map_update_host_us=det["map_update_host_us"],
                map_compute_eval_s=det["map_compute_eval_s"], map_compute_calc_s=det["map_compute_calc_s"],
                map_compute_idle_share=det["map_compute_idle_share"]),
-        record("maxsim", {k: v for k, v in txt["full"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        record("maxsim_tf32x3", {k: v for k, v in txt["full"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                library_note="torch.bmm then two amax, TF32 off (three calls; the port never calls them)",
                shape=txt["full"]["shape"], device_us=txt["full"]["device_us"],
                chunk={k: v for k, v in txt["chunk"].items()},

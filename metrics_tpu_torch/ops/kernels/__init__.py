@@ -144,13 +144,13 @@ KERNELS: Dict[str, Kernel] = {
             "greedy_match_max_g": ((), ctypes.c_int),
         },
     ),
-    "maxsim": Kernel(
-        name="maxsim",
-        source="maxsim.cu",
+    "maxsim_tf32x3": Kernel(
+        name="maxsim_tf32x3",
+        source="maxsim_tc.cu",
         replaces="metrics_tpu/ops/kernels/cosine_matching.py:53",
         signatures={
-            # preds, target, keys, rowmax, colmax, pairs, p, r, d, stream
-            "maxsim_launch": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _P), ctypes.c_int),
+            # preds, target, col_keys, rowmax, colmax, pairs, p, r, d, stream
+            "maxsim_tc_launch": ((_P, _P, _P, _P, _P, _L, _I, _I, _I, _P), ctypes.c_int),
         },
     ),
 }

@@ -5,12 +5,14 @@ matches every token of a sentence with its most similar token of the other
 sentence: precision averages the row maxima of the (P, R) similarity of
 normalised embeddings, recall the column maxima, each weighted by idf.
 
-The maxima are one hand-written CUDA kernel with a plain PyTorch version
-beside it:
+The maxima (the TPU kernel ``_maxsim_kernel``, ``cosine_matching.py:53``)
+are a hand-written CUDA kernel with a plain PyTorch version beside it:
 
-- :func:`maxsim` launches ``csrc/maxsim.cu`` (the TPU kernel
-  ``_maxsim_kernel``, ``cosine_matching.py:53``), which never writes the
-  (B, L, P, R) similarity to device memory;
+- :func:`maxsim` launches ``csrc/maxsim_tc.cu`` (``maxsim_tf32x3``: 3xTF32
+  products on the tensor cores, fed by TMA), which never writes the
+  (B, L, P, R) similarity to device memory. Operands that TMA cannot describe
+  (:func:`_tma_route`: D not a multiple of 4, or a base not 16-byte aligned)
+  are first copied with D padded by zero columns (:func:`_tma_operands`);
 - :func:`maxsim_plain` is the full ``einsum`` followed by two ``amax``.
 
 For CUDA tensors :func:`maxsim` launches its kernel or raises; it never falls
@@ -30,7 +32,33 @@ from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, current_
 
 __all__ = ["maxsim", "maxsim_plain", "pairwise_cosine_pr"]
 
-MAXSIM_KERNEL = KERNELS["maxsim"]
+MAXSIM_KERNEL = KERNELS["maxsim_tf32x3"]
+
+
+def _tma_route(preds_embeddings: Tensor, target_embeddings: Tensor) -> bool:
+    """Whether TMA can describe both operands as they are: D a positive
+    multiple of 4 (16-byte row strides) and both bases 16-byte aligned. The
+    operands are contiguous."""
+    d = preds_embeddings.shape[-1]
+    return (
+        d > 0 and d % 4 == 0
+        and preds_embeddings.data_ptr() % 16 == 0 and target_embeddings.data_ptr() % 16 == 0
+    )
+
+
+def _tma_operands(preds_embeddings: Tensor, target_embeddings: Tensor) -> Tuple[Tensor, Tensor]:
+    """Copies of both operands that TMA can describe: D padded with zero
+    columns up to a positive multiple of 4, in fresh allocations (PyTorch's
+    allocators align them to far more than 16 bytes). A zero column adds an
+    exact zero to every dot product, so the maxima do not change."""
+    d = preds_embeddings.shape[-1]
+    width = max(4, -(-d // 4) * 4)
+    out = []
+    for x in (preds_embeddings, target_embeddings):
+        padded = x.new_zeros((*x.shape[:-1], width))
+        padded[..., :d] = x
+        out.append(padded)
+    return out[0], out[1]
 
 
 def _finalize(rowmax: Tensor, colmax: Tensor, preds_idf_scale: Tensor,
@@ -61,8 +89,9 @@ def maxsim(preds_embeddings: Tensor, target_embeddings: Tensor, *, plain: bool =
 
     Both inputs are contiguous float32 on one device, with P and R at least 1.
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream or raise. ``plain=True`` runs the plain version on any
-    device, so that a check can hold the kernel against it.
+    current stream or raise, after a padded copy where :func:`_tma_route`
+    does not hold. ``plain=True`` runs the plain version on any device, so
+    that a check can hold the kernel against it.
     """
     if (
         preds_embeddings.ndim != 4 or target_embeddings.ndim != 4
@@ -91,15 +120,17 @@ def maxsim(preds_embeddings: Tensor, target_embeddings: Tensor, *, plain: bool =
     pairs = b * l
     if pairs == 0:  # an empty grid is not a valid launch
         return rowmax, colmax
-    keys = torch.empty((pairs * (p + r),), dtype=torch.int32, device=device)  # zeroed by the launch
-    lib = MAXSIM_KERNEL.lib()
+    if not _tma_route(preds_embeddings, target_embeddings):
+        preds_embeddings, target_embeddings = _tma_operands(preds_embeddings, target_embeddings)
+        d = preds_embeddings.shape[3]
+    keys = torch.empty((pairs * r,), dtype=torch.int32, device=device)  # column keys, zeroed by the launch
     with torch.cuda.device(device):
-        err = lib.maxsim_launch(
+        err = MAXSIM_KERNEL.lib().maxsim_tc_launch(
             preds_embeddings.data_ptr(), target_embeddings.data_ptr(), keys.data_ptr(),
             rowmax.data_ptr(), colmax.data_ptr(), pairs, p, r, d, current_stream(preds_embeddings),
         )
     if err != 0:
-        raise RuntimeError(f"maxsim kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"{MAXSIM_KERNEL.name} kernel launch failed with CUDA error {err}")
     MAXSIM_KERNEL.launches += 1
     return rowmax, colmax
 

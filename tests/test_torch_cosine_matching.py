@@ -1,8 +1,11 @@
 """The port's BERTScore matching against the JAX package's, on the CPU.
 
 ``metrics_tpu_torch.ops.kernels.cosine_matching`` runs its plain PyTorch
-version here (CPU tensors); the CUDA kernel ``maxsim`` is held against that
-plain version on the card by ``chip_smoke.py``.
+version here (CPU tensors); its CUDA kernel (3xTF32 on the tensor cores, fed
+by TMA) is held against that plain version on the card by ``chip_smoke.py``.
+What the CPU can check of its wrapper is here too: which operands TMA
+describes as they are, and the padded copies made of the others. Two design
+notes emulate the kernel's 3xTF32 arithmetic in numpy.
 
 Tolerance: rtol=1e-5, atol=1e-6 on precision, recall and F1, the JAX
 package's own bound between its XLA reference and its Pallas body
@@ -20,6 +23,8 @@ from metrics_tpu.ops.kernels import cosine_matching as jax_cm
 from metrics_tpu_torch.ops.kernels.cosine_matching import (
     MAXSIM_KERNEL,
     _pr_f1_reference,
+    _tma_operands,
+    _tma_route,
     maxsim,
     maxsim_plain,
     pairwise_cosine_pr,
@@ -148,3 +153,125 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         maxsim(pe, te.to("meta"))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         maxsim(pe.to("meta"), te.to("meta"))
+
+
+# --------------------------------------------------------------------------- #
+# TMA needs 16-byte row strides and bases; other operands are padded copies
+# --------------------------------------------------------------------------- #
+def _normal(gen, *shape):
+    return torch.randn(shape, generator=gen)
+
+
+def _odd_offset_view(gen):
+    flat = _normal(gen, 2 * 20 * 32 + 1)
+    return flat[1:].view(2, 1, 20, 32), _normal(gen, 2, 1, 9, 32)
+
+
+ROUTE_CASES = {
+    "contiguous D=1024": (lambda gen: (_normal(gen, 2, 1, 5, 1024), _normal(gen, 2, 1, 3, 1024)), True),
+    "D=7": (lambda gen: (_normal(gen, 2, 1, 5, 7), _normal(gen, 2, 1, 3, 7)), False),
+    "D=48": (lambda gen: (_normal(gen, 4, 3, 33, 48), _normal(gen, 4, 3, 65, 48)), True),
+    "view at an odd offset": (_odd_offset_view, False),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_tma_route(case):
+    make, expected = ROUTE_CASES[case]
+    pe, te = make(torch.Generator().manual_seed(3))
+    assert pe.is_contiguous() and te.is_contiguous()
+    assert _tma_route(pe, te) is expected
+
+
+@pytest.mark.parametrize("case", list(ROUTE_CASES))
+def test_tma_operands_are_describable_and_keep_the_maxima(case):
+    pe, te = ROUTE_CASES[case][0](torch.Generator().manual_seed(4))
+    d = pe.shape[-1]
+    ppe, pte = _tma_operands(pe, te)
+    assert _tma_route(ppe, pte)
+    assert ppe.shape[-1] == max(4, -(-d // 4) * 4) and ppe.shape[:-1] == pe.shape[:-1]
+    for x, padded in ((pe, ppe), (te, pte)):
+        assert torch.equal(padded[..., :d], x) and not padded[..., d:].any()
+        assert padded.data_ptr() != x.data_ptr()
+    for g, w in zip(maxsim_plain(ppe, pte), maxsim_plain(pe, te)):
+        torch.testing.assert_close(g, w, rtol=0.0, atol=1e-6)
+
+
+# --------------------------------------------------------------------------- #
+# design notes on the 3xTF32 arithmetic of csrc/maxsim_tc.cu, emulated in numpy
+# (the kernel itself is held against float64 on the card by chip_smoke.py)
+# --------------------------------------------------------------------------- #
+SLAB, STEP = 128, 8  # the kernel's accumulator slab and wgmma depth, in elements of D
+
+
+def _tf32(x):
+    """float32 -> TF32 on the bit pattern as cvt.rna does: round the low 13
+    bits away, to nearest with ties away from zero."""
+    bits = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    sign, mag = bits & np.uint32(0x80000000), bits & np.uint32(0x7FFFFFFF)
+    return (sign | ((mag + np.uint32(0x1000)) & np.uint32(0xFFFFE000))).view(np.float32)
+
+
+def _split(x):
+    big = _tf32(x)
+    return big, _tf32(x - big)  # x - big is exact in float32
+
+
+def _add_f32(acc, term, truncate):
+    """acc + term rounded to float32: to nearest, or toward zero as a
+    truncating accumulator would."""
+    exact = acc.astype(np.float64) + term.astype(np.float64)
+    out = exact.astype(np.float32)
+    if truncate:
+        out = np.where(np.abs(out.astype(np.float64)) > np.abs(exact), np.nextafter(out, np.float32(0)), out)
+    return out
+
+
+def _emulate_tf32x3(a, b, truncate=False, slab=SLAB):
+    """(P, D) x (R, D) similarities as the kernel sums them: per wgmma depth
+    of 8, the three products small.big, big.small, big.big, each an 8-term dot
+    product (exact, then rounded to float32) added into a float32 accumulator
+    that restarts every `slab` of D; each slab is added into the float32 total
+    with round to nearest."""
+    (a_big, a_small), (b_big, b_small) = _split(a), _split(b)
+    a_big, a_small, b_big, b_small = (x.astype(np.float64) for x in (a_big, a_small, b_big, b_small))
+    total = np.zeros((a.shape[0], b.shape[0]), np.float32)
+    for lo_slab in range(0, a.shape[1], slab):
+        acc = np.zeros_like(total)
+        for lo in range(lo_slab, min(lo_slab + slab, a.shape[1]), STEP):
+            cols = slice(lo, lo + STEP)
+            for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+                acc = _add_f32(acc, (x[:, cols] @ y[:, cols].T).astype(np.float32), truncate)
+        total = (total + acc).astype(np.float32)
+    return total
+
+
+def _identical_positive_units(d=1024, n=16):
+    """Seeded identical all-positive unit vectors at D = 1024: every product
+    positive and each row's maximum 1, the sum a truncating accumulator pulls
+    furthest down."""
+    x = np.abs(np.random.default_rng(20261017).normal(size=(n, d))).astype(np.float32)
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    return x, x.copy()
+
+
+def test_tf32x3_split_and_slabbed_sums_stay_within_1e6_of_float64():
+    a, b = _identical_positive_units()
+    big, small = _split(a)
+    assert not (big.view(np.uint32) & np.uint32(0x1FFF)).any() and not (small.view(np.uint32) & np.uint32(0x1FFF)).any()
+    assert (np.abs(a.astype(np.float64) - (big.astype(np.float64) + small)) <= 2.0**-22 * np.abs(a)).all()
+    got = _emulate_tf32x3(a, b)
+    assert np.abs(got - a.astype(np.float64) @ b.astype(np.float64).T).max() <= 1e-6
+    assert np.abs(got.max(axis=1) - 1.0).max() <= 1e-6
+
+
+def test_truncating_accumulator_keeps_a_margin_under_the_bound():
+    """Were the tensor cores' float32 sums truncated, 128-deep slabs would keep
+    the error at a fifth of the 1e-5 bound or less; one accumulator over all of
+    D = 1024 loses more than four times as much."""
+    a, b = _identical_positive_units()
+    want = a.astype(np.float64) @ b.astype(np.float64).T
+    slabbed = np.abs(_emulate_tf32x3(a, b, truncate=True) - want).max()
+    whole = np.abs(_emulate_tf32x3(a, b, truncate=True, slab=a.shape[1]) - want).max()
+    assert slabbed <= 2e-6
+    assert whole > 4 * slabbed

@@ -25,9 +25,9 @@ import torch
 from metrics_tpu.ops.detection.boxes import box_iou as jax_box_iou
 from metrics_tpu.ops.kernels.iou_matching import _merged_greedy_match, _pairwise_iou_pallas
 from metrics_tpu.ops.kernels.iou_matching import evaluate_matches as jax_evaluate_matches
+from metrics_tpu_torch.ops.kernels import KERNELS, launch_counts
+from metrics_tpu_torch.ops.kernels.cosine_matching import maxsim, maxsim_plain
 from metrics_tpu_torch.ops.kernels.iou_matching import (
-    IOU_KERNEL,
-    MATCH_KERNEL,
     evaluate_matches,
     greedy_match,
     greedy_match_plain,
@@ -230,13 +230,19 @@ def test_greedy_match_plain_equals_the_jax_scan_with_ties(seed):
 
 def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     batch = random_images(np.random.default_rng(11), 4)
-    iou_launches, match_launches = IOU_KERNEL.launches, MATCH_KERNEL.launches
+    before = launch_counts()
     det, gt = T(batch["det_boxes"]), T(batch["gt_boxes"])
     assert_bitwise(pairwise_iou(det, gt), pairwise_iou_plain(det, gt))
     assert_bitwise(pairwise_iou(det, gt, plain=True), pairwise_iou_plain(det, gt))
     _port_eval(batch)
-    assert (IOU_KERNEL.launches, MATCH_KERNEL.launches) == (iou_launches, match_launches)
-    assert IOU_KERNEL._lib is None and MATCH_KERNEL._lib is None
+    # maxsim on a TMA-describable shape (D=64) and on one that is not (D=7)
+    rng = np.random.default_rng(12)
+    for d in (64, 7):
+        pe, te = (T(rng.normal(size=(2, 1, n, d)).astype(np.float32)) for n in (5, 3))
+        for g, w in zip(maxsim(pe, te), maxsim_plain(pe, te)):
+            assert_bitwise(g, w)
+    assert launch_counts() == before
+    assert all(kernel._lib is None for kernel in KERNELS.values())
 
 
 def test_wrappers_reject_other_devices_and_shapes():
