@@ -11,14 +11,21 @@ is missing. Phases:
 1. Environment: torch and CUDA versions, the card's name and power limit.
 2. Every kernel built from the sources in the checkout (one nvcc each, all
    started together), then held bit for bit against its plain PyTorch
-   version on the card, at the main path's shapes and on the edge cases.
+   version on the card, at the main path's shapes and on the edge cases:
+   binned_counts with dense targets and with int32/int64 class labels (out
+   of range ones too), on the cluster path (also C = 1 at N = 1,000,000) and
+   the beyond-shared-memory workspace path (run twice, so that a workspace
+   left unclean would show), unaligned rows and an empty batch; pairwise_iou
+   with and without per-image counts (zero, full, mixed, beyond D and G,
+   scalar stores, several tiles, 5,000 images, NaN boxes).
 3. The classification path at ImageNet-1k validation size (50,000 samples,
    1,000 classes, batches of 1,024): a MetricCollection of Accuracy (micro)
    and F1/Precision/Recall (macro) plus BinnedAveragePrecision (100
-   thresholds), updated per batch and computed, then the same stream again
-   with the binned counts forced onto the plain version; every state must
-   match bit for bit, the binned-counts kernel must have launched on this
-   path, and a small input must agree with a numpy oracle.
+   thresholds, fed the (N,) class labels, which its kernel reads as they
+   are), updated per batch and computed, then the same stream again with the
+   binned counts forced onto the plain version; every state must match bit
+   for bit, the binned-counts kernel must have launched once per update, and
+   a small input must agree with a numpy oracle.
 3b. The detection path at COCO val2017 evaluation size (5,000 images of
    640x480, 80 classes, 100 detections and about 7.4 ground truths per
    image), generated on the card from a seed: MeanAveragePrecision updated
@@ -39,7 +46,10 @@ is missing. Phases:
 4. Timing with CUDA events (median after warm-up): each kernel beside its
    plain version, its bound and, where one exists, a PyTorch call computing
    the same function; one whole update step of each path, compute, and the
-   device's idle share from the profiler. maxsim is timed at the compute's
+   device's idle share from the profiler. binned_counts is timed with class
+   labels and with a dense target, and the profiler lists the device
+   operations of one call and of one binned update; pairwise_iou with the
+   chunk's counts beside the IoU-then-mask step it replaces. maxsim is timed at the compute's
    full shape and at one 64-pair chunk beside the plain version and
    torch.bmm + two amax, with its bound (3xTF32 at the TF32 tensor-core
    peak); the matcher at the COCO compute's (256, 4, 10, 128, 32) and at
@@ -151,6 +161,7 @@ def profile_window(torch, fn, reps: int) -> dict:
     fn()  # warm-up outside the window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
@@ -159,18 +170,28 @@ def profile_window(torch, fn, reps: int) -> dict:
     return {"wall_us": wall_us, **split_profile(prof, reps)}
 
 
+def lead_in(torch) -> None:
+    """A few short spin kernels at the start of a profiler window: the
+    profiler has been seen to drop the first five device records of a window
+    on the card, and these take their place (split_profile leaves them out)."""
+    for _ in range(8):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def split_profile(prof, reps: int = 1) -> dict:
     """Device time by kernel and host time by op, per call of ``reps``, and
     the device time per recorded launch of each kernel. A run of the
     profiler may miss some launches' records, so a kernel's own time is
     taken per recorded launch; CUPTI's "Activity Buffer Request" is its own
-    bookkeeping, not device work."""
+    bookkeeping, not device work, and the lead-in's spin kernels are not
+    the work measured."""
     device_us, per_launch_us, recorded, host_us = {}, {}, {}, {}
     for evt in prof.key_averages():
         dev = getattr(evt, "self_device_time_total", 0.0)
         if evt.key.startswith(("aten::", "cuda")):
             host_us[evt.key] = evt.self_cpu_time_total / reps
-        elif dev > 0 and evt.key != "Activity Buffer Request":
+        elif dev > 0 and evt.key != "Activity Buffer Request" and "spin_kernel" not in evt.key:
             device_us[evt.key] = dev / reps
             per_launch_us[evt.key] = dev / evt.count
             recorded[evt.key] = evt.count
@@ -194,8 +215,10 @@ def report_profile(label: str, prof: dict) -> None:
 # --------------------------------------------------------------------------- #
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------- #
-def binned_cases(torch):
-    """(label, preds, target, thresholds) on the card, made from a seed."""
+def binned_cases(torch, max_shared_t):
+    """(label, preds, target, thresholds, calls) on the card, made from a seed:
+    the dense (N, C) form, then the label form; ``calls`` is how many times in
+    a row the case runs (twice where a workspace left unclean would show)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     dev = "cuda"
 
@@ -205,44 +228,91 @@ def binned_cases(torch):
     def coin(n, c):
         return torch.rand((n, c), generator=gen, device=dev) < 0.5
 
+    def labels(n, c, dtype=torch.int64, low=0, high=None):
+        return torch.randint(low, c if high is None else high, (n,), generator=gen, device=dev, dtype=dtype)
+
+    def lin(t):
+        return torch.linspace(0, 1, t, device=dev)
+
+    def odd_offset(x):  # the same values at a storage offset of one element: no vector loads
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
     cases = []
     for n, c, t in ((1024, 1000, 100), (257, 7, 21), (1, 3, 5), (4096, 1, 100)):
-        cases.append((f"random {n}x{c}x{t}", uniform(n, c), coin(n, c), torch.linspace(0, 1, t, device=dev)))
+        cases.append((f"dense random {n}x{c}x{t}", uniform(n, c), coin(n, c), lin(t), 1))
     p = uniform(300, 5)
     p[::7, 0] = float("nan")
     p[3, :] = float("nan")
-    cases.append(("nan scores", p, coin(300, 5), torch.linspace(0, 1, 13, device=dev)))
+    cases.append(("dense nan scores", p, coin(300, 5), lin(13), 1))
     grid = torch.tensor([0.5, 0.0, 1.0, 0.5, 0.25, 0.75, 0.25], device=dev)
     on_grid = grid[torch.randint(0, 7, (513, 4), generator=gen, device=dev)]
-    cases.append(("unsorted tied thresholds, scores on them", on_grid, coin(513, 4), grid))
+    cases.append(("dense unsorted tied thresholds, scores on them", on_grid, coin(513, 4), grid, 1))
     wild = torch.tensor([-math.inf, -0.5, 0.5, 1.5, math.inf], device=dev)
-    cases.append(("out-of-range thresholds", uniform(700, 9), coin(700, 9), wild))
-    cases.append(("large T: global-atomic path", uniform(600, 3), coin(600, 3), torch.rand(7000, generator=gen, device=dev)))
-    cases.append(("empty batch", uniform(0, 6), coin(0, 6), torch.linspace(0, 1, 11, device=dev)))
+    cases.append(("dense out-of-range thresholds", uniform(700, 9), coin(700, 9), wild, 1))
+    cases.append(("dense T=7000, shared path", uniform(600, 3), coin(600, 3), torch.rand(7000, generator=gen, device=dev), 1))
+    cases.append(("dense C=1 N=1e6, one cluster", uniform(1_000_000, 1), coin(1_000_000, 1), lin(100), 2))
+    cases.append(("dense odd storage offset", odd_offset(uniform(777, 12)), odd_offset(coin(777, 12)), lin(50), 1))
+    cases.append(("dense empty batch", uniform(0, 6), coin(0, 6), lin(11), 1))
+
+    cases.append(("labels int64 in range 1024x1000x100", uniform(1024, 1000), labels(1024, 1000), lin(100), 1))
+    cases.append(("labels int32 in range 1024x1000x100", uniform(1024, 1000), labels(1024, 1000, torch.int32), lin(100), 1))
+    cases.append(("labels int64 at -1 and C", uniform(513, 12), labels(513, 12, low=-1, high=13), lin(21), 1))
+    cases.append(("labels int32 at -1 and C", uniform(513, 12), labels(513, 12, torch.int32, low=-1, high=13), lin(21), 1))
+    big = labels(300, 8, low=-1, high=9)
+    big[::5] += 2**32  # C + 2**32 and the like must not match class C mod 2**32
+    cases.append(("labels int64 beyond int32", uniform(300, 8), big, lin(17), 1))
+    cases.append(("labels C=7, unaligned rows", uniform(257, 7), labels(257, 7), lin(21), 1))
+    cases.append(("labels C=1 N=1e6 int64, one cluster", uniform(1_000_000, 1), labels(1_000_000, 1, high=2), lin(100), 2))
+    cases.append(("labels C=1 N=1e6 int32, one cluster", uniform(1_000_000, 1), labels(1_000_000, 1, torch.int32, high=2), lin(100), 2))
+    cases.append(("labels C=4 N=200000, one cluster, vector loads", uniform(200_000, 4), labels(200_000, 4), lin(100), 2))
+    cases.append(("labels odd storage offset", odd_offset(uniform(777, 12)), labels(777, 12), lin(50), 1))
+    p = uniform(300, 5)
+    p[::7, 0] = float("nan")
+    cases.append(("labels nan scores", p, labels(300, 5), lin(13), 1))
+    cases.append(("labels T=7000, shared path", uniform(600, 3), labels(600, 3), torch.rand(7000, generator=gen, device=dev), 1))
+    beyond = max_shared_t + 1000
+    cases.append((f"labels T={beyond}, beyond shared memory", uniform(600, 3), labels(600, 3),
+                  torch.rand(beyond, generator=gen, device=dev), 2))
+    cases.append((f"dense T={beyond}, beyond shared memory", uniform(600, 3), coin(600, 3),
+                  torch.rand(beyond, generator=gen, device=dev), 2))
+    cases.append(("labels empty batch", uniform(0, 6), labels(0, 6), lin(11), 1))
     return cases
 
 
 def check_binned_kernel(torch, kernels_mod, binned):
     kernel = kernels_mod.KERNELS["binned_counts"]
     lib = kernel.lib()
-    check(lib.binned_counts_class_block(3, 7000) == 0, "T=7000 should take the global-atomic path")
-    check(lib.binned_counts_class_block(1000, 100) == 32, "T=100 should take the shared-memory path, 32 classes a block")
+    max_t = lib.binned_counts_max_shared_t()
+    check(lib.binned_counts_class_block(1000, 100) >= 4, "T=100 should take the cluster path, at least 4 classes a block")
+    check(lib.binned_counts_class_block(3, 7000) == 2, "T=7000 should take the cluster path, 2 classes a block")
+    check(lib.binned_counts_class_block(1, max_t) == 1 and lib.binned_counts_class_block(1, max_t + 1) == 0,
+          f"the cluster path should end at T={max_t}")
+    check(lib.binned_counts_workspace_len(1000, 100) == 0 and lib.binned_counts_workspace_len(1, max_t) == 0,
+          "the cluster path should need no workspace")
+    check(lib.binned_counts_workspace_len(3, max_t + 1) == 3 + 2 * 3 * (max_t + 2),
+          "the global path's workspace should hold a ticket per class and the (2, C, T + 1) histogram")
+    print(f"  binned_counts: the cluster path takes T up to {max_t}; beyond, the global-workspace path")
     worst = 0.0
-    for label, preds, target, thresholds in binned_cases(torch):
+    for label, preds, target, thresholds, calls in binned_cases(torch, max_t):
         grid = binned.sort_thresholds(thresholds)
-        before = kernel.launches
-        got = binned.binned_counts(preds, target, grid)
-        torch.cuda.synchronize()
         want = binned.binned_counts(preds, target, grid, plain=True)
         torch.cuda.synchronize()
-        expected_launches = 0 if preds.shape[0] == 0 else 1
-        check(kernel.launches - before == expected_launches, f"binned_counts [{label}]: launches {kernel.launches - before}")
-        for g, w, name in zip(got, want, ("TP", "FP", "FN")):
-            check(g.shape == w.shape and g.dtype == w.dtype, f"binned_counts [{label}] {name}: shape/dtype")
-            err = float((g - w).abs().max()) if g.numel() else 0.0
-            check(torch.equal(g, w), f"binned_counts [{label}] {name}: kernel differs from plain, max abs err {err}")
-            worst = max(worst, err)
-        print(f"  binned_counts [{label}] shape {tuple(preds.shape)} T={thresholds.numel()}: bitwise equal")
+        for call in range(calls):
+            before = kernel.launches
+            got = binned.binned_counts(preds, target, grid)
+            torch.cuda.synchronize()
+            expected_launches = 0 if preds.shape[0] == 0 else 1
+            check(kernel.launches - before == expected_launches, f"binned_counts [{label}]: launches {kernel.launches - before}")
+            for g, w, name in zip(got, want, ("TP", "FP", "FN")):
+                check(g.shape == w.shape and g.dtype == w.dtype, f"binned_counts [{label}] {name}: shape/dtype")
+                err = float((g - w).abs().max()) if g.numel() else 0.0
+                check(torch.equal(g, w), f"binned_counts [{label}] call {call + 1} {name}: kernel differs from plain,"
+                                         f" max abs err {err}")
+                worst = max(worst, err)
+        print(f"  binned_counts [{label}] shape {tuple(preds.shape)} target {tuple(target.shape)} {target.dtype}"
+              f" T={thresholds.numel()}: bitwise equal" + (f" in {calls} calls in a row" if calls > 1 else ""))
     return worst
 
 
@@ -340,37 +410,68 @@ def random_boxes(torch, gen, shape, low=0.0, high=500.0, side=(1.0, 200.0)):
 
 
 def iou_cases(torch):
-    """(label, det (B, D, 4), gt (B, G, 4)) on the card, made from a seed."""
+    """(label, det (B, D, 4), gt (B, G, 4), det_counts, gt_counts) on the card,
+    made from a seed; counts are None for the count-free cases."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    cases = [(f"random {b}x{d}x{g}", random_boxes(torch, gen, (b, d)), random_boxes(torch, gen, (b, g)))
+    cases = [(f"random {b}x{d}x{g}", random_boxes(torch, gen, (b, d)), random_boxes(torch, gen, (b, g)), None, None)
              for b, d, g in ((256, 128, 64), (1, 1, 1), (3, 7, 5))]
     det = torch.tensor([[[0, 0, 0, 5], [5, 0, 0, 5], [10, 10, 20, 20], [0, 0, 2, 2], [3, 3, 3, 3]]],
                        dtype=torch.float32, device="cuda")
     gt = torch.tensor([[[20, 10, 30, 20], [0, 0, 2, 2], [10, 20, 20, 30], [5, 0, 0, 5]]],
                       dtype=torch.float32, device="cuda")
-    cases.append(("degenerate, touching and identical boxes", det, gt))
+    cases.append(("degenerate, touching and identical boxes", det, gt, None, None))
     cases.append(("coordinates near 1e6", random_boxes(torch, gen, (4, 32), 1e6, 1e6 + 300.0, (0.5, 40.0)),
-                  random_boxes(torch, gen, (4, 16), 1e6, 1e6 + 300.0, (0.5, 40.0))))
+                  random_boxes(torch, gen, (4, 16), 1e6, 1e6 + 300.0, (0.5, 40.0)), None, None))
     same = random_boxes(torch, gen, (8, 16))
-    cases.append(("identical box sets", same, same.clone()))
+    cases.append(("identical box sets", same, same.clone(), None, None))
+
+    def counts(b, top, low=0):
+        return torch.randint(low, top + 1, (b,), generator=gen, device="cuda", dtype=torch.int32)
+
+    def with_counts(label, b, d, g, det_counts, gt_counts):
+        cases.append((label, random_boxes(torch, gen, (b, d)), random_boxes(torch, gen, (b, g)), det_counts, gt_counts))
+
+    zeros = torch.zeros(256, dtype=torch.int32, device="cuda")
+    with_counts("counts all zero 256x128x32", 256, 128, 32, zeros, zeros)
+    with_counts("counts all full 256x128x32", 256, 128, 32, torch.full_like(zeros, 128), torch.full_like(zeros, 32))
+    with_counts("counts mixed 256x128x32", 256, 128, 32, counts(256, 128), counts(256, 32))
+    with_counts("counts beyond D and G 64x100x40", 64, 100, 40, counts(64, 130), counts(64, 50))
+    with_counts("counts mixed G=5, scalar stores", 37, 100, 5, counts(37, 100), counts(37, 5))
+    with_counts("counts mixed G=33, scalar stores", 37, 100, 33, counts(37, 100), counts(37, 33))
+    with_counts("counts mixed D=300 G=100, several tiles", 9, 300, 100, counts(9, 300), counts(9, 100))
+    with_counts("counts mixed B=5000 (one call for the whole compute)", 5000, 128, 32, counts(5000, 100), counts(5000, 32, 1))
+    flat_d = torch.zeros(64 * 128 * 4 + 1, device="cuda")
+    flat_d[1:] = random_boxes(torch, gen, (64, 128)).reshape(-1)
+    flat_g = torch.zeros(64 * 32 * 4 + 1, device="cuda")
+    flat_g[1:] = random_boxes(torch, gen, (64, 32)).reshape(-1)
+    cases.append(("counts mixed, boxes at an odd storage offset", flat_d[1:].view(64, 128, 4), flat_g[1:].view(64, 32, 4),
+                  counts(64, 128), counts(64, 32)))
+    det, gt = random_boxes(torch, gen, (32, 64)), random_boxes(torch, gen, (32, 16))
+    det_counts, gt_counts = counts(32, 64, 1), counts(32, 16, 1)
+    det[:, ::3, 0] = float("nan")  # inside and outside the valid rows
+    gt[:, ::4, 3] = float("nan")
+    det[:, 63, :] = float("nan")  # every pad row NaN
+    cases.append(("counts mixed, NaN boxes inside and outside the valid region", det, gt, det_counts, gt_counts))
     return cases
 
 
 def check_iou_kernel(torch, kernels_mod, im):
     kernel = kernels_mod.KERNELS["pairwise_iou"]
     worst = 0.0
-    for label, det, gt in iou_cases(torch):
+    for label, det, gt, det_counts, gt_counts in iou_cases(torch):
         before = kernel.launches
-        got = im.pairwise_iou(det, gt)
+        got = im.pairwise_iou(det, gt, det_counts, gt_counts)
         torch.cuda.synchronize()
-        want = im.pairwise_iou(det, gt, plain=True)
+        want = im.pairwise_iou(det, gt, det_counts, gt_counts, plain=True)
         torch.cuda.synchronize()
         check(kernel.launches - before == 1, f"pairwise_iou [{label}]: launches {kernel.launches - before}")
         check(got.shape == want.shape and got.dtype == want.dtype, f"pairwise_iou [{label}]: shape/dtype")
-        err = float((got - want).abs().max())
-        check(torch.equal(got, want), f"pairwise_iou [{label}]: kernel differs from plain, max abs err {err}")
+        err = float(torch.nan_to_num(got - want, nan=math.inf).abs().max())
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"pairwise_iou [{label}]: kernel differs from plain in its bits, max abs err {err}")
         worst = max(worst, err)
-        print(f"  pairwise_iou [{label}] det {tuple(det.shape)} gt {tuple(gt.shape)}: bitwise equal")
+        print(f"  pairwise_iou [{label}] det {tuple(det.shape)} gt {tuple(gt.shape)}"
+              f"{'' if det_counts is None else ' with counts'}: bitwise equal")
     return worst
 
 
@@ -555,16 +656,17 @@ def check_map_docstring_example(torch, mt):
 
 def chunk_inputs(torch, metric, im):
     """The first 256-image chunk of a filled metric, as compute() hands it to
-    the two kernels: (sorted det boxes, gt boxes) and the matcher's inputs."""
+    the two kernels: (sorted det boxes, gt boxes, det counts, gt counts) and
+    the matcher's inputs."""
     arrays, (cid, cmask, area_ranges, thresholds, max_det), _, _ = metric._evaluation_inputs(metric._get_classes())
     det_boxes, det_scores, det_labels, det_counts, gt_boxes, gt_labels, gt_counts = (x[:256].contiguous() for x in arrays)
     prep = im.match_inputs(det_boxes, det_scores, det_labels, det_counts, gt_boxes, gt_labels, gt_counts,
                            cid, cmask, area_ranges, max_det)
     boxes_sorted = prep["boxes_sorted"].contiguous()
-    ious = torch.where(prep["valid_pairs"], im.pairwise_iou(boxes_sorted, gt_boxes), 0.0)
+    ious = im.pairwise_iou(boxes_sorted, gt_boxes, det_counts, gt_counts)
     match_args = (ious, prep["det_class_valid"].any(dim=1), prep["labels_sorted"].contiguous(), gt_labels,
                   prep["gt_class_valid"].any(dim=1), prep["gt_area_ignore"].contiguous(), thresholds)
-    return (boxes_sorted, gt_boxes), match_args
+    return (boxes_sorted, gt_boxes, det_counts, gt_counts), match_args
 
 
 def profile_compute(torch, metric) -> dict:
@@ -574,6 +676,7 @@ def profile_compute(torch, metric) -> dict:
     metric._computed = None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead_in(torch)
         t0 = time.perf_counter()
         metric.compute()
         torch.cuda.synchronize()
@@ -618,12 +721,25 @@ def detection_phase(torch, mt, kernels_mod):
 def detection_timing(torch, mt, im, metric, stream, name, smi):
     """Phase 4 for the detection path: kernels at the COCO chunk shape, one
     update, and compute split into device evaluation and host curves."""
-    (det_sorted, gt), match_args = chunk_inputs(torch, metric, im)
+    (det_sorted, gt, det_counts, gt_counts), match_args = chunk_inputs(torch, metric, im)
     b, d, _ = det_sorted.shape
     g = gt.shape[1]
-    iou_ms = time_ms(torch, lambda: im.pairwise_iou(det_sorted, gt))
-    iou_plain_ms = time_ms(torch, lambda: im.pairwise_iou(det_sorted, gt, plain=True))
-    iou_bound_ms, iou_by = bound(b * (d + g) * 16 + b * d * g * 4, 12 * b * d * g, name)
+    iou_ms = time_ms(torch, lambda: im.pairwise_iou(det_sorted, gt, det_counts, gt_counts))
+    iou_plain_ms = time_ms(torch, lambda: im.pairwise_iou(det_sorted, gt, det_counts, gt_counts, plain=True))
+    # the step as evaluate_matches formed it while the mask was separate: the
+    # IoU of every pair, the (B, D, G) valid-pair mask, torch.where
+    arange_d, arange_g = torch.arange(d, device="cuda"), torch.arange(g, device="cuda")
+
+    def unfused_step():
+        valid = (arange_d[None, :] < det_counts[:, None])[:, :, None] & (arange_g[None, :] < gt_counts[:, None])[:, None, :]
+        return torch.where(valid, im.pairwise_iou(det_sorted, gt), 0.0)
+
+    check(torch.equal(unfused_step(), im.pairwise_iou(det_sorted, gt, det_counts, gt_counts)),
+          "the fused IoU differs from the IoU-then-mask step")
+    unfused_ms = time_ms(torch, unfused_step)
+    count_free_ms = time_ms(torch, lambda: im.pairwise_iou(det_sorted, gt))
+    # boxes and counts read once, the IoU written once
+    iou_bound_ms, iou_by = bound(b * (d + g) * 16 + b * 8 + b * d * g * 4, 12 * b * d * g, name)
     ious, _, _, _, _, gt_ignore, thresholds = match_args
     a, t = gt_ignore.shape[1], thresholds.numel()
     match_ms = time_ms(torch, lambda: im.greedy_match(*match_args))
@@ -631,11 +747,14 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     # each input read once, the flags written once; a multiply and a compare per (b, a, t, d, g)
     match_bytes = b * d * g * 4 + b * d * (1 + 4) + b * g * (4 + 1) + b * a * g + t * 4 + b * a * t * d
     match_bound_ms, match_by = bound(match_bytes, 2 * b * a * t * d * g, name)
-    iou_prof = profile_window(torch, lambda: im.pairwise_iou(det_sorted, gt), reps=20)
+    iou_prof = profile_window(torch, lambda: im.pairwise_iou(det_sorted, gt, det_counts, gt_counts), reps=20)
+    unfused_prof = profile_window(torch, unfused_step, reps=20)
     match_prof = profile_window(torch, lambda: im.greedy_match(*match_args), reps=20)
-    report_profile("pairwise_iou wrapper", iou_prof)
+    report_profile("pairwise_iou wrapper, with counts", iou_prof)
+    report_profile("IoU, then mask and torch.where", unfused_prof)
     report_profile("greedy_match wrapper", match_prof)
     iou_device_us = sum(us for k, us in iou_prof["per_launch_us"].items() if "pairwise_iou" in k) or None
+    unfused_device_us = sum(unfused_prof["device_us"].values()) or None
     match_device_us = sum(us for k, us in match_prof["per_launch_us"].items() if "greedy_match" in k) or None
     # the matcher at G=64, the padded width of images with 33-64 ground truths
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
@@ -673,8 +792,10 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     prof = profile_compute(torch, metric)
     busy = sum(prof["device_us"].values())
     idle = max(0.0, 1.0 - busy / prof["wall_us"]) if prof["device_us"] else None
-    print(f"phase 4 detection ({smi}): pairwise_iou {iou_ms * 1e3:.1f} us/call (device {iou_device_us} us),"
-          f" plain {iou_plain_ms * 1e3:.1f} us, bound {iou_bound_ms * 1e3:.2f} us ({iou_by});"
+    print(f"phase 4 detection ({smi}): pairwise_iou with counts at {(b, d, g)} {iou_ms * 1e3:.1f} us/call"
+          f" (device {iou_device_us} us), plain {iou_plain_ms * 1e3:.1f} us, bound {iou_bound_ms * 1e3:.2f} us ({iou_by});"
+          f" without counts {count_free_ms * 1e3:.1f} us/call; IoU then mask and where {unfused_ms * 1e3:.1f} us/call"
+          f" (device {unfused_device_us} us in all);"
           f" greedy_match {match_ms * 1e3:.1f} us/call (device {match_device_us} us), plain {match_plain_ms * 1e3:.1f} us,"
           f" bound {match_bound_ms * 1e3:.2f} us ({match_by}); at G=64 {wide_ms * 1e3:.1f} us/call (device"
           f" {wide_device_us} us), bound {wide_bound_ms * 1e3:.2f} us ({wide_by})")
@@ -687,7 +808,8 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     shapes = {"pairwise_iou": [b, d, g], "greedy_match": [b, a, t, d, g]}
     return {
         "pairwise_iou": dict(ms=iou_ms, plain_ms=iou_plain_ms, bound_ms=iou_bound_ms, bound_by=iou_by,
-                             device_us=iou_device_us, shape=shapes["pairwise_iou"]),
+                             device_us=iou_device_us, shape=shapes["pairwise_iou"], count_free_ms=count_free_ms,
+                             unfused_step_ms=unfused_ms, unfused_step_device_us=unfused_device_us),
         "greedy_match": dict(ms=match_ms, plain_ms=match_plain_ms, bound_ms=match_bound_ms, bound_by=match_by,
                              device_us=match_device_us, shape=shapes["greedy_match"],
                              g64=dict(ms=wide_ms, device_us=wide_device_us, bound_ms=wide_bound_ms, bound_by=wide_by,
@@ -923,6 +1045,7 @@ def run_bert(torch, mt, bert_ops, encoder, preds, target):
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            lead_in(torch)
             t0 = time.perf_counter()
             result = metric.compute()
             torch.cuda.synchronize()
@@ -1123,12 +1246,38 @@ def main() -> None:
     logits, probs, target = next(batches(torch))
     target_bool = torch.nn.functional.one_hot(target, N_CLASSES) == 1
     grid = binned.sort_thresholds(mt.BinnedAveragePrecision(num_classes=N_CLASSES).thresholds)
-    kernel_ms = time_ms(torch, lambda: binned.binned_counts(probs, target_bool, grid))
-    plain_ms = time_ms(torch, lambda: binned.binned_counts(probs, target_bool, grid, plain=True))
     n, c, t = BATCH, N_CLASSES, N_THRESHOLDS
-    bytes_moved = n * c * (4 + 1) + t * 4 + 3 * c * t * 4
     ops = n * c * math.ceil(math.log2(t + 1))  # one compare per binary-search step
-    bound_ms, bound_by = bound(bytes_moved, ops, name)
+    forms = {}
+    for form, tgt, target_bytes in (("labels", target, n * target.element_size()), ("dense", target_bool, n * c)):
+        # scores and target read once, thresholds and order once, the counts written once
+        bytes_moved = n * c * 4 + target_bytes + t * 8 + 3 * c * t * 4
+        f_bound_ms, f_bound_by = bound(bytes_moved, ops, name)
+        f_ms = time_ms(torch, lambda tgt=tgt: binned.binned_counts(probs, tgt, grid))
+        f_plain_ms = time_ms(torch, lambda tgt=tgt: binned.binned_counts(probs, tgt, grid, plain=True))
+        f_prof = profile_window(torch, lambda tgt=tgt: binned.binned_counts(probs, tgt, grid), reps=20)
+        report_profile(f"binned_counts wrapper, {form}", f_prof)
+        check(all("binned_" in k for k in f_prof["recorded"]),
+              f"binned_counts ({form}) ran other device operations: {sorted(f_prof['recorded'])}")
+        device_ops = sum(f_prof["recorded"].values()) / 20
+        forms[form] = dict(ms=f_ms, plain_ms=f_plain_ms, bound_ms=f_bound_ms, bound_by=f_bound_by,
+                           device_us=sum(us for k, us in f_prof["per_launch_us"].items() if "binned_" in k) or None,
+                           device_ops_per_call=device_ops, target=f"{tuple(tgt.shape)} {tgt.dtype}")
+        print(f"phase 4 ({smi}): binned_counts, {form} target {tuple(tgt.shape)} {tgt.dtype}: {f_ms * 1e3:.1f} us/call"
+              f" (device {forms[form]['device_us']} us, {device_ops:.2f} device operations recorded per call),"
+              f" plain {f_plain_ms * 1e3:.1f} us, bound {f_bound_ms * 1e3:.2f} us ({f_bound_by})")
+    # one class, many rows: a single cluster of 8 blocks takes every row
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    few_n = 1_000_000
+    few_preds = torch.rand((few_n, 1), generator=gen, device="cuda")
+    few_labels = torch.randint(0, 2, (few_n,), generator=gen, device="cuda")
+    few_ms = time_ms(torch, lambda: binned.binned_counts(few_preds, few_labels, grid))
+    few_prof = profile_window(torch, lambda: binned.binned_counts(few_preds, few_labels, grid), reps=20)
+    few_bound_ms, few_by = bound(few_n * (4 + 8) + t * 8 + 3 * t * 4, few_n * math.ceil(math.log2(t + 1)), name)
+    few = dict(shape=[few_n, 1, t], ms=few_ms, bound_ms=few_bound_ms, bound_by=few_by,
+               device_us=sum(us for k, us in few_prof["per_launch_us"].items() if "binned_" in k) or None)
+    print(f"phase 4 ({smi}): binned_counts, labels at {tuple(few['shape'])}: {few_ms * 1e3:.1f} us/call"
+          f" (device {few['device_us']} us), bound {few_bound_ms * 1e3:.2f} us ({few_by})")
 
     coll, metric = build_slice(mt)
     stream = list(batches(torch))
@@ -1153,12 +1302,9 @@ def main() -> None:
         metric.compute()
 
     compute_ms = time_ms(torch, compute_all, warmup=2, reps=20)
-    print(f"phase 4 ({smi}): binned_counts {kernel_ms * 1e3:.1f} us/call, plain {plain_ms * 1e3:.1f} us,"
-          f" bound {bound_ms * 1e3:.2f} us ({bound_by}); update step {step_ms * 1e3:.1f} us; compute {compute_ms:.2f} ms")
+    print(f"phase 4 ({smi}): update step {step_ms * 1e3:.1f} us; compute {compute_ms:.2f} ms")
 
     # where the time goes, from the profiler's device trace
-    kernel_prof = profile_window(torch, lambda: binned.binned_counts(probs, target_bool, grid), reps=20)
-    report_profile("binned_counts wrapper", kernel_prof)
     steps = iter(stream[3:-1])
 
     def one_step():
@@ -1167,8 +1313,22 @@ def main() -> None:
         metric.update(pb, tg)
 
     report_profile("update step (collection + binned AP)", profile_window(torch, one_step, reps=10))
+    binned_updates = iter(stream[3:-1])
+
+    def one_binned_update():
+        _, pb, tg = next(binned_updates)
+        metric.update(pb, tg)
+
+    binned_prof = profile_window(torch, one_binned_update, reps=10)
+    report_profile("one BinnedAveragePrecision.update", binned_prof)
+    launches_per_update = sum(binned_prof["recorded"].values()) / 10
+    check(all("binned_" in k or "CUDAFunctor_add" in k for k in binned_prof["recorded"]),
+          f"a binned update ran more than its kernel and the state adds: {sorted(binned_prof['recorded'])}")
+    check(launches_per_update <= 4.0, f"a binned update made {launches_per_update} device operations, at most 4 expected"
+                                      " (the kernel and three state adds)")
+    print(f"  device operations recorded per binned update: {launches_per_update:.1f}"
+          f" ({', '.join(f'{k[:40]} x{v / 10:g}' for k, v in binned_prof['recorded'].items())})")
     report_profile("compute (collection + binned AP)", profile_window(torch, compute_all, reps=5))
-    kernel_device_us = sum(us for k, us in kernel_prof["per_launch_us"].items() if "binned_" in k)
 
     det = detection_timing(torch, mt, im, map_metric, coco, name, smi)
     txt = text_timing(torch, cm, *text["embeddings"], name, smi)
@@ -1193,13 +1353,15 @@ def main() -> None:
         }
 
     kernels = [
-        record("binned_counts", dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by),
+        record("binned_counts", {k: forms["labels"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes per-class counts at every threshold",
-               shape=[n, c, t], device_us=kernel_device_us or None, update_step_us=step_ms * 1e3,
-               compute_ms=compute_ms),
+               shape=[n, c, t], target=forms["labels"]["target"], device_us=forms["labels"]["device_us"],
+               device_ops_per_call=forms["labels"]["device_ops_per_call"], dense=forms["dense"], one_class=few,
+               device_ops_per_binned_update=launches_per_update, update_step_us=step_ms * 1e3, compute_ms=compute_ms),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
-               shape=det["pairwise_iou"]["shape"], device_us=det["pairwise_iou"]["device_us"]),
+               **{k: det["pairwise_iou"][k] for k in ("shape", "device_us", "count_free_ms", "unfused_step_ms",
+                                                      "unfused_step_device_us")}),
         record("greedy_match", {k: v for k, v in det["greedy_match"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes the greedy COCO matching",
                shape=det["greedy_match"]["shape"], device_us=det["greedy_match"]["device_us"],

@@ -4,7 +4,9 @@
 Fixed ``(C, T)`` float32 state. The threshold counting runs through
 :func:`metrics_tpu_torch.ops.classification.binned_counts.binned_counts`: the
 hand-written CUDA kernel for state on the card, the plain PyTorch version for
-state on the CPU. The threshold grid is sorted once, here, at construction.
+state on the CPU. ``(N, C)`` scores with ``(N,)`` class labels reach it as
+labels, where the JAX package first builds their one-hot. The threshold grid
+is sorted once, here, at construction.
 
 ``compute`` works on all classes at once: the per-class curves are rows of
 one ``(C, T + 1)`` tensor, integrated row-wise, instead of a Python loop of
@@ -20,7 +22,7 @@ from torch import Tensor
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.ops.classification.average_precision import _average_precision_compute_with_precision_recall
 from metrics_tpu_torch.ops.classification.binned_counts import binned_counts, sort_thresholds
-from metrics_tpu_torch.utils.data import METRIC_EPS, to_onehot
+from metrics_tpu_torch.utils.data import METRIC_EPS
 
 
 def linspace_thresholds(num: int) -> Tensor:
@@ -35,6 +37,19 @@ def linspace_thresholds(num: int) -> Tensor:
         return torch.zeros(num, dtype=torch.float32)
     step = torch.tensor(1.0 / (num - 1), dtype=torch.float32)
     return torch.cat([torch.arange(num - 1, dtype=torch.float32) * step, torch.ones(1, dtype=torch.float32)])
+
+
+def _class_labels(target: Tensor) -> Tensor:
+    """Class labels as the kernel reads them (int32 or int64), standing for
+    ``to_onehot(target) == 1``: other integer types widen exactly, and a
+    float label matches the class it equals, so one that is not a whole
+    number in range (or NaN) matches none and becomes -1."""
+    if target.dtype in (torch.int32, torch.int64):
+        return target
+    if target.is_floating_point():
+        whole = (target == torch.floor(target)) & (target >= 0) & (target < 2**31)
+        return torch.where(whole, target, -1).to(torch.int64)
+    return target.to(torch.int64)
 
 
 def _recall_at_precision(
@@ -115,8 +130,14 @@ class BinnedPrecisionRecallCurve(Metric):
             preds = preds.reshape(-1, 1)
             target = target.reshape(-1, 1)
         if preds.ndim == target.ndim + 1:
-            target = to_onehot(target, num_classes=self.num_classes)
-        target = target == 1
+            if preds.ndim != 2 or preds.shape[1] != self.num_classes:
+                # the one-hot the JAX package builds would not match such scores
+                raise ValueError(
+                    f"Expected (N, {self.num_classes}) scores with (N,) class labels, got {tuple(preds.shape)}"
+                )
+            target = _class_labels(target)  # the kernel reads labels; no one-hot is built
+        else:
+            target = target == 1
         tp, fp, fn = binned_counts(
             preds.to(torch.float32).contiguous(), target.contiguous(), self._grid, plain=self._plain_counts
         )

@@ -119,9 +119,11 @@ KERNELS: Dict[str, Kernel] = {
         source="binned_counts.cu",
         replaces="metrics_tpu/ops/classification/binned_pallas.py:47",
         signatures={
-            # preds, target, thr_sorted, order, hist, tp, fp, fn, n, c, t, stream
-            "binned_counts_launch": ((_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P), ctypes.c_int),
+            # preds, target, form, thr_sorted, order, out, ws, ws_len, n, c, t, stream
+            "binned_counts_launch": ((_P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _P), ctypes.c_int),
             "binned_counts_class_block": ((_I, _I), ctypes.c_int),
+            "binned_counts_max_shared_t": ((), ctypes.c_int),
+            "binned_counts_workspace_len": ((_I, _I), _L),
         },
     ),
     "pairwise_iou": Kernel(
@@ -129,8 +131,8 @@ KERNELS: Dict[str, Kernel] = {
         source="pairwise_iou.cu",
         replaces="metrics_tpu/ops/kernels/iou_matching.py:41",
         signatures={
-            # det, gt, out, b, d, g, stream
-            "pairwise_iou_launch": ((_P, _P, _P, _I, _I, _I, _P), ctypes.c_int),
+            # det, gt, det_counts (or NULL), gt_counts (or NULL), out, b, d, g, stream
+            "pairwise_iou_launch": ((_P, _P, _P, _P, _P, _I, _I, _I, _P), ctypes.c_int),
         },
     ),
     "greedy_match": Kernel(

@@ -9,8 +9,9 @@ Its two hot steps are hand-written CUDA kernels, each with a plain PyTorch
 version beside it:
 
 - :func:`pairwise_iou` launches ``csrc/pairwise_iou.cu`` (the TPU kernel
-  ``_iou_kernel``, ``iou_matching.py:41``); :func:`pairwise_iou_plain` is
-  ``box_iou`` batched.
+  ``_iou_kernel``, ``iou_matching.py:41``, with ``_image_eval``'s zeroing of
+  invalid pairs folded in); :func:`pairwise_iou_plain` is ``box_iou``
+  batched, then ``torch.where`` over the valid pairs.
 - :func:`greedy_match` launches ``csrc/greedy_match.cu`` (the ``lax.scan`` of
   ``_merged_greedy_match``, ``iou_matching.py:83``); :func:`greedy_match_plain`
   is a Python loop over the detections.
@@ -27,7 +28,7 @@ selects a class's detections from ``merged`` directly.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import Tensor
@@ -50,15 +51,32 @@ def _u8(x: Tensor) -> Tensor:
 # --------------------------------------------------------------------------- #
 # pairwise IoU (kernel B2)
 # --------------------------------------------------------------------------- #
-def pairwise_iou_plain(det_boxes: Tensor, gt_boxes: Tensor) -> Tensor:
-    """The plain version: ``box_iou`` per image, (B, D, 4) x (B, G, 4) -> (B, D, G)."""
-    return box_iou(det_boxes, gt_boxes)
+def _valid_pairs(det_counts: Tensor, gt_counts: Tensor, d: int, g: int) -> Tensor:
+    """(B, D, G) bool: d < det_counts[b] and g < gt_counts[b]."""
+    det_ok = torch.arange(d, device=det_counts.device)[None, :] < det_counts[:, None]
+    gt_ok = torch.arange(g, device=gt_counts.device)[None, :] < gt_counts[:, None]
+    return det_ok[:, :, None] & gt_ok[:, None, :]
 
 
-def pairwise_iou(det_boxes: Tensor, gt_boxes: Tensor, *, plain: bool = False) -> Tensor:
+def pairwise_iou_plain(det_boxes: Tensor, gt_boxes: Tensor, det_counts: Optional[Tensor] = None,
+                       gt_counts: Optional[Tensor] = None) -> Tensor:
+    """The plain version: ``box_iou`` per image, (B, D, 4) x (B, G, 4) -> (B, D, G),
+    then ``torch.where(valid, iou, 0.0)`` where counts are given."""
+    ious = box_iou(det_boxes, gt_boxes)
+    if det_counts is None:
+        return ious
+    valid = _valid_pairs(det_counts, gt_counts, ious.shape[1], ious.shape[2])
+    return torch.where(valid, ious, torch.zeros((), dtype=ious.dtype, device=ious.device))
+
+
+def pairwise_iou(det_boxes: Tensor, gt_boxes: Tensor, det_counts: Optional[Tensor] = None,
+                 gt_counts: Optional[Tensor] = None, *, plain: bool = False) -> Tensor:
     """Batched pairwise IoU of xyxy boxes: (B, D, 4) x (B, G, 4) -> (B, D, G)
     float32, in ``box_iou``'s operations and order, 0 where the union is not
-    positive.
+    positive. With the (B,) counts, a pair is valid where ``d < det_counts[b]``
+    and ``g < gt_counts[b]``, and every other pair is +0.0 whatever its boxes
+    (``_image_eval``'s zeroing). The counts come both or not at all; without
+    them every pair is valid.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel on the
     current stream or raise. ``plain=True`` runs the plain version on any
@@ -71,25 +89,38 @@ def pairwise_iou(det_boxes: Tensor, gt_boxes: Tensor, *, plain: bool = False) ->
         raise ValueError(
             f"pairwise_iou takes (B, D, 4) and (B, G, 4) boxes, got {tuple(det_boxes.shape)} and {tuple(gt_boxes.shape)}"
         )
+    b = det_boxes.shape[0]
+    for name, counts in (("det_counts", det_counts), ("gt_counts", gt_counts)):
+        if counts is not None and counts.shape != (b,):
+            raise ValueError(f"pairwise_iou takes (B,) {name}, got {tuple(counts.shape)} for B={b}")
+    if (det_counts is None) != (gt_counts is None):
+        raise ValueError("pairwise_iou takes det_counts and gt_counts together, or neither")
     if plain or det_boxes.device.type == "cpu":
-        return pairwise_iou_plain(det_boxes, gt_boxes)
+        return pairwise_iou_plain(det_boxes, gt_boxes, det_counts, gt_counts)
     if det_boxes.device.type != "cuda":
         raise ValueError(f"pairwise_iou runs on CPU or CUDA tensors, got {det_boxes.device}")
+    counts = {} if det_counts is None else {
+        "det_counts": (det_counts, torch.int32), "gt_counts": (gt_counts, torch.int32)}
     check_kernel_inputs(
-        "pairwise_iou", det_boxes.device, det_boxes=(det_boxes, torch.float32), gt_boxes=(gt_boxes, torch.float32)
+        "pairwise_iou", det_boxes.device, det_boxes=(det_boxes, torch.float32), gt_boxes=(gt_boxes, torch.float32),
+        **counts,
     )
-    b, d, _ = det_boxes.shape
-    g = gt_boxes.shape[1]
+    d, g = det_boxes.shape[1], gt_boxes.shape[1]
     out = torch.empty((b, d, g), dtype=torch.float32, device=det_boxes.device)  # the kernel writes every element
     if out.numel() == 0:
         return out
-    if (d + 31) // 32 > _MAX_GRID_YZ or (g + 63) // 64 > _MAX_GRID_YZ or b >= 2**31:
-        raise ValueError(f"pairwise_iou kernel: shape {(b, d, g)} exceeds its grid")
+    if max(b, d, g) >= 2**31:
+        raise ValueError(f"pairwise_iou kernel: shape {(b, d, g)} exceeds its int32 indices")
     lib = IOU_KERNEL.lib()
-    with torch.cuda.device(det_boxes.device):
-        err = lib.pairwise_iou_launch(
-            det_boxes.data_ptr(), gt_boxes.data_ptr(), out.data_ptr(), b, d, g, current_stream(det_boxes)
-        )
+    args = (
+        det_boxes.data_ptr(), gt_boxes.data_ptr(), 0 if det_counts is None else det_counts.data_ptr(),
+        0 if gt_counts is None else gt_counts.data_ptr(), out.data_ptr(), b, d, g, current_stream(det_boxes),
+    )
+    if det_boxes.device.index == torch.cuda.current_device():
+        err = lib.pairwise_iou_launch(*args)
+    else:
+        with torch.cuda.device(det_boxes.device):
+            err = lib.pairwise_iou_launch(*args)
     if err != 0:
         raise RuntimeError(f"pairwise_iou kernel launch failed with CUDA error {err}")
     IOU_KERNEL.launches += 1
@@ -221,7 +252,6 @@ def match_inputs(
         "boxes_sorted": boxes_sorted,
         "scores_sorted": scores_sorted,
         "labels_sorted": labels_sorted,
-        "valid_pairs": det_valid[:, :, None] & gt_valid[:, None, :],
         "det_class_valid": det_class_valid,
         "det_area_ignore": det_area_ignore,
         "gt_class_valid": gt_class_valid,
@@ -258,8 +288,10 @@ def evaluate_matches(
         det_boxes, det_scores, det_labels, det_counts, gt_boxes, gt_labels, gt_counts,
         class_ids, class_mask, area_ranges, max_det,
     )
-    ious = pairwise_iou(prep["boxes_sorted"].contiguous(), gt_boxes.contiguous(), plain=plain)
-    ious = torch.where(prep["valid_pairs"], ious, torch.zeros((), dtype=ious.dtype, device=ious.device))
+    # pads sort last, so a pair is valid where d < det_counts and g < gt_counts;
+    # the kernel writes every other pair as 0
+    ious = pairwise_iou(prep["boxes_sorted"].contiguous(), gt_boxes.contiguous(), det_counts.contiguous(),
+                        gt_counts.contiguous(), plain=plain)
     merged = greedy_match(
         ious,
         prep["det_class_valid"].any(dim=1),

@@ -139,3 +139,68 @@ def test_cpu_path_builds_and_launches_nothing():
     _port_counts(preds, target, np.linspace(0, 1, 9).astype(np.float32))
     assert KERNEL.launches == before
     assert KERNEL._lib is None
+
+
+# --------------------------------------------------------------------------- #
+# the label form: (N,) class labels standing for their one-hot
+# --------------------------------------------------------------------------- #
+def _labels(seed, n, c, low=0, high=None):
+    """Labels in [low, high) (default [0, C)); -1 and C are out of range."""
+    return np.random.default_rng(seed).integers(low, c if high is None else high, size=n)
+
+
+@pytest.mark.parametrize("use_pallas", ["force", "never"])
+@pytest.mark.parametrize("label_dtype", [np.int32, np.int64])
+@pytest.mark.parametrize(
+    "n,c,t,low,high",
+    [(64, 3, 11, 0, None), (300, 1, 100, -1, 2), (513, 5, 50, -1, 6), (257, 7, 21, -3, 10), (1030, 12, 100, 0, None)],
+)
+def test_label_form_matches_the_one_hot_of_the_jax_package(n, c, t, low, high, label_dtype, use_pallas):
+    """The plain label form against ``binned_stat_counts`` on
+    ``to_onehot(labels) == 1``, as the JAX metric forms its target; labels
+    outside [0, C), negatives included, give all-negative rows."""
+    from metrics_tpu.utils.data import to_onehot as jax_to_onehot
+
+    preds, _ = _inputs(n * 1000 + c * 10 + t + 7, n, c)
+    labels = _labels(n + c + t, n, c, low, high).astype(label_dtype)
+    thresholds = np.linspace(0.0, 1.0, t).astype(np.float32)
+    onehot = jax_to_onehot(jnp.asarray(labels), num_classes=c) == 1
+    want = binned_stat_counts(jnp.asarray(preds), onehot, jnp.asarray(thresholds), use_pallas=use_pallas)
+    got = binned_counts(torch.from_numpy(preds), torch.from_numpy(labels), sort_thresholds(torch.from_numpy(thresholds)))
+    _assert_counts_equal(got, want)
+    for a, b in zip(binned_counts_plain(torch.from_numpy(preds), torch.from_numpy(labels), torch.from_numpy(thresholds)), got):
+        assert_bitwise(a, b)
+
+
+@pytest.mark.parametrize("label_dtype", [torch.int32, torch.int64])
+def test_label_form_equals_the_dense_form_of_its_one_hot(label_dtype):
+    preds, _ = _inputs(21, 400, 9)
+    labels = torch.from_numpy(_labels(22, 400, 9, -2, 12)).to(label_dtype)
+    labels[::17] += 2**31 - 1 if label_dtype == torch.int32 else 2**40  # far out of range
+    thresholds = torch.from_numpy(np.random.default_rng(23).uniform(-0.1, 1.1, size=33).astype(np.float32))
+    dense = labels[:, None] == torch.arange(9, dtype=label_dtype)
+    p, grid = torch.from_numpy(preds), sort_thresholds(thresholds)
+    for a, b in zip(binned_counts(p, labels, grid), binned_counts(p, dense, grid)):
+        assert_bitwise(a, b)
+
+
+def test_label_form_nan_scores_and_empty_batch():
+    preds, _ = _inputs(31, 90, 4)
+    preds[::5, 1] = np.nan
+    labels = torch.from_numpy(_labels(32, 90, 4, -1, 5))
+    thresholds = np.linspace(0.0, 1.0, 13).astype(np.float32)
+    onehot = (labels[:, None] == torch.arange(4)).numpy()
+    _assert_counts_equal(_port_counts(preds, onehot, thresholds), _jax_counts(preds, onehot, thresholds, "never"))
+    got = binned_counts(torch.from_numpy(preds), labels, sort_thresholds(torch.from_numpy(thresholds)))
+    _assert_counts_equal(got, _jax_counts(preds, onehot, thresholds, "never"))
+    empty = binned_counts(torch.zeros((0, 4)), torch.zeros(0, dtype=torch.int64), sort_thresholds(torch.from_numpy(thresholds)))
+    for g in empty:
+        assert_bitwise(g, np.zeros((4, 13), np.float32))
+
+
+def test_wrapper_rejects_labels_of_another_length():
+    grid = sort_thresholds(torch.linspace(0, 1, 5))
+    with pytest.raises(ValueError, match=r"\(N,\) labels"):
+        binned_counts(torch.zeros((4, 3)), torch.zeros(5, dtype=torch.int64), grid)
+    with pytest.raises(ValueError, match=r"\(N,\) labels"):
+        binned_counts(torch.zeros((4, 3)), torch.zeros((4, 2), dtype=torch.bool), grid)

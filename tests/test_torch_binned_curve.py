@@ -139,3 +139,70 @@ def test_ap_is_one_batched_expression_over_all_classes():
 def test_thresholds_must_be_int_list_or_tensor():
     with pytest.raises(ValueError, match="thresholds"):
         mt_torch.BinnedPrecisionRecallCurve(num_classes=2, thresholds=(0.1, 0.2), device="cpu")
+
+
+@pytest.mark.parametrize("label_dtype", [np.int32, np.int64, np.int16, np.float32])
+@pytest.mark.parametrize("name", ["BinnedAveragePrecision", "BinnedPrecisionRecallCurve"])
+def test_update_with_labels_matches_the_jax_metric(name, label_dtype):
+    """(N, C) scores with (N,) labels, some out of range (-1 and C): the
+    port's states, counted from the labels, equal the JAX metric's, counted
+    from their one-hot."""
+    rng = np.random.default_rng(40)
+    num_classes = 6
+    jax_metric = getattr(mt_jax, name)(num_classes=num_classes, thresholds=21)
+    torch_metric = getattr(mt_torch, name)(num_classes=num_classes, thresholds=21, device="cpu")
+    for _ in range(3):
+        logits = rng.normal(size=(N, num_classes)).astype(np.float32)
+        probs = (np.exp(logits) / np.exp(logits).sum(1, keepdims=True)).astype(np.float32)
+        labels = rng.integers(-1, num_classes + 1, size=N).astype(label_dtype)
+        jax_metric.update(jnp.asarray(probs), jnp.asarray(labels))
+        torch_metric.update(torch.from_numpy(probs), torch.from_numpy(labels))
+    for state in ("TPs", "FPs", "FNs"):
+        assert_bitwise(getattr(torch_metric, state), getattr(jax_metric, state), msg=state)
+
+
+def test_update_hands_labels_to_the_kernel_wrapper(monkeypatch):
+    """No one-hot is built: binned_counts receives the (N,) labels as they are
+    (int64 here), and the dense forms keep their (N, C) bool target."""
+    from metrics_tpu_torch.classification import binned_precision_recall as bpr
+
+    seen = []
+    real = bpr.binned_counts
+
+    def spy(preds, target, grid, *, plain=False):
+        seen.append((tuple(target.shape), target.dtype))
+        return real(preds, target, grid, plain=plain)
+
+    monkeypatch.setattr(bpr, "binned_counts", spy)
+    metric = mt_torch.BinnedAveragePrecision(num_classes=4, thresholds=5, device="cpu")
+    metric.update(torch.rand(10, 4), torch.randint(0, 4, (10,)))
+    metric.update(torch.rand(10, 4), torch.randint(0, 2, (10, 4)))
+    binary = mt_torch.BinnedAveragePrecision(num_classes=1, thresholds=5, device="cpu")
+    binary.update(torch.rand(10), torch.randint(0, 2, (10,)))
+    assert seen == [((10,), torch.int64), ((10, 4), torch.bool), ((10, 1), torch.bool)]
+
+
+def test_update_with_float_labels_that_match_no_class():
+    """Float labels match the class they equal, as the one-hot compares them:
+    2.5, NaN, -0.5 and C match none."""
+    probs = np.random.default_rng(41).uniform(size=(6, 3)).astype(np.float32)
+    labels = np.float32([0.0, 2.5, np.nan, 1.0, 3.0, -0.5])
+    jax_metric = mt_jax.BinnedPrecisionRecallCurve(num_classes=3, thresholds=11)
+    torch_metric = mt_torch.BinnedPrecisionRecallCurve(num_classes=3, thresholds=11, device="cpu")
+    jax_metric.update(jnp.asarray(probs), jnp.asarray(labels))
+    torch_metric.update(torch.from_numpy(probs), torch.from_numpy(labels))
+    for state in ("TPs", "FPs", "FNs"):
+        assert_bitwise(getattr(torch_metric, state), getattr(jax_metric, state), msg=state)
+    positives = torch_metric.TPs[:, 0] + torch_metric.FNs[:, 0]
+    assert positives.tolist() == [1.0, 1.0, 0.0]  # only the labels 0.0 and 1.0 are positives
+
+
+@pytest.mark.parametrize("columns", [1, 3, 5])
+def test_update_with_labels_refuses_scores_without_num_classes_columns(columns):
+    """(N,) labels stand for a (N, num_classes) one-hot, so the scores must
+    have num_classes columns; (N, 1) scores would otherwise count class 0 and
+    broadcast it into every class's state."""
+    metric = mt_torch.BinnedPrecisionRecallCurve(num_classes=4, thresholds=5, device="cpu")
+    with pytest.raises(ValueError, match=r"\(N, 4\) scores"):
+        metric.update(torch.rand(10, columns), torch.randint(0, 4, (10,)))
+    assert not metric.TPs.any() and not metric.FNs.any()

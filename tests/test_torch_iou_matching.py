@@ -7,7 +7,9 @@ versions, bit for bit, on the card by ``chip_smoke.py``.
 Tolerances, and why:
 
 - ``pairwise_iou`` is bitwise equal to the JAX package's eager ``box_iou``:
-  both are the same IEEE float32 operations in the same order.
+  both are the same IEEE float32 operations in the same order. With the
+  per-image counts it is bitwise equal to eager ``box_iou`` under
+  ``jnp.where(valid_pairs, ., 0.0)``, as ``_image_eval`` forms it.
 - Against the jitted JAX paths (``jax.jit`` of ``box_iou`` and the Pallas
   body in interpret mode) the IoU is within 4 ulp (``rtol=2e-6, atol=0``):
   XLA's CPU code generation does not round those operations one by one.
@@ -31,6 +33,7 @@ from metrics_tpu_torch.ops.kernels.iou_matching import (
     evaluate_matches,
     greedy_match,
     greedy_match_plain,
+    match_inputs,
     pairwise_iou,
     pairwise_iou_plain,
 )
@@ -169,8 +172,8 @@ def test_pairwise_iou_degenerate_and_touching_boxes():
 def test_evaluate_matches_bitwise(case, use_pallas):
     batch = _case(case)
     got = _port_eval(batch)
-    assert_iou_margin(pairwise_iou_plain(T(batch["det_boxes"]), T(batch["gt_boxes"])).numpy(),
-                      _valid_pairs(batch), IOU_THRESHOLDS)
+    ious = pairwise_iou_plain(T(batch["det_boxes"]), T(batch["gt_boxes"]), T(batch["det_counts"]), T(batch["gt_counts"]))
+    assert_iou_margin(ious.numpy(), _valid_pairs(batch), IOU_THRESHOLDS)
     want = _jax_eval(batch, use_pallas)
     det_matches = got["merged"][:, None] & got["det_class_valid"][:, :, None, None, :]
     assert_bitwise(det_matches, want["det_matches"], msg="det_matches")
@@ -261,3 +264,82 @@ def test_wrappers_reject_other_devices_and_shapes():
                      torch.zeros((1, 3), dtype=torch.int32), torch.zeros((1, 3), dtype=torch.bool),
                      torch.zeros((1, 4, 3), dtype=torch.bool), torch.tensor([0.5]))
     assert greedy_match_plain is not None
+
+
+def _count_pattern(batch, pattern):
+    """The batch's counts, or all zero, all full, or beyond D and G."""
+    d, g = batch["det_boxes"].shape[1], batch["gt_boxes"].shape[1]
+    if pattern == "zero":
+        batch["det_counts"][:], batch["gt_counts"][:] = 0, 0
+    elif pattern == "full":
+        batch["det_counts"][:], batch["gt_counts"][:] = d, g
+    elif pattern == "beyond":
+        batch["det_counts"][::2], batch["gt_counts"][1::2] = d + 3, g + 5
+    return batch
+
+
+@pytest.mark.parametrize("pattern", ["mixed", "zero", "full", "beyond"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pairwise_iou_with_counts_equals_box_iou_under_the_image_eval_mask(seed, pattern):
+    """The plain version with counts against the JAX package's eager
+    ``box_iou`` under ``jnp.where(valid_pairs, ., 0.0)``, image by image;
+    the pads hold random boxes, which the mask must zero as +0.0."""
+    rng = np.random.default_rng(20 + seed)
+    batch = _count_pattern(random_images(rng, 6), pattern)
+    batch["det_boxes"][:] = np.stack([random_boxes(rng, batch["det_boxes"].shape[1]) for _ in range(6)])
+    batch["gt_boxes"][:] = np.stack([random_boxes(rng, batch["gt_boxes"].shape[1]) for _ in range(6)])
+    det, gt, dc, gc = (T(batch[k]) for k in ("det_boxes", "gt_boxes", "det_counts", "gt_counts"))
+    got = pairwise_iou_plain(det, gt, dc, gc)
+    valid = _valid_pairs(batch)
+    for b in range(got.shape[0]):
+        iou = jax_box_iou(jnp.asarray(batch["det_boxes"][b]), jnp.asarray(batch["gt_boxes"][b]))
+        assert_bitwise(got[b], jnp.where(jnp.asarray(valid[b]), iou, 0.0), msg=f"image {b}")
+    assert not np.signbit(got.numpy()[~valid]).any()  # invalid pairs are +0.0
+    assert_bitwise(pairwise_iou(det, gt, dc, gc), got)  # the wrapper on CPU tensors
+
+
+@pytest.mark.parametrize("side", ["det_counts", "gt_counts"])
+def test_pairwise_iou_takes_both_count_arrays_or_neither(side):
+    batch = random_images(np.random.default_rng(30), 5)
+    det, gt = T(batch["det_boxes"]), T(batch["gt_boxes"])
+    with pytest.raises(ValueError, match="together"):
+        pairwise_iou(det, gt, **{side: T(batch[side])})
+
+
+def test_pairwise_iou_with_nan_boxes_inside_and_outside_the_valid_region():
+    """A NaN corner makes its box's area NaN, so its union is NaN and its IoU
+    0, as in ``box_iou``; a pad row or column is 0 whatever its boxes."""
+    rng = np.random.default_rng(31)
+    batch = random_images(rng, 4, max_det=9, max_gt=7)
+    batch["det_boxes"][:] = np.stack([random_boxes(rng, 16) for _ in range(4)])
+    batch["det_boxes"][:, ::3, 0] = np.nan
+    batch["gt_boxes"][:, ::2, 3] = np.nan
+    det, gt, dc, gc = (T(batch[k]) for k in ("det_boxes", "gt_boxes", "det_counts", "gt_counts"))
+    got = pairwise_iou(det, gt, dc, gc)
+    valid = _valid_pairs(batch)
+    for b in range(4):
+        iou = jax_box_iou(jnp.asarray(batch["det_boxes"][b]), jnp.asarray(batch["gt_boxes"][b]))
+        assert_bitwise(got[b], jnp.where(jnp.asarray(valid[b]), iou, 0.0), msg=f"image {b}")
+    assert not torch.isnan(got).any()
+
+
+def test_match_inputs_leaves_the_valid_pairs_to_the_kernel():
+    """``evaluate_matches`` hands the counts to ``pairwise_iou``; no (B, D, G)
+    valid-pair mask is formed before it."""
+    batch = _case("random")
+    prep = match_inputs(
+        *(T(batch[k]) for k in ("det_boxes", "det_scores", "det_labels", "det_counts", "gt_boxes", "gt_labels",
+                                 "gt_counts")),
+        T(CLASS_IDS), T(CLASS_MASK), T(AREA_RANGES), 100,
+    )
+    assert "valid_pairs" not in prep
+    assert all(v.ndim < 3 or v.shape[1:] != (batch["det_boxes"].shape[1], batch["gt_boxes"].shape[1])
+               for v in prep.values())
+
+
+def test_pairwise_iou_rejects_counts_of_another_shape():
+    boxes = torch.zeros((2, 3, 4))
+    with pytest.raises(ValueError, match=r"\(B,\) det_counts"):
+        pairwise_iou(boxes, boxes, torch.zeros(3, dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\(B,\) gt_counts"):
+        pairwise_iou(boxes, boxes, None, torch.zeros((2, 1), dtype=torch.int32))
