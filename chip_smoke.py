@@ -55,6 +55,21 @@ is missing. Phases:
    peak); the matcher at the COCO compute's (256, 4, 10, 128, 32) and at
    G = 64.
 
+5. Sync on the card (one card, so a world of one rank: NCCL refuses two
+   ranks on one device; several ranks are tested on the CPU with gloo).
+   (b) entry() and (c) dryrun_multichip(1) on the card against the same
+   calls on the CPU port: int32 states and entry's results bitwise, the
+   dry-run's loss, weight and AP within 1e-6, B1 launched once. (e) Each
+   binned class built on the CPU and moved to the card, and back, counts
+   and computes bit for bit as a twin built in place. Then, in a world of
+   one NCCL rank under sync_axes: (a) phase 3's stream again, compute()
+   synced, one all_reduce per (reduction, dtype) bucket per compute group,
+   B1 launched once per update, every result and state bitwise equal to
+   phase 3; (d) mAP on 512 of phase 3b's images and BERTScore on its
+   docstring example and one 64-pair chunk of phase 3c, each synced compute
+   bitwise equal to its unsynced one; (f) the synced and unsynced
+   ImageNet-size compute timed by events (median of 30).
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -1056,7 +1071,8 @@ def run_bert(torch, mt, bert_ops, encoder, preds, target):
     return metric, result, update_s, compute_s, split_ms, split_profile(prof)["device_us"], captured["args"]
 
 
-def check_bert_docstring_example(torch, mt):
+def bert_docstring_metric(torch, mt):
+    """BERTScore's docstring example on the card, updated."""
     import numpy as np
 
     vocab = ["[CLS]", "[SEP]", "[PAD]", "hello", "there", "master", "kenobi"]
@@ -1075,7 +1091,11 @@ def check_bert_docstring_example(torch, mt):
     score = mt.BERTScore(model=object(), user_tokenizer=tokenizer, max_length=6,
                          user_forward_fn=lambda model, batch: table[batch["input_ids"]])
     score.update(["hello there", "master kenobi"], ["hello there", "hello kenobi"])
-    got = {key: [round(float(v), 4) for v in values] for key, values in score.compute().items()}
+    return score
+
+
+def check_bert_docstring_example(torch, mt):
+    got = {key: [round(float(v), 4) for v in values] for key, values in bert_docstring_metric(torch, mt).compute().items()}
     want = {"precision": [1.0, 0.5], "recall": [1.0, 0.8545], "f1": [1.0, 0.6309]}
     check(got == want, f"BERTScore docstring example gives {got}, documented {want}")
     print(f"  docstring example on the card: {got}, as documented")
@@ -1132,7 +1152,8 @@ def text_phase(torch, mt, kernels_mod, cm, bert_ops):
           f" F1 {float(scores['f1'].mean()):.6f} (pairs that differ: F1 {float(noisy.min()):.6f} to {float(noisy.max()):.6f})")
     check_bert_docstring_example(torch, mt)
     return {"launches": launches, "max_abs_err": max(err, err64), "embeddings": (pe, te), "update_s": update_s,
-            "compute_s": compute_s, "split_ms": split_ms, "device_busy_ms": busy_us / 1e3, "idle_share": idle}
+            "compute_s": compute_s, "split_ms": split_ms, "device_busy_ms": busy_us / 1e3, "idle_share": idle,
+            "encoder": encoder, "pairs": (preds, target)}
 
 
 def text_timing(torch, cm, pe, te, name, smi):
@@ -1164,6 +1185,163 @@ def text_timing(torch, cm, pe, te, name, smi):
         report_profile(f"maxsim wrapper, {label}", prof)
     return out
 
+# --------------------------------------------------------------------------- #
+# phase 5: sync on the card, in a world of one rank
+# --------------------------------------------------------------------------- #
+def entry_twins(torch, entry_mod, kernels_mod):
+    """5(b) and (c): entry() and dryrun_multichip(1) on the card against the
+    same calls on the CPU port. Each makes and ends its own world."""
+    fn, args = entry_mod.entry()
+    states, results = fn(*args)
+    fn_cpu, args_cpu = entry_mod.entry(device="cpu")
+    states_cpu, results_cpu = fn_cpu(*args_cpu)
+    for leader, state in states_cpu.items():
+        for key, value in state.items():
+            got = states[leader][key]
+            check(got.is_cuda and got.dtype == value.dtype == torch.int32 and torch.equal(got.cpu(), value),
+                  f"entry() state {leader}.{key} differs from the CPU port's")
+    for key, value in results_cpu.items():
+        check(torch.equal(results[key].cpu(), value), f"entry() result {key} differs from the CPU port's")
+    print("phase 5b: entry() on the card bitwise equal to the CPU port (int32 states and results): "
+          + ", ".join(f"{k}={float(v):.6f}" for k, v in results.items()))
+
+    kernels_mod.reset_launch_counts()
+    out = entry_mod.dryrun_multichip(1)
+    launches = kernels_mod.launch_counts()
+    check(launches["binned_counts"] == 1, f"the dry-run launched binned_counts {launches['binned_counts']} times, expected once")
+    out_cpu = entry_mod.dryrun_multichip(1, device="cpu")
+    for leader, state in out_cpu["states"].items():
+        for key, value in state.items():
+            got = out["states"][leader][key]
+            check(got.dtype == torch.int32 and torch.equal(got.cpu(), value), f"dry-run state {leader}.{key} differs from the CPU run's")
+    for key, value in out_cpu["seq_state"].items():
+        check(torch.equal(out["seq_state"][key].cpu(), value), f"dry-run sequence state {key} differs from the CPU run's")
+    errs = {key: float((out[key].cpu() - out_cpu[key]).abs().max()) for key in ("loss", "w_new", "ap")}
+    for key, err in errs.items():
+        check(err <= 1e-6, f"dry-run {key} differs from the CPU run's by {err}")
+    print(f"phase 5c: dryrun_multichip(1) on the card: loss {float(out['loss']):.6f}, mean AP {float(out['ap'].mean()):.6f},"
+          f" sequence accuracy {float(out['seq_acc']):.6f}; int32 states bitwise equal to the CPU run, max abs err "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f"; launches {launches}")
+    return launches["binned_counts"]
+
+
+def check_moves(torch, mt, kernels_mod, logits, probs, target):
+    """5(e): every binned class built on one device and moved to the other
+    counts bit for bit as a twin built there."""
+    makers = {
+        "BinnedPrecisionRecallCurve": lambda d: mt.BinnedPrecisionRecallCurve(num_classes=N_CLASSES, device=d),
+        "BinnedAveragePrecision": lambda d: mt.BinnedAveragePrecision(num_classes=N_CLASSES, device=d),
+        "BinnedRecallAtFixedPrecision": lambda d: mt.BinnedRecallAtFixedPrecision(num_classes=N_CLASSES, min_precision=0.5, device=d),
+    }
+    leaves = torch.utils._pytree.tree_leaves
+    for cls, make in makers.items():
+        for src, dst in (("cpu", "cuda"), ("cuda", "cpu")):
+            moved, twin = make(src).to(dst), make(dst)
+            inputs = (probs, target) if dst == "cuda" else (probs.cpu(), target.cpu())
+            kernels_mod.reset_launch_counts()
+            moved.update(*inputs)
+            launched = kernels_mod.launch_counts()["binned_counts"]
+            check(launched == (1 if dst == "cuda" else 0), f"{cls} moved {src} -> {dst} launched binned_counts {launched} times")
+            twin.update(*inputs)
+            for key, value in twin.get_state().items():
+                check(torch.equal(moved.get_state()[key], value), f"{cls} moved {src} -> {dst}: state {key} differs from a twin built there")
+            got, want = leaves(moved.compute()), leaves(twin.compute())
+            check(len(got) == len(want) and all(g.device == w.device and torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{cls} moved {src} -> {dst}: compute differs from a twin built there")
+    print(f"phase 5e: the three binned classes moved CPU -> CUDA and CUDA -> CPU count and compute bit for bit as twins built in place")
+
+
+def sync_phase(torch, mt, kernels_mod, sync, reference, coco, text, smi):
+    """5(a), (d), (f) in a world of one NCCL rank, under sync_axes so that
+    the collectives run: phase 3's stream with compute synced, mAP and
+    BERTScore at reduced depth synced against unsynced, and the cost of the
+    sync."""
+    import torch.distributed as dist
+
+    _, states_ref, results_ref, ap_ref = reference
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        world = dist.group.WORLD
+        coll, binned = build_slice(mt)
+        kernels_mod.reset_launch_counts()
+        n_batches = 0
+        for logits, probs, target in batches(torch):
+            coll.update(logits, target)
+            binned.update(probs, target)
+            n_batches += 1
+        launches = kernels_mod.launch_counts()
+        check(launches["binned_counts"] == n_batches, f"binned_counts launched {launches['binned_counts']} times for {n_batches} updates")
+        leaders = [group[0] for group in coll.compute_groups.values()]
+        expected = {"all_reduce": len(leaders) + 1}  # one (sum, int32) bucket per group, one (sum, float32) bucket
+        with sync.count_collectives() as box, sync.sync_axes(world):
+            results = coll.compute()
+            ap = torch.stack(binned.compute())
+        check(box["by_kind"] == expected, f"synced compute ran {box['by_kind']}, expected {expected}")
+        for key, value in results_ref.items():
+            check(torch.equal(results[key], value), f"synced result {key} differs from phase 3")
+        check(torch.equal(ap, ap_ref), "synced binned AP differs from phase 3")
+        synced = {f"{k}.{s}": v for k, st in coll.sync_states({k: coll[k].get_state() for k in leaders}, world).items()
+                  for s, v in st.items()}
+        synced.update({f"binned.{s}": v for s, v in binned.sync_states(binned.get_state(), world).items()})
+        for key, value in synced.items():
+            check(value.dtype == states_ref[key].dtype and torch.equal(value, states_ref[key]), f"synced state {key} differs from phase 3")
+        for key, value in states_ref.items():
+            mine = coll[key.split(".")[0]].get_state() if not key.startswith("binned.") else binned.get_state()
+            check(torch.equal(mine[key.split(".")[1]], value), f"local state {key} after the synced compute differs from phase 3")
+        print(f"phase 5a: {n_batches} updates, B1 launched {launches['binned_counts']} times; synced compute ran"
+              f" {box['by_kind']} ({box['bytes']} bytes), expected {expected}: one all_reduce per (reduction, dtype)"
+              " bucket per compute group; results, synced and local states bitwise equal to phase 3")
+
+        def compute_all():
+            for m in (*coll.values(), binned):
+                m._computed = None
+            coll.compute()
+            binned.compute()
+
+        def compute_synced():
+            with sync.sync_axes(world):
+                compute_all()
+
+        unsynced_ms = time_ms(torch, compute_all, warmup=3, reps=30)
+        synced_ms = time_ms(torch, compute_synced, warmup=3, reps=30)
+        unsynced_ms2 = time_ms(torch, compute_all, warmup=3, reps=30)
+        synced_ms2 = time_ms(torch, compute_synced, warmup=3, reps=30)
+        print(f"phase 5f ({smi}): ImageNet-size compute, median of 30 by events: unsynced {unsynced_ms:.3f}, {unsynced_ms2:.3f} ms;"
+              f" synced (world of one, NCCL) {synced_ms:.3f}, {synced_ms2:.3f} ms")
+
+        # mAP on 512 of phase 3b's images, BERTScore on its docstring example and one 64-pair chunk
+        det = mt.MeanAveragePrecision(class_metrics=True)
+        for preds, targets in coco[: 512 // COCO_BATCH]:
+            det.update(preds, targets)
+        bert_example = bert_docstring_metric(torch, mt)
+        preds, target = text["pairs"]
+        encoder = text["encoder"]
+        bert_chunk = mt.BERTScore(model=encoder, user_tokenizer=IdTokenizer(), max_length=BERT_MAX_LEN, batch_size=BERT_BATCH,
+                                  idf=False, user_forward_fn=lambda model, batch: model(batch["input_ids"], batch["attention_mask"]))
+        bert_chunk.update(preds[:BERT_BATCH], target[:BERT_BATCH])
+        expected_kinds = {"MeanAveragePrecision": {"all_gather": 3}, "BERTScore example": {"size_exchange": 1, "all_gather": 1},
+                          "BERTScore chunk": {"size_exchange": 1, "all_gather": 1}}
+        for label, metric in (("MeanAveragePrecision", det), ("BERTScore example", bert_example), ("BERTScore chunk", bert_chunk)):
+            t0 = time.perf_counter()
+            local = metric.compute()
+            local_s = time.perf_counter() - t0
+            metric._computed = None
+            t0 = time.perf_counter()
+            with sync.count_collectives() as box, sync.sync_axes(world):
+                synced = metric.compute()
+            synced_s = time.perf_counter() - t0
+            check(box["by_kind"] == expected_kinds[label], f"{label}: synced compute ran {box['by_kind']}")
+            got, want = torch.utils._pytree.tree_leaves(synced), torch.utils._pytree.tree_leaves(local)
+            check(len(got) == len(want) and all(g == w if not torch.is_tensor(w) else torch.equal(g, w) for g, w in zip(got, want)),
+                  f"{label}: synced compute differs from the unsynced one")
+            print(f"phase 5d: {label} synced compute bitwise equal to the unsynced one ({box['by_kind']});"
+                  f" {local_s:.2f} s unsynced, {synced_s:.2f} s synced")
+    finally:
+        dist.destroy_process_group()
+    return {"launches": launches["binned_counts"], "unsynced_ms": [unsynced_ms, unsynced_ms2], "synced_ms": [synced_ms, synced_ms2],
+            "collectives": expected}
+
+
 
 def main() -> None:
     import numpy as np
@@ -1173,7 +1351,9 @@ def main() -> None:
         fail("no CUDA device is available; this smoke run needs the card")
     try:
         import metrics_tpu_torch as mt
+        from metrics_tpu_torch import entry as entry_mod
         from metrics_tpu_torch.ops import kernels as kernels_mod
+        from metrics_tpu_torch.parallel import sync
         from metrics_tpu_torch.ops.classification import binned_counts as binned
         from metrics_tpu_torch.ops.kernels import cosine_matching as cm
         from metrics_tpu_torch.ops.kernels import iou_matching as im
@@ -1333,6 +1513,11 @@ def main() -> None:
     det = detection_timing(torch, mt, im, map_metric, coco, name, smi)
     txt = text_timing(torch, cm, *text["embeddings"], name, smi)
 
+    # ---- phase 5: sync on the card, entry() and the dry-run, Metric.to
+    dryrun_launches = entry_twins(torch, entry_mod, kernels_mod)
+    check_moves(torch, mt, kernels_mod, logits, probs, target)
+    synced = sync_phase(torch, mt, kernels_mod, sync, (n_batches, states, results, ap), coco, text, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -1357,7 +1542,10 @@ def main() -> None:
                library_note="no single PyTorch call computes per-class counts at every threshold",
                shape=[n, c, t], target=forms["labels"]["target"], device_us=forms["labels"]["device_us"],
                device_ops_per_call=forms["labels"]["device_ops_per_call"], dense=forms["dense"], one_class=few,
-               device_ops_per_binned_update=launches_per_update, update_step_us=step_ms * 1e3, compute_ms=compute_ms),
+               device_ops_per_binned_update=launches_per_update, update_step_us=step_ms * 1e3, compute_ms=compute_ms,
+               synced_path_launches=synced["launches"], dryrun_launches=dryrun_launches,
+               synced_compute_ms=synced["synced_ms"], unsynced_compute_ms=synced["unsynced_ms"],
+               synced_compute_collectives=synced["collectives"]),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                **{k: det["pairwise_iou"][k] for k in ("shape", "device_us", "count_free_ms", "unfused_step_ms",

@@ -20,6 +20,7 @@ from metrics_tpu_torch.classification import (
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.detection import MeanAveragePrecision
+from metrics_tpu_torch.parallel import bucketed_sync_enabled, set_bucketed_sync
 from metrics_tpu_torch.text import BERTScore
 
 __all__ = [
@@ -37,4 +38,6 @@ __all__ = [
     "Precision",
     "Recall",
     "StatScores",
+    "bucketed_sync_enabled",
+    "set_bucketed_sync",
 ]

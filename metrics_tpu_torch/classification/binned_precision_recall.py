@@ -125,6 +125,10 @@ class BinnedPrecisionRecallCurve(Metric):
     def _update_signature(self):
         return ("binned-pr", self.num_classes, self.num_thresholds, self._threshold_key)
 
+    def _move_attributes(self, device: torch.device) -> None:
+        self.thresholds = self.thresholds.to(device)
+        self._grid = sort_thresholds(self.thresholds)
+
     def update(self, preds: Tensor, target: Tensor) -> None:  # type: ignore[override]
         if preds.ndim == target.ndim == 1:
             preds = preds.reshape(-1, 1)

@@ -11,9 +11,13 @@ package's eager appends do. Because appends write in place, ``copy()`` clones
 the tensor: two buffers never share storage, so a metric's reset never hands
 out its default's storage.
 
-Not ported yet: the traced append and its sticky overflow flag (they wait for
-a compiled update engine), and the cross-process ``gather`` (it waits for
-sync over ``torch.distributed``).
+``gather`` concatenates the buffer across the ranks of a process group
+(through ``metrics_tpu_torch.parallel.sync``). The ``overflowed`` flag is
+or-ed across ranks there, as in the JAX package; eager appends grow the
+buffer and never set it.
+
+Not ported yet: the traced append that sets the flag (it waits for a
+compiled update engine).
 
 Example:
     >>> import torch
@@ -47,7 +51,7 @@ class CatBuffer:
 
     def __init__(
         self, data: Optional[Tensor], count: int, capacity: Optional[int] = None,
-        device: Optional[Union[str, torch.device]] = None,
+        device: Optional[Union[str, torch.device]] = None, overflowed: bool = False,
     ) -> None:
         if data is None and (capacity is None or capacity <= 0):
             raise ValueError(f"An unmaterialized CatBuffer needs a positive capacity, got {capacity}")
@@ -56,6 +60,7 @@ class CatBuffer:
         self._capacity = None if data is not None else int(capacity)
         # where an unmaterialized buffer puts its first append's storage
         self._device = torch.device(device) if device is not None else None
+        self.overflowed = bool(overflowed)
 
     @property
     def capacity(self) -> int:
@@ -91,12 +96,14 @@ class CatBuffer:
 
     def copy(self) -> "CatBuffer":
         """An independent buffer: the tensor is cloned, since appends write in place."""
-        return CatBuffer(None if self.data is None else self.data.clone(), self.count, self._capacity, self._device)
+        return CatBuffer(
+            None if self.data is None else self.data.clone(), self.count, self._capacity, self._device, self.overflowed
+        )
 
     def to(self, device: Union[str, torch.device]) -> "CatBuffer":
         if self.data is None:
             return CatBuffer(None, 0, self._capacity, device)
-        return CatBuffer(self.data.to(device), self.count)
+        return CatBuffer(self.data.to(device), self.count, overflowed=self.overflowed)
 
     # ------------------------------------------------------------- queries --
     @property
@@ -121,6 +128,11 @@ class CatBuffer:
         """The valid prefix ``data[:count]``."""
         if not self.materialized:
             raise MetricsUserError("CatBuffer is empty: no state has been appended yet.")
+        if self.overflowed:
+            raise MetricsUserError(
+                f"CatBuffer overflow: a rank appended more samples than its capacity ({self.capacity}) "
+                "held inside a compiled program, which overwrote the buffer tail."
+            )
         return self.data[: self.count]
 
     # ----------------------------------------------------------- mutation --
@@ -169,6 +181,23 @@ class CatBuffer:
         new = self.copy()
         new.append(other.to_array())
         return new
+
+    # -------------------------------------------------------------- gather --
+    @staticmethod
+    def _compact(data: Tensor, valid: Tensor, total: int, overflowed: bool) -> "CatBuffer":
+        """Stable-move the valid rows to the front (one sort); the capacity
+        stays ``data.shape[0]``."""
+        order = torch.argsort((~valid).to(torch.int8), stable=True)
+        return CatBuffer(data[order], total, overflowed=overflowed)
+
+    def gather(self, group) -> "CatBuffer":
+        """All-gather across the ranks of ``group`` into one compacted
+        buffer: the rows of rank 0, then rank 1, and so on."""
+        if not self.materialized:
+            raise MetricsUserError("Cannot gather an empty CatBuffer (no appends before sync).")
+        from metrics_tpu_torch.parallel.sync import _sync_bucketed_catbuffers  # sync imports this module
+
+        return _sync_bucketed_catbuffers([("buffer", self)], group)["buffer"]
 
     # -------------------------------------------------------------- dunder --
     def __repr__(self) -> str:

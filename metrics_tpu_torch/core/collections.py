@@ -5,13 +5,17 @@ Counterpart of ``metrics_tpu/core/collections.py``. Groups come from
 provably produce identical state (the stat-scores family with equal init
 args) declare equal keys, the collection updates only each group's leader
 and its members share the leader's state tensors by reference (state is
-never written in place, see ``core/metric.py``). The JAX package's fused
-dispatcher and engine hooks have no counterpart here.
+never written in place, see ``core/metric.py``). ``compute()`` syncs once
+per group, through its leader, and computes every member on the shared
+synced state. The JAX package's fused dispatcher and engine hooks have no
+counterpart here.
 """
 from __future__ import annotations
 
 from copy import deepcopy
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple, Union
+
+import torch.distributed as dist
 
 from metrics_tpu_torch.core.metric import Metric, StateDict
 
@@ -203,8 +207,33 @@ class MetricCollection:
                     m._computed = None
 
     def compute(self) -> Dict[str, Any]:
-        """Value per member."""
-        return _flatten_results({self._set_name(k): m.compute() for k, m in self._metrics.items()})
+        """Value per member: one sync per compute group, through its leader;
+        the members compute on the shared synced state; then one unsync."""
+        res: Dict[str, Any] = {}
+        for group in self._groups:
+            leader = self._metrics[group[0]]
+            leader.sync(should_sync=leader._to_sync)
+            synced_state = leader.get_state()
+            synced = leader._is_synced
+            for name in group:
+                m = self._metrics[name]
+                if m is not leader:
+                    m.set_state(synced_state)
+                    m._update_count = leader._update_count
+                prev_to_sync, prev_should_unsync = m._to_sync, m._should_unsync
+                # the group is synced already: the member's compute neither
+                # syncs nor unsyncs the shared state
+                m._to_sync, m._should_unsync = False, False
+                try:
+                    res[self._set_name(name)] = m.compute()
+                finally:
+                    m._to_sync, m._should_unsync = prev_to_sync, prev_should_unsync
+            if synced:
+                leader.unsync()
+                local = leader.get_state()
+                for name in group[1:]:
+                    self._metrics[name].set_state(local)
+        return _flatten_results(res)
 
     def reset(self) -> None:
         for m in self._metrics.values():
@@ -254,6 +283,18 @@ class MetricCollection:
             for name in group:
                 res[self._set_name(name)] = self._metrics[name].compute_state(states[group[0]])
         return _flatten_results(res)
+
+    def sync_states(self, states: Dict[str, StateDict], group: Optional[dist.ProcessGroup]) -> Dict[str, StateDict]:
+        """Pure sync over ``group``: one bucketed sync per compute group."""
+        return {g[0]: self._metrics[g[0]].sync_states(states[g[0]], group) for g in self._groups}
+
+    def sync_compute_state(
+        self, states: Dict[str, StateDict], group: Optional[dist.ProcessGroup] = None
+    ) -> Dict[str, Any]:
+        """Pure sync, then compute; ``group=None`` skips the sync."""
+        if group is not None:
+            states = self.sync_states(states, group)
+        return self.compute_state(states)
 
     def __repr__(self) -> str:
         repr_str = self.__class__.__name__ + "(\n"

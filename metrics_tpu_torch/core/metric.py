@@ -4,7 +4,9 @@ Counterpart of ``metrics_tpu/core/metric.py``: ``add_state`` with the sum,
 mean, max, min and cat reduction tags, the pure ``init_state`` /
 ``update_state`` / ``compute_state`` / ``merge_states`` protocol, the
 ``update`` / ``compute`` / ``forward`` / ``reset`` facade, ``state_dict`` and
-``CompositionalMetric``. The JAX package's compiled engines, sharding,
+``CompositionalMetric``, and the sync facade: ``sync`` / ``unsync`` /
+``sync_context`` over a ``torch.distributed`` process group, which
+``compute()`` runs in. The JAX package's compiled engines, sharding,
 sketches, incremental sync, tracer and resilience guard have no counterpart
 here.
 
@@ -22,14 +24,16 @@ from __future__ import annotations
 
 import functools
 import inspect
+from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer
+from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -81,16 +85,6 @@ def _tensors_in(value: Any):
             yield from _tensors_in(item)
 
 
-def _check_single_process() -> None:
-    """Sync over ``torch.distributed`` is not ported yet: refuse to return
-    unsynced per-rank values from a multi-rank run."""
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "metrics_tpu_torch does not sync metric state across processes yet; "
-            f"compute() found a process group of world size {dist.get_world_size()}"
-        )
-
-
 class Metric:
     """Base class for all metrics.
 
@@ -102,6 +96,15 @@ class Metric:
             and ``dist_reduce_fx="cat"`` becomes a :class:`CatBuffer` of this
             many rows instead of a list; metrics with buffer states of their
             own take it as their row capacity.
+        compute_on_cpu: move list and buffer states to the CPU after each
+            update.
+        dist_sync_on_step: sync the batch value that ``forward`` returns.
+        process_group: the ``torch.distributed`` group to sync over; by
+            default the group of :func:`~metrics_tpu_torch.parallel.sync_axes`,
+            else the default group when it has more than one rank.
+        dist_sync_fn: ``fn(state, reductions, group) -> state`` in place of
+            :func:`~metrics_tpu_torch.parallel.sync_state`.
+        sync_on_compute: sync the state in ``compute()`` (default True).
 
     Example (a custom metric):
         >>> import torch
@@ -129,13 +132,29 @@ class Metric:
         self,
         device: Optional[Union[str, torch.device]] = None,
         buffer_capacity: Optional[int] = None,
+        compute_on_cpu: bool = False,
+        dist_sync_on_step: bool = False,
+        process_group: Optional[dist.ProcessGroup] = None,
+        dist_sync_fn: Optional[Callable] = None,
+        sync_on_compute: bool = True,
         **kwargs: Any,
     ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
         if buffer_capacity is not None and (not isinstance(buffer_capacity, int) or buffer_capacity <= 0):
             raise ValueError(f"Expected keyword argument `buffer_capacity` to be a positive int but got {buffer_capacity}")
+        if not isinstance(compute_on_cpu, bool):
+            raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a `bool` but got {compute_on_cpu}")
+        if not isinstance(dist_sync_on_step, bool):
+            raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be a `bool` but got {dist_sync_on_step}")
+        if dist_sync_fn is not None and not callable(dist_sync_fn):
+            raise ValueError(f"Expected keyword argument `dist_sync_fn` to be callable or None but got {dist_sync_fn}")
         self.buffer_capacity = buffer_capacity
+        self.compute_on_cpu = compute_on_cpu
+        self.dist_sync_on_step = dist_sync_on_step
+        self.process_group = process_group
+        self.dist_sync_fn = dist_sync_fn
+        self.sync_on_compute = sync_on_compute
         self._device = resolve_device(device)
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
@@ -143,6 +162,10 @@ class Metric:
         self._update_count = 0
         self._forward_cache: Any = None
         self._computed: Any = None
+        self._to_sync = sync_on_compute
+        self._should_unsync = True
+        self._is_synced = False
+        self._cache: Optional[StateDict] = None
 
         # wrap the subclass update/compute with bookkeeping
         self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
@@ -260,6 +283,13 @@ class Metric:
                 out[attr] = reduce_fn(torch.stack([a, b]))
         return out
 
+    def sync_states(self, state: StateDict, group: Optional[dist.ProcessGroup]) -> StateDict:
+        """Pure: ``state`` synced over ``group`` by reduction tag (bucketed
+        by ``(reduction, dtype)`` unless
+        :func:`~metrics_tpu_torch.parallel.set_bucketed_sync` turned it
+        off); ``group=None`` returns it unchanged."""
+        return _sync.sync_state(state, self._reductions, group)
+
     # ------------------------------------------------------------------ #
     # stateful facade: forward / update / compute
     # ------------------------------------------------------------------ #
@@ -268,11 +298,28 @@ class Metric:
 
     def forward(self, *args: Any, **kwargs: Any) -> Any:
         """Compute the metric on the batch AND accumulate into the global state."""
-        if self.full_state_update or self.full_state_update is None:
+        if self._is_synced:
+            raise MetricsUserError(
+                "The Metric shouldn't be synced when performing ``forward``. HINT: Did you forget to call ``unsync`` ?."
+            )
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
             self._forward_cache = self._forward_full_state_update(*args, **kwargs)
         else:
             self._forward_cache = self._forward_reduce_state_update(*args, **kwargs)
         return self._forward_cache
+
+    @contextmanager
+    def _batch_compute_mode(self) -> Generator:
+        """The batch value of ``forward``: synced only under
+        ``dist_sync_on_step``, left synced, state kept on its device; then
+        back to the compute-time settings."""
+        compute_on_cpu = self.compute_on_cpu
+        self._to_sync, self._should_unsync, self.compute_on_cpu = self.dist_sync_on_step, False, False
+        try:
+            yield
+        finally:
+            self._is_synced, self._cache = False, None
+            self._to_sync, self._should_unsync, self.compute_on_cpu = self.sync_on_compute, True, compute_on_cpu
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Two updates: one into the global state, one on a fresh state for
@@ -280,9 +327,10 @@ class Metric:
         self.update(*args, **kwargs)
         update_count = self._update_count
         global_state = self.get_state()
-        self.reset()
-        self.update(*args, **kwargs)
-        batch_val = self.compute()
+        with self._batch_compute_mode():
+            self.reset()
+            self.update(*args, **kwargs)
+            batch_val = self.compute()
         self.set_state(global_state)
         self._update_count = update_count
         self._computed = None
@@ -293,8 +341,9 @@ class Metric:
         global_state = self.get_state()
         update_count = self._update_count
         self.reset()
-        self.update(*args, **kwargs)
-        batch_val = self.compute()
+        with self._batch_compute_mode():
+            self.update(*args, **kwargs)
+            batch_val = self.compute()
         self._update_count = update_count + 1
         # global state first: cat states keep their accumulation order
         self.set_state(self.merge_states(global_state, self.get_state(), (update_count, 1)))
@@ -316,6 +365,8 @@ class Metric:
             self._computed = None
             self._update_count += 1
             update(*args, **kwargs)
+            if self.compute_on_cpu:
+                self._move_list_states_to_cpu()
 
         self._update = update  # unwrapped, used by the pure protocol
         return wrapped_func
@@ -323,7 +374,6 @@ class Metric:
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
         def wrapped_func(*args: Any, **kwargs: Any) -> Any:
-            _check_single_process()
             if self._update_count == 0:
                 rank_zero_warn(
                     f"The ``compute`` method of metric {self.__class__.__name__}"
@@ -333,11 +383,87 @@ class Metric:
                 )
             if self._computed is not None:
                 return self._computed
-            self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+            ):
+                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
 
         self._compute = compute  # unwrapped, used by the pure protocol
         return wrapped_func
+
+    def _move_list_states_to_cpu(self) -> None:
+        """Host offload of the list and buffer states (``compute_on_cpu``)."""
+        cpu = torch.device("cpu")
+        for key in self._defaults:
+            val = getattr(self, key)
+            if isinstance(val, list):
+                setattr(self, key, [v.to(cpu) for v in val])
+            elif isinstance(val, CatBuffer) and val.materialized:
+                setattr(self, key, val.to(cpu))
+
+    # ------------------------------------------------------------------ #
+    # distributed sync
+    # ------------------------------------------------------------------ #
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[dist.ProcessGroup] = None) -> None:
+        group = next(
+            (g for g in (process_group, self.process_group, _sync.current_sync_axes()) if g is not None),
+            _sync._default_group(),
+        )
+        state = self.get_state()
+        if dist_sync_fn is not None:
+            self.set_state(dist_sync_fn(state, self._reductions, group))
+        else:
+            self.set_state(_sync.sync_state(state, self._reductions, group))
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[dist.ProcessGroup] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = _sync.distributed_available,
+    ) -> None:
+        """Replace the local state with the synced state, keeping the local
+        one to restore in :meth:`unsync`."""
+        if self._is_synced and should_sync:
+            raise MetricsUserError("The Metric has already been synced.")
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed:
+            return
+        self._cache = self.get_state()
+        self._sync_dist(dist_sync_fn or self.dist_sync_fn, process_group=process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local state from before :meth:`sync`."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsUserError("The internal cache should exist to unsync the Metric.")
+        self.set_state(self._cache)
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[dist.ProcessGroup] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = _sync.distributed_available,
+    ) -> Generator:
+        """Sync for the duration of the block, then restore the local state."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        yield
+        self.unsync(should_unsync=self._is_synced and should_unsync)
 
     def update(self, *args: Any, **kwargs: Any) -> None:  # pragma: no cover - abstract
         raise NotImplementedError
@@ -353,6 +479,8 @@ class Metric:
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
+        self._cache = None
+        self._is_synced = False
         for attr, default in self._defaults.items():
             setattr(self, attr, _copy_state_value(default))
 
@@ -368,13 +496,23 @@ class Metric:
         """Drop the wrapped bound methods for pickling and deep copies."""
         return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_update", "_compute")}
 
+    def __deepcopy__(self, memo: Dict[int, Any]) -> "Metric":
+        """A copy that shares the process group: a group cannot be copied."""
+        if self.process_group is not None:
+            memo.setdefault(id(self.process_group), self.process_group)
+        new = type(self).__new__(type(self))
+        memo[id(self)] = new
+        new.__setstate__(deepcopy(self.__getstate__(), memo))
+        return new
+
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
         self.update = self._wrap_update(type(self).update.__get__(self))  # type: ignore[method-assign]
         self.compute = self._wrap_compute(type(self).compute.__get__(self))  # type: ignore[method-assign]
 
     def to(self, device: Union[str, torch.device]) -> "Metric":
-        """Move all states (and defaults) to ``device``."""
+        """Move all states (and defaults) to ``device``, then the tensors and
+        modules the metric holds outside its states (:meth:`_move_attributes`)."""
         self._device = resolve_device(device)
 
         def move(val: StateValue) -> StateValue:
@@ -383,8 +521,13 @@ class Metric:
         for attr in self._defaults:
             setattr(self, attr, move(getattr(self, attr)))
         self._defaults = {k: move(d) for k, d in self._defaults.items()}
+        self._move_attributes(self._device)
         self._computed = None
         return self
+
+    def _move_attributes(self, device: torch.device) -> None:
+        """Hook of :meth:`to`: move the device-bound attributes that are not
+        registered states (a threshold grid, a model the metric loaded)."""
 
     # ------------------------------------------------------------------ #
     # serialization

@@ -91,7 +91,14 @@ class BERTScore(Metric):
     PyTorch encoder; without ``model`` a ``transformers`` checkpoint is
     loaded (``model_name_or_path``, default ``roberta-large``), which needs
     the package and the checkpoint on disk. The encoder and the matching run
-    on the metric's device.
+    on the metric's device. ``to(device)`` moves a model the metric loaded
+    itself; a model passed in is the caller's to move.
+
+    Synced over several processes, the token states of every rank must have
+    one width: a tokenizer that pads each batch to its longest sentence
+    gives ranks different widths, and the sync raises (as the JAX package
+    cannot concatenate them either). The default tokenizer pads to
+    ``max_length``.
 
     Example (own encoder: here a plain embedding table):
         >>> import numpy as np
@@ -186,6 +193,7 @@ class BERTScore(Metric):
             self.model = AutoModel.from_pretrained(self.model_name_or_path).to(self.device).eval()
         else:
             self.tokenizer = user_tokenizer
+        self._owns_model = model is None
 
         for name in self._STATE_NAMES:
             self.add_state(name, default=[], dist_reduce_fx="cat")
@@ -215,10 +223,14 @@ class BERTScore(Metric):
         super().reset()
         self._packed = {}
 
+    def _move_attributes(self, device: torch.device) -> None:
+        if self._owns_model:
+            self.model = self.model.to(device)
+
     def set_state(self, state: Dict[str, Any]) -> None:
-        # an out-of-band state replacement (a restore, a merge, a state carried
-        # from the JAX package) bypasses update(): drop the packed mirrors so
-        # compute re-pads from the list states
+        # an out-of-band state replacement (a restore, a merge, a sync or an
+        # unsync, a state carried from the JAX package) bypasses update():
+        # drop the packed mirrors so compute re-pads from the list states
         super().set_state(state)
         self._packed = {}
 

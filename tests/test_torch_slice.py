@@ -20,7 +20,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import torch.distributed as dist
 
 import metrics_tpu as mt_jax
 import metrics_tpu_torch as mt_torch
@@ -183,10 +182,39 @@ def test_state_dict_round_trip():
     assert {k: float(v) for k, v in restored.compute().items()} == {k: float(v) for k, v in coll.compute().items()}
 
 
-def test_to_moves_state_and_defaults():
-    metric = mt_torch.BinnedAveragePrecision(num_classes=C, thresholds=T, device="cpu").to("meta")
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda: mt_torch.BinnedPrecisionRecallCurve(num_classes=C, thresholds=T, device="cpu"),
+        lambda: mt_torch.BinnedAveragePrecision(num_classes=C, thresholds=T, device="cpu"),
+        lambda: mt_torch.BinnedRecallAtFixedPrecision(num_classes=C, min_precision=0.5, thresholds=T, device="cpu"),
+    ],
+    ids=["curve", "average_precision", "recall_at_precision"],
+)
+def test_to_moves_state_and_defaults(make, monkeypatch):
+    metric = make()
+    moved = []
+    hook = type(metric)._move_attributes
+    monkeypatch.setattr(type(metric), "_move_attributes", lambda self, device: (moved.append(device), hook(self, device)))
+    assert metric.to("meta") is metric and moved == [torch.device("meta")]
     assert metric.device == torch.device("meta")
     assert all(v.device.type == "meta" for v in (*metric.get_state().values(), *metric._defaults.values()))
+    assert all(t.device.type == "meta" for t in (metric.thresholds, *metric._grid))
+
+
+def test_to_moves_a_self_loaded_bert_model_and_leaves_the_users(monkeypatch):
+    from metrics_tpu_torch.text import bert as bert_module
+
+    fake = type(sys)("transformers")
+    fake.AutoTokenizer = type("AutoTokenizer", (), {"from_pretrained": staticmethod(lambda name: object())})
+    fake.AutoModel = type("AutoModel", (), {"from_pretrained": staticmethod(lambda name: torch.nn.Linear(2, 2))})
+    monkeypatch.setitem(sys.modules, "transformers", fake)
+    monkeypatch.setattr(bert_module, "_TRANSFORMERS_AVAILABLE", True)
+    loaded = mt_torch.BERTScore(model_name_or_path="tiny", device="cpu").to("meta")
+    assert all(p.device.type == "meta" for p in loaded.model.parameters())
+    users = torch.nn.Linear(2, 2)
+    mt_torch.BERTScore(model=users, user_tokenizer=object(), device="cpu").to("meta")
+    assert all(p.device.type == "cpu" for p in users.parameters())
 
 
 def test_metrics_default_to_cuda_and_never_fall_back(monkeypatch):
@@ -201,15 +229,6 @@ def test_metrics_default_to_cuda_and_never_fall_back(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
-
-
-def test_compute_refuses_unsynced_multi_process_values(monkeypatch):
-    metric = mt_torch.Accuracy(device="cpu")
-    metric.update(torch.tensor([0, 1, 1]), torch.tensor([0, 1, 0]))
-    monkeypatch.setattr(dist, "is_initialized", lambda: True)
-    monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="world size 2"):
-        metric.compute()
 
 
 def test_reset_restores_defaults_and_keeps_them_intact():
@@ -229,6 +248,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch, metrics_tpu_torch.convert, metrics_tpu_torch.ops, metrics_tpu_torch.detection\n"
         "import metrics_tpu_torch.ops.kernels.iou_matching, metrics_tpu_torch.ops.kernels.cosine_matching\n"
         "import metrics_tpu_torch.text, metrics_tpu_torch.ops.text.bert, metrics_tpu_torch.utils.imports\n"
+        "import metrics_tpu_torch.parallel, metrics_tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -268,6 +288,8 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.detection.mean_ap",
     "metrics_tpu_torch.ops.text.bert",
     "metrics_tpu_torch.text.bert",
+    "metrics_tpu_torch.parallel.mesh",
+    "metrics_tpu_torch.entry",
 ]
 
 
