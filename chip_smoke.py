@@ -55,6 +55,10 @@ is missing. Phases:
    peak); the matcher at the COCO compute's (256, 4, 10, 128, 32) and at
    G = 64.
 
+Phases 3, 4 and 5 build their metrics with ``compiled_update=False,
+compiled_compute=False``, so their numbers stay those of the eager path.
+Phase 6 runs the same stream through the compiled engines.
+
 5. Sync on the card (one card, so a world of one rank: NCCL refuses two
    ranks on one device; several ranks are tested on the CPU with gloo).
    (b) entry() and (c) dryrun_multichip(1) on the card against the same
@@ -69,6 +73,25 @@ is missing. Phases:
    docstring example and one 64-pair chunk of phase 3c, each synced compute
    bitwise equal to its unsynced one; (f) the synced and unsynced
    ImageNet-size compute timed by events (median of 30).
+
+6. The compiled main path (``core/engine.py``: CUDA-graph capture) on phase
+   3's ImageNet-size stream, held against phase 3's eager run. (a) With the
+   engines at their defaults, then with ``batch_buckets=True`` on every
+   metric, every state and three computes (warmup, capture, replay) equal the
+   eager run bit for bit. (b) Each engine's eager calls, captures and replays
+   are those of its signatures (the first call of each eager, the second
+   captured, every later one replayed); every member is on the fused path
+   (bucketed under ``batch_buckets``) for update and compute, nothing fell
+   back, every step holds a graph; the in-place (donated) calls are those the
+   alias guard allows. (c) B1 launched once per binned update and per pow2
+   chunk of the ragged batch, replays counted. (d) The steady-state updates
+   run under ``torch.cuda.set_sync_debug_mode("error")``. (e) At the
+   defaults ``torch.cuda.memory_allocated()`` is the same before every
+   steady-state step. (f) The update step by CUDA events (median of the
+   steady state) and its device-idle share by the profiler, then the compute
+   the same way, eager, compiled, compiled, eager. (g) A binned update at
+   T = 20,000 (B1's workspace path) captured and replayed, bitwise equal to
+   eager.
 
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
@@ -345,18 +368,30 @@ def batches(torch):
         yield logits, torch.softmax(logits, dim=1), target
 
 
-def build_slice(mt, plain_counts: bool = False):
+def build_slice(mt, plain_counts: bool = False, compiled: bool = False, buckets: bool = False):
+    """The slice's collection and binned metric: eager (``compiled=False``,
+    phases 3-5) or with the compiled engines at their defaults (phase 6),
+    optionally with ``batch_buckets=True`` on every metric."""
+    flags = {} if compiled else {"compiled_update": False, "compiled_compute": False}
+    kw = dict(flags, batch_buckets=buckets)
     coll = mt.MetricCollection(
         {
-            "acc": mt.Accuracy(num_classes=N_CLASSES, average="micro"),
-            "f1": mt.F1Score(num_classes=N_CLASSES, average="macro"),
-            "precision": mt.Precision(num_classes=N_CLASSES, average="macro"),
-            "recall": mt.Recall(num_classes=N_CLASSES, average="macro"),
-        }
+            "acc": mt.Accuracy(num_classes=N_CLASSES, average="micro", **kw),
+            "f1": mt.F1Score(num_classes=N_CLASSES, average="macro", **kw),
+            "precision": mt.Precision(num_classes=N_CLASSES, average="macro", **kw),
+            "recall": mt.Recall(num_classes=N_CLASSES, average="macro", **kw),
+        },
+        **flags,
     )
-    binned = mt.BinnedAveragePrecision(num_classes=N_CLASSES)
+    binned = mt.BinnedAveragePrecision(num_classes=N_CLASSES, **kw)
     binned._plain_counts = plain_counts
     return coll, binned
+
+
+def slice_states(coll, binned) -> dict:
+    states = {f"{k}.{s}": v for k, m in coll.items(keep_base=True) for s, v in m.get_state().items()}
+    states.update({f"binned.{s}": v for s, v in binned.get_state().items()})
+    return states
 
 
 def run_slice(torch, mt, plain_counts: bool):
@@ -370,9 +405,7 @@ def run_slice(torch, mt, plain_counts: bool):
     results = coll.compute()
     ap = binned.compute()
     torch.cuda.synchronize()
-    states = {f"{k}.{s}": v for k, m in coll.items(keep_base=True) for s, v in m.get_state().items()}
-    states.update({f"binned.{s}": v for s, v in binned.get_state().items()})
-    return n_batches, states, results, torch.stack(ap)
+    return n_batches, slice_states(coll, binned), results, torch.stack(ap)
 
 
 def check_small_input_against_numpy(torch, mt, np):
@@ -1342,6 +1375,212 @@ def sync_phase(torch, mt, kernels_mod, sync, reference, coco, text, smi):
             "collectives": expected}
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: the compiled main path (CUDA-graph capture, B1 inside the graph)
+# --------------------------------------------------------------------------- #
+def expected_engine_counts(signatures) -> dict:
+    """eager calls, captures and replays an engine makes for a sequence of
+    signatures: the first call of each runs eager, the second probes and
+    captures, every later one replays."""
+    seen, out = {}, {"eager_calls": 0, "cache_misses": 0, "cache_hits": 0}
+    for sig in signatures:
+        count = seen.get(sig, 0)
+        seen[sig] = count + 1
+        out[("eager_calls", "cache_misses")[count] if count < 2 else "cache_hits"] += 1
+    return out
+
+
+def pow2_chunks(n: int):
+    return [1 << bit for bit in reversed(range(n.bit_length())) if n >> bit & 1]
+
+
+def check_engine(label: str, stats, want: dict, donated=None) -> None:
+    got = {k: getattr(stats, k) for k in want}
+    check(got == want, f"{label}: engine counts {got}, expected {want}")
+    if donated is not None:
+        check(stats.donated_calls == donated, f"{label}: {stats.donated_calls} in-place calls, expected {donated}")
+    check(not stats.fallback_reasons, f"{label}: fell back to eager: {stats.fallback_reasons}")
+
+
+def compiled_slice(torch, mt, kernels_mod, stream, reference, buckets: bool) -> dict:
+    """6(a)-(e): the ImageNet-size stream through the engines at their
+    defaults (or with batch_buckets=True on every metric), against phase 3's
+    eager run. The steady-state steps run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    _, states_ref, results_ref, ap_ref = reference
+    coll, binned = build_slice(mt, compiled=True, buckets=buckets)
+    sizes = [int(target.shape[0]) for _, _, target in stream]
+    steady = range(2, len(stream) - 1)  # past the warmup and the capture, before the ragged batch
+    kernels_mod.reset_launch_counts()
+    mem = []
+    for i, (logits, probs, target) in enumerate(stream):
+        if i >= steady.start:  # before each steady step, and after the last one
+            mem.append(torch.cuda.memory_allocated())
+        if i in steady:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            coll.update(logits, target)
+            binned.update(probs, target)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = kernels_mod.launch_counts()["binned_counts"]
+    label = "batch_buckets=True" if buckets else "defaults"
+    chunked = [c for n in sizes for c in pow2_chunks(n)] if buckets else sizes
+    check(launches == len(chunked), f"6(c) [{label}]: B1 launched {launches} times for {len(chunked)} binned updates")
+
+    computes = []
+    for _ in range(3):  # warmup, capture, replay
+        for m in (*coll.values(), binned):
+            m._computed = None
+        computes.append((coll.compute(), torch.stack(binned.compute())))
+    torch.cuda.synchronize()
+    for key, value in slice_states(coll, binned).items():
+        check(value.dtype == states_ref[key].dtype and torch.equal(value, states_ref[key]),
+              f"6(a) [{label}]: state {key} differs from phase 3's eager run")
+    for n, (results, ap) in enumerate(computes):
+        for key, value in results_ref.items():
+            check(torch.equal(results[key], value), f"6(a) [{label}]: compute {n + 1} result {key} differs from phase 3")
+        check(torch.equal(ap, ap_ref), f"6(a) [{label}]: compute {n + 1} binned AP differs from phase 3")
+
+    stats = coll.engine_stats()
+    view = stats["partition"]
+    bview = binned.engine_stats()["partition"]
+    update_path = "bucketed" if buckets else "fused"
+    for name, info in view["update"].items():
+        check(info["path"] == update_path, f"6(b) [{label}]: member {name} update path {info}")
+    for name, info in view["compute"].items():
+        check(info["path"] == "fused", f"6(b) [{label}]: member {name} compute path {info}")
+    check(bview["update"]["path"] == update_path and bview["compute"]["path"] == "fused",
+          f"6(b) [{label}]: binned partition {bview}")
+    check(view["migrations"] == 0 and view["builds"] == 1, f"6(b) [{label}]: partition {view}")
+    n_computes = expected_engine_counts([0, 0, 0])
+    check_engine(f"6(b) [{label}] collection compute", stats["compute"], n_computes)
+    check_engine(f"6(b) [{label}] binned compute", binned._compute_engine.stats, n_computes)
+    if buckets:
+        check(coll._update_engine is None, "6(b) [batch_buckets=True]: no fused collection update expected")
+        masked = expected_engine_counts([1 << (n - 1).bit_length() for n in sizes])
+        check_engine("6(b) [batch_buckets=True] acc", coll["acc"]._update_engine.stats,
+                     dict(masked, bucketed_calls=len(sizes)), donated=masked["cache_hits"])
+        # the group's members hold the leader's state: replays never write it in place
+        check_engine("6(b) [batch_buckets=True] f1 (group leader)", coll["f1"]._update_engine.stats,
+                     dict(masked, bucketed_calls=len(sizes)), donated=0)
+        chunks = expected_engine_counts(chunked)
+        check_engine("6(b) [batch_buckets=True] binned", binned._update_engine.stats,
+                     dict(chunks, bucketed_calls=len(sizes)), donated=chunks["cache_hits"])
+        engines = {"acc": coll["acc"]._update_engine, "f1": coll["f1"]._update_engine, "binned": binned._update_engine}
+    else:
+        plain = expected_engine_counts(sizes)
+        check_engine("6(b) [defaults] collection update", stats["update"], plain, donated=plain["cache_hits"])
+        check_engine("6(b) [defaults] binned update", binned._update_engine.stats, plain, donated=plain["cache_hits"])
+        engines = {"collection": coll._update_engine, "binned": binned._update_engine}
+        check(len(set(mem)) == 1, f"6(e): memory_allocated moved across the steady-state steps: {sorted(set(mem))}")
+    for name, engine in engines.items():
+        check(engine.broken is None and all(step.graph is not None for step in engine._steps.values()),
+              f"6(b) [{label}]: {name} engine broken ({engine.broken}) or a step without a graph")
+    replays = {name: e.stats.cache_hits for name, e in engines.items()}
+    print(f"phase 6 [{label}]: {len(stream)} updates, states and 3 computes bitwise equal to phase 3's eager run;"
+          f" B1 launched {launches} times for {len(chunked)} binned updates{' (pow2 chunks)' if buckets else ''};"
+          f" replays {replays}; partition update {update_path}, compute fused, no fallback;"
+          f" steady state with sync debug mode 'error'; memory_allocated {'flat at ' + str(mem[0]) + ' bytes' if len(set(mem)) == 1 else 'moved: ' + str(sorted(set(mem)))}")
+    return {"launches": launches, "updates": len(chunked), "replays": replays, "memory_flat": len(set(mem)) == 1}
+
+
+def idle_share(prof: dict):
+    busy = sum(prof["device_us"].values())
+    return None if not prof["device_us"] else max(0.0, 1.0 - busy / prof["wall_us"])
+
+
+def slice_timing(torch, mt, stream, compiled: bool, show: bool = False) -> dict:
+    """6(f): the update step by CUDA events (median of the steady state) and
+    its device-idle share by the profiler, then the compute the same way;
+    ``show`` prints the profiles."""
+    coll, metric = build_slice(mt, compiled=compiled)
+    for lg, pb, tg in stream[:3]:  # warmup and capture
+        coll.update(lg, tg)
+        metric.update(pb, tg)
+    step_times = []
+    for lg, pb, tg in stream[3:-1]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        coll.update(lg, tg)
+        metric.update(pb, tg)
+        end.record()
+        end.synchronize()
+        step_times.append(start.elapsed_time(end))
+    steps = iter(stream[3:-1])
+
+    def one_step():
+        lg, pb, tg = next(steps)
+        coll.update(lg, tg)
+        metric.update(pb, tg)
+
+    step_prof = profile_window(torch, one_step, reps=10)
+    label = "compiled" if compiled else "eager"
+    if show:
+        report_profile(f"6(f) {label} update step (collection + binned AP)", step_prof)
+
+    def compute_all():
+        for m in (*coll.values(), metric):
+            m._computed = None
+        coll.compute()
+        metric.compute()
+
+    compute_ms = time_ms(torch, compute_all, warmup=2, reps=20)
+    compute_prof = profile_window(torch, compute_all, reps=5)
+    if show:
+        report_profile(f"6(f) {label} compute (collection + binned AP)", compute_prof)
+    return {"step_us": statistics.median(step_times) * 1e3, "step_idle": idle_share(step_prof),
+            "step_busy_us": sum(step_prof["device_us"].values()), "compute_ms": compute_ms,
+            "compute_idle": idle_share(compute_prof), "compute_busy_us": sum(compute_prof["device_us"].values())}
+
+
+def large_t_capture(torch, mt, kernels_mod) -> None:
+    """6(g): a binned update at T = 20,000, past B1's shared-memory path, so
+    that the kernel takes its per-stream workspace: captured and replayed,
+    bitwise against eager."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    t = 20_000
+    inputs = [(torch.rand((600, 3), generator=gen, device="cuda"), torch.randint(0, 3, (600,), generator=gen, device="cuda"))
+              for _ in range(4)]
+    compiled = mt.BinnedPrecisionRecallCurve(num_classes=3, thresholds=t)
+    eager = mt.BinnedPrecisionRecallCurve(num_classes=3, thresholds=t, compiled_update=False, compiled_compute=False)
+    check(kernels_mod.KERNELS["binned_counts"].lib().binned_counts_workspace_len(3, t) > 0,
+          f"T={t} should take B1's workspace path")
+    kernels_mod.reset_launch_counts()
+    for preds, labels in inputs:
+        compiled.update(preds, labels)
+    launches = kernels_mod.launch_counts()["binned_counts"]
+    for preds, labels in inputs:
+        eager.update(preds, labels)
+    torch.cuda.synchronize()
+    engine = compiled._update_engine
+    check_engine(f"6(g) T={t}", engine.stats, {"eager_calls": 1, "cache_misses": 1, "cache_hits": 2})
+    check(all(step.graph is not None for step in engine._steps.values()), f"6(g): T={t} update not captured")
+    check(launches == len(inputs), f"6(g): B1 launched {launches} times for {len(inputs)} updates")
+    for key, value in eager.get_state().items():
+        check(torch.equal(compiled.get_state()[key], value), f"6(g): T={t} state {key} differs from eager")
+    print(f"phase 6(g): binned update at T={t} (B1's workspace path) captured and replayed twice,"
+          f" states bitwise equal to eager, B1 launched {launches} times for {len(inputs)} updates")
+
+
+def compiled_phase(torch, mt, kernels_mod, reference, smi) -> dict:
+    stream = list(batches(torch))
+    torch.cuda.synchronize()
+    runs = {"defaults": compiled_slice(torch, mt, kernels_mod, stream, reference, buckets=False),
+            "batch_buckets": compiled_slice(torch, mt, kernels_mod, stream, reference, buckets=True)}
+    large_t_capture(torch, mt, kernels_mod)
+    timings = {"eager": [], "compiled": []}
+    for n, compiled in enumerate((False, True, True, False)):  # eager, compiled, compiled, eager in one run
+        timings["compiled" if compiled else "eager"].append(slice_timing(torch, mt, stream, compiled, show=n < 2))
+    for label, runs_ in timings.items():
+        print(f"phase 6(f) ({smi}): {label}: update step "
+              + ", ".join(f"{r['step_us']:.1f} us (idle {r['step_idle']}, device busy {r['step_busy_us']:.1f} us)" for r in runs_)
+              + "; compute " + ", ".join(f"{r['compute_ms']:.3f} ms (idle {r['compute_idle']}, device busy"
+                                         f" {r['compute_busy_us']:.1f} us)" for r in runs_))
+    del stream
+    return {"runs": runs, "timings": timings}
+
+
 
 def main() -> None:
     import numpy as np
@@ -1518,6 +1757,10 @@ def main() -> None:
     check_moves(torch, mt, kernels_mod, logits, probs, target)
     synced = sync_phase(torch, mt, kernels_mod, sync, (n_batches, states, results, ap), coco, text, smi)
 
+    # ---- phase 6: the compiled main path against phase 3's eager run
+    compiled = compiled_phase(torch, mt, kernels_mod, (n_batches, states, results, ap), smi)
+    timings = compiled["timings"]
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -1545,7 +1788,17 @@ def main() -> None:
                device_ops_per_binned_update=launches_per_update, update_step_us=step_ms * 1e3, compute_ms=compute_ms,
                synced_path_launches=synced["launches"], dryrun_launches=dryrun_launches,
                synced_compute_ms=synced["synced_ms"], unsynced_compute_ms=synced["unsynced_ms"],
-               synced_compute_collectives=synced["collectives"]),
+               synced_compute_collectives=synced["collectives"],
+               compiled_path_launches={k: r["launches"] for k, r in compiled["runs"].items()},
+               compiled_path_binned_updates={k: r["updates"] for k, r in compiled["runs"].items()},
+               compiled_update_step_us=[r["step_us"] for r in timings["compiled"]],
+               compiled_update_idle_share=[r["step_idle"] for r in timings["compiled"]],
+               compiled_compute_ms=[r["compute_ms"] for r in timings["compiled"]],
+               compiled_compute_idle_share=[r["compute_idle"] for r in timings["compiled"]],
+               eager_update_step_us=[r["step_us"] for r in timings["eager"]],
+               eager_update_idle_share=[r["step_idle"] for r in timings["eager"]],
+               eager_compute_ms=[r["compute_ms"] for r in timings["eager"]],
+               eager_compute_idle_share=[r["compute_idle"] for r in timings["eager"]]),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                **{k: det["pairwise_iou"][k] for k in ("shape", "device_us", "count_free_ms", "unfused_step_ms",

@@ -70,6 +70,11 @@ class StatScores(Metric):
             else:
                 self.add_state(s, default=[], dist_reduce_fx="cat")
 
+        # sum-reduced counts are additive over masked rows, so the compiled
+        # update may pad ragged batches and pass a validity mask; the cat
+        # layouts (samples / samplewise) would append the padded rows
+        self._accepts_sample_mask = reduce != "samples" and mdmc_reduce != "samplewise"
+
     def _update_signature(self):
         """Stat-scores family compute-group key: equal args => identical state."""
         return (

@@ -4,26 +4,33 @@ Counterpart of ``metrics_tpu/core/metric.py``: ``add_state`` with the sum,
 mean, max, min and cat reduction tags, the pure ``init_state`` /
 ``update_state`` / ``compute_state`` / ``merge_states`` protocol, the
 ``update`` / ``compute`` / ``forward`` / ``reset`` facade, ``state_dict`` and
-``CompositionalMetric``, and the sync facade: ``sync`` / ``unsync`` /
+``CompositionalMetric``, the sync facade: ``sync`` / ``unsync`` /
 ``sync_context`` over a ``torch.distributed`` process group, which
-``compute()`` runs in. The JAX package's compiled engines, sharding,
-sketches, incremental sync, tracer and resilience guard have no counterpart
-here.
+``compute()`` runs in, and the compiled engines (``core/engine.py``): from
+the second call of each input signature, ``update()`` and ``compute()``
+replay a captured CUDA graph (on the CPU, the same step with the value checks
+off). The JAX package's sharding, sketches, incremental sync, tracer and
+resilience guard have no counterpart here.
 
 State lives on one explicit device. ``device=None`` means CUDA; without a
 card the constructor raises instead of quietly running on the CPU, so CPU
 callers (the tests) pass ``device="cpu"``. Inputs on another device than the
 state raise.
 
-State tensors are treated as immutable: every update rebinds the attribute
-to a new tensor (``self.tp = self.tp + tp``) and never writes in place, so a
-``MetricCollection`` can share one group leader's tensors with its members by
-reference.
+A metric's own ``update`` rebinds its state attributes to new tensors
+(``self.tp = self.tp + tp``) and never writes in place. The compiled update
+engine does write in place: from its third call of a signature the state
+tensors are the engine's static buffers, which each replay updates. It does so
+only where the JAX engine would donate the state: never into a tensor that a
+caller, a snapshot or another member of a collection compute group still
+holds, and never into a registered default, so sharing a group leader's
+tensors with its members by reference stays safe.
 """
 from __future__ import annotations
 
 import functools
 import inspect
+import weakref
 from contextlib import contextmanager
 from copy import deepcopy
 from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
@@ -105,6 +112,17 @@ class Metric:
         dist_sync_fn: ``fn(state, reductions, group) -> state`` in place of
             :func:`~metrics_tpu_torch.parallel.sync_state`.
         sync_on_compute: sync the state in ``compute()`` (default True).
+        compiled_update: dispatch ``update()`` through the compiled-update
+            engine (a captured step per input signature; see
+            :mod:`metrics_tpu_torch.core.engine`). ``None`` (default) follows
+            :func:`~metrics_tpu_torch.set_compiled_update`.
+        compiled_compute: the same for ``compute()`` (``None`` follows
+            :func:`~metrics_tpu_torch.set_compiled_compute`).
+        donate_state: let the compiled update write the state in place
+            (default True); ``False`` hands out fresh state tensors every call.
+        batch_buckets: pad ragged batches to a power of two with a
+            ``sample_mask`` (metrics whose update takes one), else split them
+            into power-of-two chunks, so at most log2(N) steps are captured.
 
     Example (a custom metric):
         >>> import torch
@@ -137,10 +155,22 @@ class Metric:
         process_group: Optional[dist.ProcessGroup] = None,
         dist_sync_fn: Optional[Callable] = None,
         sync_on_compute: bool = True,
+        compiled_update: Optional[bool] = None,
+        compiled_compute: Optional[bool] = None,
+        donate_state: bool = True,
+        batch_buckets: bool = False,
         **kwargs: Any,
     ) -> None:
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {list(kwargs)}")
+        if compiled_update is not None and not isinstance(compiled_update, bool):
+            raise ValueError(f"Expected keyword argument `compiled_update` to be a `bool` or None but got {compiled_update}")
+        if compiled_compute is not None and not isinstance(compiled_compute, bool):
+            raise ValueError(f"Expected keyword argument `compiled_compute` to be a `bool` or None but got {compiled_compute}")
+        if not isinstance(donate_state, bool):
+            raise ValueError(f"Expected keyword argument `donate_state` to be a `bool` but got {donate_state}")
+        if not isinstance(batch_buckets, bool):
+            raise ValueError(f"Expected keyword argument `batch_buckets` to be a `bool` but got {batch_buckets}")
         if buffer_capacity is not None and (not isinstance(buffer_capacity, int) or buffer_capacity <= 0):
             raise ValueError(f"Expected keyword argument `buffer_capacity` to be a positive int but got {buffer_capacity}")
         if not isinstance(compute_on_cpu, bool):
@@ -155,6 +185,15 @@ class Metric:
         self.process_group = process_group
         self.dist_sync_fn = dist_sync_fn
         self.sync_on_compute = sync_on_compute
+        self._compiled_update = compiled_update
+        self._compiled_compute = compiled_compute
+        self._donate_state = donate_state
+        self._batch_buckets = batch_buckets
+        self._update_engine: Any = None  # lazily built CompiledUpdateEngine
+        self._compute_engine: Any = None  # lazily built CompiledComputeEngine
+        self._shared_state_ids: frozenset = frozenset()  # tensors shared across a collection group
+        self._states_detached = False  # a fused collection streak removed the state attributes
+        self._default_refs: Tuple = ()  # the default copies reset() handed out (weakly)
         self._device = resolve_device(device)
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
@@ -210,6 +249,7 @@ class Metric:
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
         setattr(self, name, _copy_state_value(default))
+        self._mark_default_copies()
 
     @property
     def metric_state(self) -> StateDict:
@@ -233,6 +273,60 @@ class Metric:
     def set_state(self, state: StateDict) -> None:
         for k, v in state.items():
             setattr(self, k, list(v) if isinstance(v, list) else v)
+        if self._states_detached and all(k in self.__dict__ for k in self._defaults):
+            self._states_detached = False
+
+    def _mark_default_copies(self) -> None:
+        """Remember the state tensors that stand for the registered defaults
+        (what ``reset()`` and ``add_state`` hand out): the compiled update
+        never writes them in place, as the JAX engine never donates a default."""
+        self._default_refs = tuple(weakref.ref(t) for k in self._defaults for t in _tensors_in(self.__dict__.get(k)))
+
+    def _reset_leaf_ids(self) -> set:
+        return {id(t) for t in (ref() for ref in self._default_refs) if t is not None}
+
+    def _detach_states(self) -> None:
+        """Remove the state attributes while this metric is a non-leader
+        member of a collection compute group in a fused update streak (only
+        its leader advances); a read then raises instead of returning stale
+        state. ``set_state`` and ``reset`` attach them again."""
+        for key in self._defaults:
+            self.__dict__.pop(key, None)
+        self._states_detached = True
+
+    def __getattr__(self, name: str) -> Any:
+        # reached only when normal lookup fails: a detached state attribute
+        d = object.__getattribute__(self, "__dict__")
+        if d.get("_states_detached") and name in d.get("_defaults", ()):
+            raise MetricsUserError(
+                f"{type(self).__name__}.{name} was read while its state is detached: this metric is a non-leader"
+                " member of a MetricCollection compute group in a fused update streak, so its state is attached"
+                " again at the collection's next compute()/items()/values()/[]. Read results through the collection."
+            )
+        raise AttributeError(f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    def _child_metrics(self) -> List["Metric"]:
+        """Metric instances held as attributes (a CompositionalMetric's
+        operands): their state lives outside ``_defaults``."""
+        out: List[Metric] = []
+        for val in vars(self).values():
+            if isinstance(val, Metric):
+                out.append(val)
+            elif isinstance(val, (list, tuple)):
+                out.extend(v for v in val if isinstance(v, Metric))
+        return out
+
+    @property
+    def supports_compiled_update(self) -> bool:
+        """True when no state is an unbounded list, so ``update_state`` may be
+        captured (the JAX engine's static gate)."""
+        return not any(isinstance(v, list) for v in self._defaults.values())
+
+    @property
+    def supports_compiled_compute(self) -> bool:
+        """True when no state is an unbounded list; a compute that turns out
+        not to be capturable is found by the engine's probe."""
+        return not any(isinstance(v, list) for v in self._defaults.values())
 
     def update_state(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
         """Pure: return ``state`` advanced by one batch. The stateful
@@ -358,13 +452,57 @@ class Metric:
                     f"but an input lies on {value.device}"
                 )
 
+    def _maybe_engine(self) -> Optional[Any]:
+        """The compiled-update engine, or None when disabled (the instance's
+        flag first, then the global switch)."""
+        from metrics_tpu_torch.core import engine as _engine
+
+        enabled = self._compiled_update
+        if enabled is None:
+            enabled = _engine.compiled_update_enabled()
+        if not enabled:
+            return None
+        if self._update_engine is None:
+            self._update_engine = _engine.CompiledUpdateEngine(self)
+        return self._update_engine
+
+    def _maybe_compute_engine(self) -> Optional[Any]:
+        """The compiled-compute engine, or None when disabled."""
+        from metrics_tpu_torch.core import engine as _engine
+
+        enabled = self._compiled_compute
+        if enabled is None:
+            enabled = _engine.compiled_compute_enabled()
+        if not enabled:
+            return None
+        if self._compute_engine is None:
+            self._compute_engine = _engine.CompiledComputeEngine(self)
+        return self._compute_engine
+
+    def engine_stats(self) -> Dict[str, Any]:
+        """Dispatch counters and fallback reasons of this metric's engines.
+
+        ``update``/``compute`` are the engines' ``EngineStats`` (None until
+        built), ``fallback_reasons`` maps ``"<kind>:<MetricClass>"`` to why an
+        engine reverted to eager, and ``partition`` gives the path (``fused``,
+        ``bucketed``, ``eager``) a collection would assign each kind, with the
+        reason.
+        """
+        from metrics_tpu_torch.core import engine as _engine
+
+        stats = _engine.engine_stats_view(self._update_engine, self._compute_engine)
+        stats["partition"] = _engine.metric_partition_view(self)
+        return stats
+
     def _wrap_update(self, update: Callable) -> Callable:
         @functools.wraps(update)
         def wrapped_func(*args: Any, **kwargs: Any) -> None:
             self._check_input_devices(args, kwargs)
             self._computed = None
             self._update_count += 1
-            update(*args, **kwargs)
+            engine = self._maybe_engine()
+            if engine is None or not engine.dispatch(args, kwargs):
+                update(*args, **kwargs)
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
@@ -383,6 +521,15 @@ class Metric:
                 )
             if self._computed is not None:
                 return self._computed
+            if not args and not kwargs:
+                # one captured compute per state signature (warmup and escape
+                # hatches in the engine)
+                engine = self._maybe_compute_engine()
+                if engine is not None:
+                    handled, value = engine.dispatch()
+                    if handled:
+                        self._computed = _squeeze_if_scalar(value)
+                        return self._computed
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
             ):
@@ -475,14 +622,22 @@ class Metric:
     # lifecycle
     # ------------------------------------------------------------------ #
     def reset(self) -> None:
-        """Restore registered states to their defaults."""
+        """Restore registered states to their defaults.
+
+        The engines stay: the defaults have the running state's shapes and
+        dtypes, so the captured steps stay valid and a reset-update cycle
+        captures nothing new. The next compiled call copies the defaults'
+        copies into its static buffers and never writes them.
+        """
         self._update_count = 0
         self._forward_cache = None
         self._computed = None
         self._cache = None
         self._is_synced = False
+        self._states_detached = False
         for attr, default in self._defaults.items():
             setattr(self, attr, _copy_state_value(default))
+        self._mark_default_copies()
 
     def clone(self) -> "Metric":
         return deepcopy(self)
@@ -493,8 +648,11 @@ class Metric:
         object.__setattr__(self, name, value)
 
     def __getstate__(self) -> Dict[str, Any]:
-        """Drop the wrapped bound methods for pickling and deep copies."""
-        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute", "_update", "_compute")}
+        """Drop the wrapped bound methods for pickling and deep copies, and the
+        engines: their graphs bind device addresses and their steps close over
+        this instance. Copies rebuild them lazily."""
+        dropped = ("update", "compute", "_update", "_compute", "_update_engine", "_compute_engine", "_default_refs")
+        return {k: v for k, v in self.__dict__.items() if k not in dropped}
 
     def __deepcopy__(self, memo: Dict[int, Any]) -> "Metric":
         """A copy that shares the process group: a group cannot be copied."""
@@ -507,6 +665,9 @@ class Metric:
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
+        self._update_engine = None
+        self._compute_engine = None
+        self._default_refs = ()
         self.update = self._wrap_update(type(self).update.__get__(self))  # type: ignore[method-assign]
         self.compute = self._wrap_compute(type(self).compute.__get__(self))  # type: ignore[method-assign]
 
@@ -523,6 +684,9 @@ class Metric:
         self._defaults = {k: move(d) for k, d in self._defaults.items()}
         self._move_attributes(self._device)
         self._computed = None
+        # the graphs bind the old device's addresses
+        self._update_engine = None
+        self._compute_engine = None
         return self
 
     def _move_attributes(self, device: torch.device) -> None:
@@ -570,8 +734,17 @@ class Metric:
                     setattr(self, key, torch.as_tensor(val, device=self._device))
             elif strict and self._persistent[key]:
                 raise KeyError(f"Missing key {name!r} in state_dict")
+        self._invalidate_dispatch()
+
+    def _invalidate_dispatch(self) -> None:
+        """Forget what derives from the previous state's identity after an
+        out-of-band replacement: the memoized value and the engines' id-keyed
+        memos (their captured steps stay)."""
         self._computed = None
         self._forward_cache = None
+        for engine in (self._update_engine, self._compute_engine):
+            if engine is not None:
+                engine.reset_signature_memos()
 
     # ------------------------------------------------------------------ #
     # misc

@@ -200,6 +200,13 @@ class MeanAveragePrecision(Metric):
     # ------------------------------------------------------------------ #
     # update
     # ------------------------------------------------------------------ #
+    def _engine_accepts(self, args: Tuple, kwargs: Dict) -> bool:
+        """The compiled update's per-call gate: it declines every call. The
+        ``CatBuffer`` fill counts are python ints, which a captured graph
+        cannot carry, so the update stays eager; the JAX package compiles its
+        dense dict updates (``metrics_tpu/detection/mean_ap.py:292-298``)."""
+        return False
+
     def update(self, preds: List[Dict[str, Tensor]], target: List[Dict[str, Tensor]]) -> None:  # type: ignore[override]
         if isinstance(preds, dict) and isinstance(target, dict):
             self._append_dense(preds, target)  # the dense padded form pad_inputs produces

@@ -28,6 +28,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops.kernels import KERNELS
+from metrics_tpu_torch.utils.exceptions import Uncapturable
 
 KERNEL = KERNELS["binned_counts"]
 
@@ -90,9 +91,19 @@ _WORKSPACES: Dict[Tuple[int, int], Tensor] = {}
 
 
 def _workspace(device: torch.device, stream: int, need: int) -> Tensor:
-    """The stream's workspace, of ``need`` int32 at least."""
+    """The stream's workspace, of ``need`` int32 at least.
+
+    Refused under a CUDA graph capture when it does not exist yet: made there,
+    it would live in the graph's private pool. The compiled engines run a step
+    once on their capture stream before they capture it, so it exists then.
+    """
     ws = _WORKSPACES.get((device.index, stream))
     if ws is None or ws.numel() < need:
+        if torch.cuda.is_current_stream_capturing():
+            raise Uncapturable(
+                "binned_counts: the large-T workspace of this stream would be made inside a CUDA graph capture;"
+                " run the step once on the capture stream first"
+            )
         ws = torch.zeros(need, dtype=torch.int32, device=device)  # once per stream and size
         _WORKSPACES[(device.index, stream)] = ws
     return ws

@@ -10,7 +10,11 @@ host without ``nvcc`` or a card imports it freely and never calls ``lib()``.
 
 Every kernel keeps a plain ``launches`` counter that its wrapper bumps once
 per launch; ``reset_launch_counts`` and ``launch_counts`` let a run show that
-its main path really went through the kernels.
+its main path really went through the kernels. The counts are device
+launches, not Python calls: a CUDA graph capture runs the wrapper but
+launches nothing, and a replay launches what the capture recorded, so the
+compiled engines' ``CapturedStep`` takes back a capture's counts
+(:func:`add_launches` with the negated delta) and adds them at every replay.
 """
 from __future__ import annotations
 
@@ -188,3 +192,9 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: kernel.launches for name, kernel in KERNELS.items()}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta[name]`` launches to each named kernel's count."""
+    for name, n in delta.items():
+        KERNELS[name].launches += n

@@ -1,20 +1,52 @@
 """Classification input validation and the format-canonicalization machine.
 
-Counterpart of ``metrics_tpu/utils/checks.py:81-405``. The JAX package skips
-its value checks (label ranges, binary targets) under ``jit`` tracing; the
-port runs eagerly, so they always run. Each one reads a scalar back from the
-device.
+Counterpart of ``metrics_tpu/utils/checks.py:81-405``. Each value check
+(label ranges, binary targets) reads a scalar back from the device. The JAX
+package skips them under ``jit`` tracing; the port skips them where
+:func:`_capturing` holds: while a CUDA graph is being captured, and while the
+compiled engines (``core/engine.py``) probe a step or run it in the steady
+state. So they fire on the first, eager call of each input shape. Shape and
+dtype checks always run, and so do the places that infer a class count from
+the values: a compiled step cannot freeze that branch, and the engine's probe
+sends such a step back to eager.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+import threading
+from contextlib import contextmanager
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import Tensor
 
 from metrics_tpu_torch.utils.data import select_topk, to_onehot
 from metrics_tpu_torch.utils.enums import DataType
+
+
+_CUDA_BUILD = torch.cuda._is_compiled()
+_state = threading.local()
+
+
+@contextmanager
+def _checks_off() -> Iterator[None]:
+    """Skip the value checks in this thread for the block (the engines' probe
+    and steady-state steps)."""
+    depth = getattr(_state, "depth", 0)
+    _state.depth = depth + 1
+    try:
+        yield
+    finally:
+        _state.depth = depth
+
+
+def _capturing() -> bool:
+    """True while value checks must not read the device: under a CUDA graph
+    capture on the current stream, or inside :func:`_checks_off`. The
+    counterpart of the JAX package's ``_tracing_active``/``_is_concrete``."""
+    if getattr(_state, "depth", 0):
+        return True
+    return _CUDA_BUILD and torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
 
 def _is_floating(x: Tensor) -> bool:
@@ -65,6 +97,8 @@ def _basic_input_validation(
     if preds.shape[0:1] != target.shape[0:1]:
         raise ValueError("`preds` and `target` must agree in their leading (batch) dimension.")
 
+    if _capturing():
+        return  # value checks would read the device back
     if (ignore_index is None or ignore_index >= 0) and target.min() < 0:
         raise ValueError("Negative labels found in `target`; labels must be non-negative here.")
     if not _is_floating(preds) and preds.min() < 0:
@@ -85,7 +119,7 @@ def _check_shape_and_type_consistency(preds: Tensor, target: Tensor) -> Tuple[Da
                 "Equal-rank `preds` and `target` must have identical shapes;"
                 f" got preds={tuple(preds.shape)}, target={tuple(target.shape)}."
             )
-        if preds_float and target.numel() > 0 and target.max() > 1:
+        if preds_float and target.numel() > 0 and not _capturing() and target.max() > 1:
             raise ValueError(
                 "Float `preds` at the same rank as `target` imply a binary/multi-label task, so `target` may only hold 0/1."
             )
@@ -147,7 +181,7 @@ def _check_num_classes_mc(
                 "With `multiclass=False` the class count implied by the input shapes"
                 " must equal `num_classes`, but it does not."
             )
-        if target.numel() > 0 and num_classes <= target.max():
+        if target.numel() > 0 and not _capturing() and num_classes <= target.max():
             raise ValueError("`target` contains a label >= `num_classes`.")
         if preds.shape != target.shape and num_classes != implied_classes:
             raise ValueError("The class (C) dimension of `preds` disagrees with `num_classes`.")
@@ -200,7 +234,7 @@ def _check_classification_inputs(
                 "`multiclass=False` requires at most 2 classes, but the class (C) dimension"
                 " of `preds` implies more."
             )
-        if target.numel() > 0 and target.max() >= implied_classes:
+        if target.numel() > 0 and not _capturing() and target.max() >= implied_classes:
             raise ValueError("`target` contains a label >= the class (C) dimension of `preds`.")
 
     if num_classes:

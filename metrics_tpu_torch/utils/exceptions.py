@@ -7,3 +7,9 @@ class MetricsUserError(Exception):
 
 class MetricsUserWarning(UserWarning):
     """Warning raised for recoverable metric misuse."""
+
+
+class Uncapturable(Exception):
+    """A step that a CUDA graph cannot hold: it reads a value back to the
+    host, or makes a tensor whose shape depends on values. The compiled
+    engines (``core/engine.py``) revert such a metric to eager."""

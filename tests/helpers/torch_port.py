@@ -39,6 +39,37 @@ def assert_close(got: Any, want: Any, rtol: float = 1e-6, atol: float = 1e-7, ms
     np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, equal_nan=True, err_msg=msg)
 
 
+class BodyGraph:
+    """Stands in for a captured CUDA graph on the CPU: a replay runs the
+    captured step's body (static inputs to static outputs), so the card's
+    replay path of ``metrics_tpu_torch.core.engine.CapturedStep`` (input
+    copies, in-place statics, backups of held statics, clones out) runs
+    without a card."""
+
+    def __init__(self, step: Any) -> None:
+        self.step = step
+
+    def replay(self) -> None:
+        from metrics_tpu_torch.core import engine
+
+        with engine._steady():
+            self.step._body()
+
+
+def use_card_replay_path(monkeypatch: Any) -> None:
+    """Give every step the engines capture from now on a :class:`BodyGraph`."""
+    from metrics_tpu_torch.core import engine
+
+    probe = engine.CapturedStep.probe
+
+    def probe_then_graph(self, state, args, kwargs):
+        out = probe(self, state, args, kwargs)
+        self.graph = BodyGraph(self)
+        return out
+
+    monkeypatch.setattr(engine.CapturedStep, "probe", probe_then_graph)
+
+
 def both(x: np.ndarray):
     """The same numpy array as a JAX array and as a CPU tensor."""
     return jnp.asarray(x), torch.from_numpy(np.array(x, copy=True))

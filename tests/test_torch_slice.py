@@ -248,7 +248,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch, metrics_tpu_torch.convert, metrics_tpu_torch.ops, metrics_tpu_torch.detection\n"
         "import metrics_tpu_torch.ops.kernels.iou_matching, metrics_tpu_torch.ops.kernels.cosine_matching\n"
         "import metrics_tpu_torch.text, metrics_tpu_torch.ops.text.bert, metrics_tpu_torch.utils.imports\n"
-        "import metrics_tpu_torch.parallel, metrics_tpu_torch.entry\n"
+        "import metrics_tpu_torch.parallel, metrics_tpu_torch.entry, metrics_tpu_torch.core.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
