@@ -56,8 +56,8 @@ is missing. Phases:
    G = 64.
 
 Phases 3, 4 and 5 build their metrics with ``compiled_update=False,
-compiled_compute=False``, so their numbers stay those of the eager path.
-Phase 6 runs the same stream through the compiled engines.
+compiled_compute=False`` (mAP: ``compiled_update=False``), so their numbers
+stay those of the eager path. Phases 6 and 7 run the compiled engines.
 
 5. Sync on the card (one card, so a world of one rank: NCCL refuses two
    ranks on one device; several ranks are tested on the CPU with gloo).
@@ -93,6 +93,29 @@ Phase 6 runs the same stream through the compiled engines.
    T = 20,000 (B1's workspace path) captured and replayed, bitwise equal to
    eager.
 
+7. The curve family and the compiled mAP update (``core/buffers.py``'s
+   captured appends). (a) Phase 3's stream (probabilities and labels)
+   through one MetricCollection of AUROC (macro), AveragePrecision and
+   CalibrationError (15 bins), each with ``buffer_capacity=50_000``: eager,
+   then with the engines at their defaults. The buffer states (rows, counts,
+   overflow flags, host mirrors) and two computes are bitwise equal; the
+   fused update has 1 eager call and 1 capture per signature (the first call
+   materializes the buffers) and replays the rest, in place; the steady
+   state runs under ``set_sync_debug_mode("error")`` with
+   ``memory_allocated`` flat; compute goes back to eager at its probe, as in
+   the JAX package; AUROC/AP/ECE are within 1e-5 of a float64 numpy oracle.
+   Each compute is timed by events and its reads to the host counted; the
+   update step compiled and eager, by events and the profiler. ROC and
+   PrecisionRecallCurve run once each over unbounded list states (engines
+   off for the update); their curves give AUROC's and AP's values bit for
+   bit. (c) An AUROC at capacity 8,192 fed 16,384 rows: the warning fires at
+   the update that overflows, with no synchronisation; the count keeps the
+   true total; compute() raises the overflow error. (b) Phase 3b's stream
+   through ``MeanAveragePrecision(class_metrics=True, buffer_capacity=5_000)``
+   at its defaults (pow2-bucketed captured update, eager compute): the steady
+   state under sync debug mode "error" with flat memory, buffers and results
+   bitwise equal to phase 3b, B2 and the matcher once per 256-image chunk.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -106,6 +129,7 @@ is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -667,7 +691,7 @@ def coco_stream(torch):
 
 def run_coco(torch, mt, stream, plain: bool):
     """Update 16 images at a time with synchronisation forbidden, then compute."""
-    metric = mt.MeanAveragePrecision(class_metrics=True)
+    metric = mt.MeanAveragePrecision(class_metrics=True, compiled_update=False)
     metric._plain_kernels = plain
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -763,7 +787,7 @@ def detection_phase(torch, mt, kernels_mod):
     print(f"  state: {state_bytes / 1e6:.1f} MB at capacity {metric.det_counts.capacity} images;"
           f" compute's peak device memory above the state: {peak_extra / 1e6:.1f} MB")
     check_map_docstring_example(torch, mt)
-    return metric, stream, launches
+    return metric, stream, launches, results
 
 
 def detection_timing(torch, mt, im, metric, stream, name, smi):
@@ -813,7 +837,7 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     wide_bytes = b * d * 64 * 4 + b * d * (1 + 4) + b * 64 * (4 + 1) + b * a * 64 + t * 4 + b * a * t * d
     wide_bound_ms, wide_by = bound(wide_bytes, 2 * b * a * t * d * 64, name)
 
-    fresh = mt.MeanAveragePrecision(class_metrics=True)
+    fresh = mt.MeanAveragePrecision(class_metrics=True, compiled_update=False)
     times, host = [], []
     for i, (preds, targets) in enumerate(stream[:80]):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1343,7 +1367,7 @@ def sync_phase(torch, mt, kernels_mod, sync, reference, coco, text, smi):
               f" synced (world of one, NCCL) {synced_ms:.3f}, {synced_ms2:.3f} ms")
 
         # mAP on 512 of phase 3b's images, BERTScore on its docstring example and one 64-pair chunk
-        det = mt.MeanAveragePrecision(class_metrics=True)
+        det = mt.MeanAveragePrecision(class_metrics=True, compiled_update=False)
         for preds, targets in coco[: 512 // COCO_BATCH]:
             det.update(preds, targets)
         bert_example = bert_docstring_metric(torch, mt)
@@ -1582,6 +1606,375 @@ def compiled_phase(torch, mt, kernels_mod, reference, smi) -> dict:
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 7: the curve family and the compiled mAP update
+# --------------------------------------------------------------------------- #
+ECE_BINS = 15
+CURVE_ATOL = 1e-5
+OVERFLOW_CAPACITY, OVERFLOW_BATCHES = 8192, 16
+
+
+def curve_collection(mt, compiled: bool):
+    """AUROC (macro), AveragePrecision and CalibrationError over the
+    ImageNet-size stream, each buffered to the stream's 50,000 rows."""
+    flags = {} if compiled else {"compiled_update": False, "compiled_compute": False}
+    return mt.MetricCollection(
+        {
+            "auroc": mt.AUROC(num_classes=N_CLASSES, average="macro", buffer_capacity=N_SAMPLES, **flags),
+            "ap": mt.AveragePrecision(num_classes=N_CLASSES, buffer_capacity=N_SAMPLES, **flags),
+            "ece": mt.CalibrationError(n_bins=ECE_BINS, buffer_capacity=N_SAMPLES, **flags),
+        },
+        **flags,
+    )
+
+
+def buffer_states(coll) -> dict:
+    """Every buffer state's valid rows, count and overflow flag, by name."""
+    out = {}
+    for key, m in coll.items(keep_base=True):
+        for s, buf in m.get_state().items():
+            out[f"{key}.{s}.rows"] = buf.data[: min(len(buf), buf.capacity)]
+            out[f"{key}.{s}.count"] = buf.count
+            out[f"{key}.{s}.overflowed"] = buf.overflowed
+            out[f"{key}.{s}.mirror"] = (len(buf), buf.overflow_seen)
+    return out
+
+
+def same_states(torch, label: str, got: dict, want: dict) -> None:
+    check(set(got) == set(want), f"{label}: state names differ")
+    for key, value in want.items():
+        if isinstance(value, tuple):
+            check(got[key] == value, f"{label}: {key} {got[key]} differs from {value}")
+        else:
+            check(value.dtype == got[key].dtype and torch.equal(got[key], value), f"{label}: state {key} differs")
+
+
+class ReadbackCounter:
+    """Counts the reads of a device value to the host (``.item()``,
+    ``bool()``, ``int()``, ``nonzero`` sizes, copies to the CPU) while active."""
+
+    def __init__(self, torch):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        aten = torch.ops.aten
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                packet = func._overloadpacket
+                if packet is aten._local_scalar_dense:
+                    counter.n += 1
+                elif packet in (aten._to_copy, aten.copy_):
+                    src = args[1] if packet is aten.copy_ else args[0]
+                    dst = args[0].device if packet is aten.copy_ else kwargs.get("device")
+                    if getattr(src, "is_cuda", False) and dst is not None and torch.device(dst).type == "cpu":
+                        counter.n += 1
+                elif packet in (aten.nonzero, aten.masked_select):
+                    counter.n += 1  # the output size is read back
+                return func(*args, **kwargs)
+
+        self.n = 0
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def curve_oracle(np, probs, target):
+    """float64 numpy AUROC (macro), AP (macro) and ECE (l1, 15 bins) of the
+    stream: per class a stable sort of the scores, distinct thresholds,
+    cumulative counts; the trapezoid of the ROC, the step sum of the PR
+    curve; the ECE bins over the float32 grid the metric uses."""
+    n, c = probs.shape
+    aurocs, aps = np.empty(c), np.empty(c)
+    for k in range(c):
+        s = probs[:, k]
+        order = np.argsort(-s, kind="stable")
+        s, y = s[order].astype(np.float64), (target[order] == k).astype(np.float64)
+        last = np.r_[np.nonzero(np.diff(s))[0], n - 1]
+        tps = np.cumsum(y)[last]
+        fps = (last + 1) - tps
+        fpr, tpr = np.r_[0.0, fps / fps[-1]], np.r_[0.0, tps / tps[-1]]
+        aurocs[k] = np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2)
+        precision, recall = tps / (tps + fps), tps / tps[-1]
+        aps[k] = np.sum(np.diff(np.r_[0.0, recall]) * precision)
+    conf = probs.max(axis=1)
+    acc = (probs.argmax(axis=1) == target).astype(np.float64)
+    grid = (np.arange(ECE_BINS, dtype=np.float32) * np.float32(1.0 / ECE_BINS)).tolist() + [1.0]
+    bins = np.clip(np.searchsorted(np.asarray(grid, np.float32), conf, side="left") - 1, 0, ECE_BINS - 1)
+    ece = 0.0
+    for b in range(ECE_BINS):
+        sel = bins == b
+        if sel.any():
+            ece += abs(acc[sel].mean() - conf[sel].astype(np.float64).mean()) * sel.mean()
+    return {"auroc": aurocs.mean(), "ap": aps.mean(), "ece": ece}
+
+
+def curve_step_timing(torch, mt, stream, compiled: bool) -> dict:
+    """7(a): the update step of the curve collection by CUDA events (median
+    of the steady state) and its device-idle share by the profiler."""
+    coll = curve_collection(mt, compiled)
+    for _, pb, tg in stream[:3]:
+        coll.update(pb, tg)
+    times = []
+    for _, pb, tg in stream[3:-11]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        coll.update(pb, tg)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    steps = iter(stream[-11:-1])
+
+    def one_step():
+        _, pb, tg = next(steps)
+        coll.update(pb, tg)
+
+    prof = profile_window(torch, one_step, reps=9)
+    return {"step_us": statistics.median(times) * 1e3, "idle": idle_share(prof), "busy_us": sum(prof["device_us"].values()),
+            "prof": prof}
+
+
+def curve_phase(torch, mt, np, stream, smi) -> dict:
+    """7(a): the ImageNet-size stream through the buffered AUROC/AP/ECE
+    collection, eager and then compiled, bitwise; the unbounded-list ROC and
+    PrecisionRecallCurve once each; a float64 numpy oracle."""
+    from metrics_tpu_torch.ops.classification.auc import _auc_compute_without_check
+    from metrics_tpu_torch.ops.classification.average_precision import _average_precision_compute_with_precision_recall
+
+    sizes = [int(tg.shape[0]) for _, _, tg in stream]
+
+    eager = curve_collection(mt, compiled=False)
+    for _, pb, tg in stream:
+        eager.update(pb, tg)
+    torch.cuda.synchronize()
+    want_states = buffer_states(eager)
+    t0 = time.perf_counter()
+    want = eager.compute()
+    torch.cuda.synchronize()
+    eager_compute_s = time.perf_counter() - t0
+
+    coll = curve_collection(mt, compiled=True)
+    steady = range(2, len(stream) - 1)  # past the two warmups and the capture, before the ragged batch
+    gc.collect()  # garbage of earlier phases would otherwise be freed inside the window
+    mem = []
+    for i, (_, pb, tg) in enumerate(stream):
+        if i > steady.start:
+            mem.append(torch.cuda.memory_allocated())
+        if i in steady and i > steady.start:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            coll.update(pb, tg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same_states(torch, "7(a) compiled", buffer_states(coll), want_states)
+    for name, m in coll.items(keep_base=True):
+        for s, buf in m.get_state().items():
+            check(len(buf) == N_SAMPLES and int(buf.count) == N_SAMPLES and not bool(buf.overflowed),
+                  f"7(a): {name}.{s} count {len(buf)}/{int(buf.count)}, expected {N_SAMPLES}")
+    # the update engine before compute: a compute that migrates to eager rebuilds the partition
+    sigs = [(i > 0, s) for i, s in enumerate(sizes)]  # the first update materializes the buffers
+    engine = coll._update_engine
+    check_engine("7(a) curve collection update", engine.stats, expected_engine_counts(sigs),
+                 donated=expected_engine_counts(sigs)["cache_hits"])
+    check(engine.broken is None and all(step.graph is not None for step in engine._steps.values()),
+          f"7(a): fused update broken ({engine.broken}) or a step without a graph")
+    update_view = coll.engine_stats()["partition"]["update"]
+    computes = []
+    for _ in range(2):  # the warmup, then the probe that sends compute back to eager
+        for m in coll.values():
+            m._computed = None
+        computes.append(coll.compute())
+    for n, got in enumerate(computes):
+        for key, value in want.items():
+            check(torch.equal(got[key], value), f"7(a): compiled-path compute {n + 1} {key} differs from eager")
+    compute_view = coll.engine_stats()["partition"]["compute"]
+    for name in ("auroc", "ap", "ece"):
+        check(update_view[name]["path"] == "fused", f"7(a): {name} update path {update_view[name]}")
+        check(compute_view[name]["path"] == "eager" and "data-dependent shape" in compute_view[name]["reason"],
+              f"7(a): {name} compute path {compute_view[name]}")
+    check(len(set(mem)) == 1, f"7(a): memory_allocated moved across the steady-state steps: {sorted(set(mem))}")
+
+    probs = torch.cat([pb for _, pb, _ in stream]).cpu().numpy()
+    target = torch.cat([tg for _, _, tg in stream]).cpu().numpy()
+    t0 = time.perf_counter()
+    oracle = curve_oracle(np, probs, target)
+    oracle_s = time.perf_counter() - t0
+    for key, value in oracle.items():
+        err = abs(float(want[key]) - value)
+        check(math.isfinite(float(want[key])) and err <= CURVE_ATOL, f"7(a): {key} {float(want[key])} vs float64 {value}")
+    del probs
+
+    # each member's compute by CUDA events, and its readbacks
+    compute_ms, readbacks = {}, {}
+    for key, m in eager.items(keep_base=True):
+        def one(m=m):
+            m._computed = None
+            m.compute()
+        compute_ms[key] = time_ms(torch, one, warmup=1, reps=3)
+        with ReadbackCounter(torch) as counter:
+            one()
+        readbacks[key] = counter.n
+    compute_prof = {}
+    for key, m in eager.items(keep_base=True):
+        compute_prof[key] = profile_window(torch, lambda m=m: (setattr(m, "_computed", None), m.compute()), reps=1)
+
+    # the unbounded-list route: ROC and PrecisionRecallCurve once each
+    curves = {}
+    for label, cls in (("roc", mt.ROC), ("prc", mt.PrecisionRecallCurve)):
+        metric = cls(num_classes=N_CLASSES, compiled_update=False)
+        for _, pb, tg in stream:
+            metric.update(pb, tg)
+        check(isinstance(metric.preds, list) and len(metric.preds) == len(stream), f"7(a): {label} keeps list states")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a, b, thresholds = metric.compute()
+        torch.cuda.synchronize()
+        curves[label] = time.perf_counter() - t0
+        check(len(a) == len(b) == len(thresholds) == N_CLASSES, f"7(a): {label} gives {len(a)} curves")
+        check(all(bool(torch.isfinite(x).all()) for x in a + b), f"7(a): {label} curve points are not finite")
+        if label == "roc":
+            area = torch.stack([_auc_compute_without_check(x, y, 1.0) for x, y in zip(a, b)]).mean()
+            check(torch.equal(area, want["auroc"]), "7(a): the ROC curves' mean area differs from AUROC")
+        else:
+            ap = _average_precision_compute_with_precision_recall(a, b, N_CLASSES, "macro")
+            check(torch.equal(ap, want["ap"]), "7(a): the PR curves' macro AP differs from AveragePrecision")
+        del metric, a, b, thresholds
+
+    timing = {"eager": [], "compiled": []}
+    for compiled in (False, True, True, False):
+        timing["compiled" if compiled else "eager"].append(curve_step_timing(torch, mt, stream, compiled))
+    for label in ("eager", "compiled"):
+        report_profile(f"7(a) {label} curve update step (AUROC + AP + ECE)", timing[label][0]["prof"])
+    for key in compute_ms:
+        report_profile(f"7(a) {key} compute", compute_prof[key])
+    print(f"phase 7(a): {len(stream)} updates of the buffered AUROC/AP/ECE collection ({N_SAMPLES} x {N_CLASSES});"
+          f" compiled states (rows, counts, flags) and 2 computes bitwise equal to eager; update engine"
+          f" {expected_engine_counts(sigs)}, steady state with sync debug mode 'error', memory_allocated flat at"
+          f" {mem[0]} bytes; AUROC {float(want['auroc']):.7f}, AP {float(want['ap']):.7f}, ECE {float(want['ece']):.7f}"
+          f" against float64 {oracle['auroc']:.7f}, {oracle['ap']:.7f}, {oracle['ece']:.7f} (oracle {oracle_s:.1f} s)")
+    print(f"phase 7(a) ({smi}): update step compiled "
+          + ", ".join(f"{r['step_us']:.1f} us (idle {r['idle']}, device busy {r['busy_us']:.1f} us)" for r in timing["compiled"])
+          + "; eager " + ", ".join(f"{r['step_us']:.1f} us (idle {r['idle']}, device busy {r['busy_us']:.1f} us)"
+                                   for r in timing["eager"]))
+    print(f"phase 7(a) ({smi}): compute by events " + ", ".join(f"{k} {v:.1f} ms" for k, v in compute_ms.items())
+          + f" (first eager compute of all three {eager_compute_s:.2f} s); readbacks per compute "
+          + ", ".join(f"{k} {v}" for k, v in readbacks.items())
+          + f"; list route compute ROC {curves['roc']:.2f} s, PrecisionRecallCurve {curves['prc']:.2f} s")
+    return {"compute_ms": compute_ms, "readbacks": readbacks, "timing": timing, "list_compute_s": curves,
+            "oracle": oracle, "values": {k: float(v) for k, v in want.items()}}
+
+
+def overflow_phase(torch, mt, stream) -> dict:
+    """7(c): a buffered AUROC whose capacity is half the stream it gets: the
+    warning fires at the update that overflows, with no synchronisation; the
+    count keeps the true total; compute() raises the overflow error."""
+    import warnings
+
+    metric = mt.AUROC(num_classes=N_CLASSES, buffer_capacity=OVERFLOW_CAPACITY)
+    warned = []
+    for i, (_, pb, tg) in enumerate(stream[:OVERFLOW_BATCHES]):
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            if i >= 3:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                metric.update(pb, tg)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        warned.append(any("overflowed its capacity" in str(w.message) for w in rec))
+    total = OVERFLOW_BATCHES * BATCH
+    first = next(i for i in range(OVERFLOW_BATCHES) if (i + 1) * BATCH > OVERFLOW_CAPACITY)
+    check(warned == [i == first for i in range(OVERFLOW_BATCHES)], f"7(c): overflow warnings at {warned}, expected update {first}")
+    for s in ("preds", "target"):
+        buf = getattr(metric, s)
+        check(len(buf) == total and int(buf.count) == total and bool(buf.overflowed) and buf.overflow_seen,
+              f"7(c): {s} count {len(buf)}/{int(buf.count)} flag {bool(buf.overflowed)}, expected {total} and set")
+    try:
+        metric.compute()
+        fail("7(c): compute() of an overflowed buffer did not raise")
+    except Exception as err:  # the port's MetricsUserError
+        text = str(err)
+        check(text.startswith(f"CatBuffer overflow: more samples were appended (count={total}) than its capacity "
+                              f"({OVERFLOW_CAPACITY}) held at the time"), f"7(c): compute raised {text[:200]}")
+    print(f"phase 7(c): AUROC at capacity {OVERFLOW_CAPACITY} fed {total} rows: warned once, at update {first + 1}"
+          f" (no synchronisation from update 4 on); count {total}, flag set; compute raises the overflow error")
+    return {"first_overflowing_update": first + 1}
+
+
+def map_compiled_phase(torch, mt, kernels_mod, stream, map_reference, results_reference) -> dict:
+    """7(b): phase 3b's stream through MeanAveragePrecision with the engines
+    at its defaults (pow2-bucketed captured update, eager compute)."""
+    metric = mt.MeanAveragePrecision(class_metrics=True, buffer_capacity=COCO_IMAGES)
+    steady = range(2, len(stream) - 1)
+    gc.collect()  # garbage of earlier phases would otherwise be freed inside the window
+    mem, times = [], []
+    for i, (preds, targets) in enumerate(stream):
+        if i > steady.start:
+            mem.append(torch.cuda.memory_allocated())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i in steady:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            metric.update(preds, targets)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        end.record()
+        if i in steady:
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    torch.cuda.synchronize()
+    for name in map_reference._defaults:
+        got, want = getattr(metric, name), getattr(map_reference, name)
+        check(len(got) == len(want) == COCO_IMAGES and torch.equal(got.to_array(), want.to_array()),
+              f"7(b): buffer {name} differs from phase 3b's eager run")
+    sizes = [len(p) for p, _ in stream]
+    chunks = [c for n in sizes for c in pow2_chunks(n)]
+    want_counts = expected_engine_counts(chunks)
+    check_engine("7(b) mAP update", metric._update_engine.stats, dict(want_counts, bucketed_calls=len(sizes)),
+                 donated=want_counts["cache_hits"])
+    view = metric.engine_stats()["partition"]
+    check(view["update"]["path"] == "bucketed" and view["compute"]["path"] == "eager", f"7(b): partition {view}")
+    check(all(step.graph is not None for step in metric._update_engine._steps.values()), "7(b): a step without a graph")
+    check(len(set(mem)) == 1, f"7(b): memory_allocated moved across the steady-state updates: {sorted(set(mem))}")
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = metric.compute()
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    n_chunks = math.ceil(COCO_IMAGES / 256)
+    for kname in DETECTION_KERNELS:
+        check(launches[kname] == n_chunks, f"7(b): {kname} launched {launches[kname]} times for {n_chunks} chunks")
+    check(set(results) == set(results_reference), "7(b): result keys differ from phase 3b")
+    for key, value in results_reference.items():
+        check(torch.equal(results[key], value), f"7(b): result {key} differs from phase 3b's eager run")
+    step_us = statistics.median(times) * 1e3
+    print(f"phase 7(b): {len(stream)} mAP updates through the engine ({want_counts}, {len(chunks)} pow2 chunks),"
+          f" buffers and results bitwise equal to phase 3b; steady state with sync debug mode 'error',"
+          f" memory_allocated flat at {mem[0]} bytes; update {step_us:.1f} us (median by events); compute"
+          f" {compute_s:.2f} s with B2 and the matcher launched {launches['pairwise_iou']}, {launches['greedy_match']} times")
+    return {"launches": {k: launches[k] for k in DETECTION_KERNELS}, "update_us": step_us, "compute_s": compute_s,
+            "engine": want_counts}
+
+
+def phase_seven(torch, mt, np, kernels_mod, coco, map_reference, map_results, smi) -> dict:
+    stream = [(None, pb, tg) for _, pb, tg in batches(torch)]  # the probabilities and labels of phase 3's stream
+    torch.cuda.synchronize()
+    curves = curve_phase(torch, mt, np, stream, smi)
+    overflow = overflow_phase(torch, mt, stream)
+    del stream
+    detection = map_compiled_phase(torch, mt, kernels_mod, coco, map_reference, map_results)
+    return {"curves": curves, "overflow": overflow, "map": detection}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1653,7 +2046,7 @@ def main() -> None:
     check_small_input_against_numpy(torch, mt, np)
 
     # ---- phase 3b: the detection path, kernels against plain
-    map_metric, coco, det_launches = detection_phase(torch, mt, kernels_mod)
+    map_metric, coco, det_launches, map_results = detection_phase(torch, mt, kernels_mod)
     launches.update({k: det_launches[k] for k in DETECTION_KERNELS})
 
     # ---- phase 3c: the text path at roberta-large width, kernel against plain
@@ -1761,6 +2154,9 @@ def main() -> None:
     compiled = compiled_phase(torch, mt, kernels_mod, (n_batches, states, results, ap), smi)
     timings = compiled["timings"]
 
+    # ---- phase 7: the curve family and the compiled mAP update
+    seven = phase_seven(torch, mt, np, kernels_mod, coco, map_metric, map_results, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -1801,6 +2197,7 @@ def main() -> None:
                eager_compute_idle_share=[r["compute_idle"] for r in timings["eager"]]),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
+               compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],
                **{k: det["pairwise_iou"][k] for k in ("shape", "device_us", "count_free_ms", "unfused_step_ms",
                                                       "unfused_step_device_us")}),
         record("greedy_match", {k: v for k, v in det["greedy_match"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -1808,7 +2205,9 @@ def main() -> None:
                shape=det["greedy_match"]["shape"], device_us=det["greedy_match"]["device_us"],
                g64=det["greedy_match"]["g64"], map_update_us=det["map_update_us"], map_update_host_us=det["map_update_host_us"],
                map_compute_eval_s=det["map_compute_eval_s"], map_compute_calc_s=det["map_compute_calc_s"],
-               map_compute_idle_share=det["map_compute_idle_share"]),
+               map_compute_idle_share=det["map_compute_idle_share"],
+               compiled_map_compute_launches=seven["map"]["launches"]["greedy_match"],
+               compiled_map_update_us=seven["map"]["update_us"], compiled_map_compute_s=seven["map"]["compute_s"]),
         record("maxsim_tf32x3", {k: v for k, v in txt["full"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                library_note="torch.bmm then two amax, TF32 off (three calls; the port never calls them)",
                shape=txt["full"]["shape"], device_us=txt["full"]["device_us"],

@@ -9,13 +9,19 @@ graph from the second call of each input signature (``core/engine.py``; the
 switches below turn that off).
 """
 from metrics_tpu_torch.classification import (
+    AUC,
+    AUROC,
     Accuracy,
+    AveragePrecision,
     BinnedAveragePrecision,
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
+    CalibrationError,
     F1Score,
     FBetaScore,
     Precision,
+    PrecisionRecallCurve,
+    ROC,
     Recall,
     StatScores,
 )
@@ -36,11 +42,15 @@ from metrics_tpu_torch.parallel import bucketed_sync_enabled, set_bucketed_sync
 from metrics_tpu_torch.text import BERTScore
 
 __all__ = [
+    "AUC",
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
     "BERTScore",
     "BinnedAveragePrecision",
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
+    "CalibrationError",
     "CompositionalMetric",
     "F1Score",
     "FBetaScore",
@@ -48,6 +58,8 @@ __all__ = [
     "Metric",
     "MetricCollection",
     "Precision",
+    "PrecisionRecallCurve",
+    "ROC",
     "Recall",
     "StatScores",
     "bucketed_sync_enabled",

@@ -22,21 +22,7 @@ from torch import Tensor
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.ops.classification.average_precision import _average_precision_compute_with_precision_recall
 from metrics_tpu_torch.ops.classification.binned_counts import binned_counts, sort_thresholds
-from metrics_tpu_torch.utils.data import METRIC_EPS
-
-
-def linspace_thresholds(num: int) -> Tensor:
-    """``jnp.linspace(0, 1.0, num)``, bit for bit.
-
-    ``torch.linspace`` rounds differently (1 of 100 values, 20 of 101, 125 of
-    1000 differ by an ulp) and a one-ulp shift moves scores between buckets.
-    ``jnp.linspace`` computes ``i * float32(1 / (num - 1))`` and sets the last
-    value to exactly 1.0.
-    """
-    if num <= 1:
-        return torch.zeros(num, dtype=torch.float32)
-    step = torch.tensor(1.0 / (num - 1), dtype=torch.float32)
-    return torch.cat([torch.arange(num - 1, dtype=torch.float32) * step, torch.ones(1, dtype=torch.float32)])
+from metrics_tpu_torch.utils.data import METRIC_EPS, linspace_thresholds
 
 
 def _class_labels(target: Tensor) -> Tensor:

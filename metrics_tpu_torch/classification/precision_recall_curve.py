@@ -1,0 +1,65 @@
+"""PrecisionRecallCurve (counterpart of
+``metrics_tpu/classification/precision_recall_curve.py``).
+
+``cat`` states: unbounded lists by default (eager only), or with
+``buffer_capacity=N`` two ``CatBuffer`` states whose update the compiled
+engine captures. The exact curve is computed eagerly.
+"""
+from __future__ import annotations
+
+from typing import Any, Optional
+
+from torch import Tensor
+
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.ops.classification.precision_recall_curve import (
+    Curve,
+    _precision_recall_curve_compute,
+    _precision_recall_curve_update,
+)
+from metrics_tpu_torch.utils.data import append_cat, dim_zero_cat
+
+
+class PrecisionRecallCurve(Metric):
+    """Exact precision-recall curve at every distinct score.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import PrecisionRecallCurve
+        >>> preds = torch.tensor([0.0, 0.1, 0.8, 0.4])
+        >>> target = torch.tensor([0, 1, 1, 0])
+        >>> curve = PrecisionRecallCurve(pos_label=1, device="cpu")
+        >>> curve.update(preds, target)
+        >>> precision, recall, thresholds = curve.compute()
+        >>> [round(float(p), 4) for p in precision]
+        [0.6667, 0.5, 1.0, 1.0]
+        >>> [round(float(r), 4) for r in recall]
+        [1.0, 0.5, 0.5, 0.0]
+        >>> [round(float(t), 4) for t in thresholds]
+        [0.1, 0.4, 0.8]
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update: bool = False
+
+    def __init__(self, num_classes: Optional[int] = None, pos_label: Optional[int] = None, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.num_classes = num_classes
+        self.pos_label = pos_label
+        self.add_state("preds", default=[], dist_reduce_fx="cat")
+        self.add_state("target", default=[], dist_reduce_fx="cat")
+
+    def update(self, preds: Tensor, target: Tensor) -> None:  # type: ignore[override]
+        preds, target, num_classes, pos_label = _precision_recall_curve_update(
+            preds, target, self.num_classes, self.pos_label
+        )
+        self.preds = append_cat(self.preds, preds)
+        self.target = append_cat(self.target, target)
+        self.num_classes = num_classes
+        self.pos_label = pos_label
+
+    def compute(self) -> Curve:
+        preds = dim_zero_cat(self.preds)
+        target = dim_zero_cat(self.target)
+        return _precision_recall_curve_compute(preds, target, self.num_classes, self.pos_label)

@@ -52,14 +52,22 @@ launches; a capture launches nothing, and a replay launches what the capture
 recorded. So :class:`CapturedStep` takes back each kernel's count delta of
 the capture and adds it again at every replay (``ops.kernels.launch_counts``).
 
+**Buffer states** (``core/buffers.py``) are three leaves each: the data, the
+0-d ``count`` and the 0-d ``overflowed``. A captured append cannot grow the
+buffer; it writes at the count clamped into the capacity, read from device
+memory. In a graph's body the buffers are the step's own statics and are
+appended to in place (``buffers.writes_in_place``), so a replay writes the
+batch's rows and nothing else of the buffer. The host mirror of each count
+and overflow flag gets the step's row count added at every call, as the
+launch counts do: nothing is read back.
+
 **Errors.** Only :class:`Uncapturable` and the errors torch raises for an
 operation a capture refuses revert a member. A kernel build or launch error
 propagates, as it does eagerly.
 
 Not here, and queued elsewhere: tenant classification and ``PATH_TENANT``
 (A19), the incremental sync groups and collectives inside a captured compute
-(A17), the tracer, chaos and guard hooks and the autotune token (A20), and
-``CatBuffer``'s traced part (A10).
+(A17), and the tracer, chaos and guard hooks and the autotune token (A20).
 
 Global switches: ``set_compiled_update``, ``set_compiled_compute`` and
 ``set_fused_update`` (environment variables ``METRICS_TPU_COMPILED_UPDATE``,
@@ -81,6 +89,7 @@ import torch
 from torch import Tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from metrics_tpu_torch.core.buffers import CatBuffer, buffers_in, writes_in_place
 from metrics_tpu_torch.ops import kernels as _kernels
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.checks import _capturing, _checks_off
@@ -202,11 +211,17 @@ class EngineStats:
 
 # --------------------------------------------------------------------------- #
 # trees: the dispatch walks the inputs and the state every call, so it keeps
-# its own small flattener for dicts, lists, tuples and named tuples (leaves
-# are anything else); the spec is a hashable nested tuple
+# its own small flattener for dicts, lists, tuples, named tuples and buffers
+# (leaves are anything else); the spec is a hashable nested tuple. A buffer
+# is three leaves (data, count, overflowed); its host mirrors are not part
+# of the spec, and a buffer built from leaves has them zero until the
+# dispatch carries them over (_carry_mirrors)
 # --------------------------------------------------------------------------- #
 def _flatten_into(tree: Any, leaves: list) -> Any:
     kind = type(tree)
+    if kind is CatBuffer:
+        leaves.extend((tree.data, tree.count, tree.overflowed))
+        return ("c", tree._capacity)
     if kind is dict:
         return ("d", tuple(tree), tuple(_flatten_into(v, leaves) for v in tree.values()))
     if kind is list:
@@ -239,6 +254,8 @@ def _build(node: Any, it: Any) -> Any:
         return [_build(c, it) for c in node[1]]
     if node[0] == "t":
         return tuple(_build(c, it) for c in node[1])
+    if node[0] == "c":
+        return CatBuffer._from_parts(next(it), next(it), next(it), capacity=node[1])
     return node[1](*(_build(c, it) for c in node[2]))
 
 
@@ -246,6 +263,15 @@ def tree_unflatten(leaves: list, spec: Any) -> Any:
     # no closure: a recursive inner function would form a cycle that keeps
     # the leaves alive until the next garbage collection
     return _build(spec, iter(leaves))
+
+
+def _carry_mirrors(before: Any, after: Any, rows: Tuple[int, ...]) -> None:
+    """Set the host mirrors of the buffers in ``after`` (a step's result)
+    from those in ``before`` (its input) and the step's row count per buffer:
+    what its captured appends did to ``count`` and ``overflowed``."""
+    for a, b, n in zip(buffers_in(before), buffers_in(after), rows):
+        b._n = a._n + n
+        b._over = a._over or b._n > b.capacity
 
 
 def _next_pow2(n: int) -> int:
@@ -483,7 +509,8 @@ class CapturedStep:
 
     ``launch_delta`` is each kernel's count recorded by the capture; it is
     taken back after the capture (which launches nothing) and added at every
-    replay.
+    replay. ``buffer_rows`` is the row count an update step appends to each
+    buffer of the state, which the dispatch adds to the buffers' host mirrors.
     """
 
     def __init__(self, fn: Callable, writes_state: bool, pool: Any = None) -> None:
@@ -498,6 +525,7 @@ class CapturedStep:
         # (dtype, shape, offset, count), handed out by one unbind each
         self._out_layout: List[Tuple[torch.dtype, torch.Size, int, int]] = []
         self.launch_delta: Dict[str, int] = {}
+        self.buffer_rows: Tuple[int, ...] = ()
         self._state_spec = self._args_spec = self._out_spec = None
         self._consts: List[Any] = []
 
@@ -513,7 +541,7 @@ class CapturedStep:
         if device.type != "cuda":
             with _probe():
                 out = self.fn(state, args, kwargs)
-            out_leaves = self._check_out(state_leaves, out)
+            out_leaves = self._check_out(state, state_leaves, out)
             self._make_statics(state_leaves, arg_leaves, out_leaves)
             return out
 
@@ -526,7 +554,7 @@ class CapturedStep:
                 # a kernel wrapper makes on first use exist before the capture
                 with _probe():
                     out = self.fn(state, args, kwargs)
-                out_leaves = self._check_out(state_leaves, out)
+                out_leaves = self._check_out(state, state_leaves, out)
             with torch.cuda.stream(current):
                 self._make_statics(state_leaves, arg_leaves, out_leaves)
             side.wait_stream(current)
@@ -537,7 +565,7 @@ class CapturedStep:
             current.wait_stream(side)
         return out
 
-    def _check_out(self, state_leaves: list, out: Any) -> list:
+    def _check_out(self, state: Any, state_leaves: list, out: Any) -> list:
         out_leaves, self._out_spec = tree_flatten(out)
         for x in out_leaves:
             if not isinstance(x, Tensor):
@@ -546,6 +574,8 @@ class CapturedStep:
             (x.shape, x.dtype) for x in state_leaves
         ]:
             raise Uncapturable("the step changes the state's shapes or dtypes")
+        if self.writes_state:
+            self.buffer_rows = tuple(b._n - a._n for a, b in zip(buffers_in(state), buffers_in(out)))
         return out_leaves
 
     def _make_statics(self, state_leaves: list, arg_leaves: list, out_leaves: list) -> None:
@@ -571,10 +601,15 @@ class CapturedStep:
 
     def _body(self) -> None:
         state, args, kwargs = self._static_inputs()
-        out = tree_leaves(self.fn(state, args, kwargs))
         if self.writes_state:
-            torch._foreach_copy_(self.state_static, out)
+            with writes_in_place():
+                out = tree_leaves(self.fn(state, args, kwargs))
+            # a buffer appended to in place is its own result
+            pairs = [(dst, src) for dst, src in zip(self.state_static, out) if dst is not src]
+            if pairs:
+                torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
             return
+        out = tree_leaves(self.fn(state, args, kwargs))
         i = 0
         for dtype, shape, offset, count in self._out_layout:
             run, i = out[i:i + count], i + count
@@ -781,6 +816,16 @@ class _EngineBase:
                 ):
                     donate_ok = False
                     break
+        if donate_ok and self._result_is_state:
+            # a buffer object held elsewhere (a get_state() snapshot) holds
+            # its tensors too: the metric's attribute, the state tree, this
+            # list, the loop variable and getrefcount's argument are all
+            buffers = buffers_in(state)
+            for buf in buffers:
+                if sys.getrefcount(buf) > _DONATION_MAX_REFS:
+                    donate_ok = False
+                    break
+            del buffers
         try:
             if count == _WARMUP_CALLS or step is None:
                 t0 = time.perf_counter()
@@ -819,6 +864,8 @@ class _EngineBase:
         if donate_ok:
             self.stats.donated_calls += 1
         if self._result_is_state:
+            if step.buffer_rows:
+                _carry_mirrors(state, result, step.buffer_rows)
             # the next call's state is this result: its signature is known
             out_leaves, out_spec = tree_flatten(result)
             out_sig = self._out_sigs.get(key)
@@ -1088,6 +1135,9 @@ class CollectionUpdateEngine(_EngineBase):
             leader._update_count += 1
             leader._computed = None
             leader._shared_state_ids = frozenset()
+            # the fused step bypasses the facade's update wrapper
+            if leader._buffer_states:
+                leader._surface_buffer_overflows()
         return True
 
 

@@ -39,7 +39,7 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch.core.buffers import CatBuffer
+from metrics_tpu_torch.core.buffers import CatBuffer, in_place_writes
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
@@ -81,9 +81,11 @@ def _copy_state_value(value: StateValue) -> StateValue:
 
 
 def _tensors_in(value: Any):
-    """Every tensor in ``value``, walking lists, tuples and dicts."""
+    """Every tensor in ``value``, walking lists, tuples, dicts and buffers."""
     if isinstance(value, Tensor):
         yield value
+    elif isinstance(value, CatBuffer):
+        yield from (t for t in (value.data, value.count, value.overflowed) if t is not None)
     elif isinstance(value, (list, tuple)):
         for item in value:
             yield from _tensors_in(item)
@@ -194,6 +196,8 @@ class Metric:
         self._shared_state_ids: frozenset = frozenset()  # tensors shared across a collection group
         self._states_detached = False  # a fused collection streak removed the state attributes
         self._default_refs: Tuple = ()  # the default copies reset() handed out (weakly)
+        self._buffer_states: Tuple[str, ...] = ()  # the CatBuffer states, whose overflow is surfaced
+        self._overflow_reported: set = set()
         self._device = resolve_device(device)
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
@@ -245,6 +249,8 @@ class Metric:
             default = CatBuffer.empty(self.buffer_capacity)
         if isinstance(default, (Tensor, CatBuffer)):
             default = default.to(self._device)
+        if isinstance(default, CatBuffer) and name not in self._buffer_states:
+            self._buffer_states = self._buffer_states + (name,)
         self._defaults[name] = _copy_state_value(default)
         self._persistent[name] = persistent
         self._reductions[name] = dist_reduce_fx
@@ -331,10 +337,15 @@ class Metric:
     def update_state(self, state: StateDict, *args: Any, **kwargs: Any) -> StateDict:
         """Pure: return ``state`` advanced by one batch. The stateful
         ``update`` and this function share one implementation. Buffers are
-        copied first, since appends write into them in place."""
+        copied first, since appends write into them in place; in the body of
+        a captured step they are the step's own static buffers and are
+        appended to as they are (``buffers.writes_in_place``)."""
         prev = self.get_state()
+        in_place = in_place_writes()
         try:
-            self.set_state({k: v.copy() if isinstance(v, CatBuffer) else v for k, v in state.items()})
+            self.set_state({
+                k: (v._alias() if in_place else v.copy()) if isinstance(v, CatBuffer) else v for k, v in state.items()
+            })
             self._check_input_devices(args, kwargs)
             self._update(*args, **kwargs)
             return self.get_state()
@@ -503,6 +514,8 @@ class Metric:
             engine = self._maybe_engine()
             if engine is None or not engine.dispatch(args, kwargs):
                 update(*args, **kwargs)
+            if self._buffer_states:
+                self._surface_buffer_overflows()
             if self.compute_on_cpu:
                 self._move_list_states_to_cpu()
 
@@ -538,6 +551,25 @@ class Metric:
 
         self._compute = compute  # unwrapped, used by the pure protocol
         return wrapped_func
+
+    def _surface_buffer_overflows(self) -> None:
+        """Warn once per buffer state, at the update whose captured append
+        went past its capacity. Reads the host mirror of the sticky flag, so
+        it costs no read from the device."""
+        for name in self._buffer_states:
+            if name in self._overflow_reported:
+                continue
+            buf = self.__dict__.get(name)
+            if not isinstance(buf, CatBuffer) or not buf.overflow_seen:
+                continue
+            self._overflow_reported.add(name)
+            rank_zero_warn(
+                f"CatBuffer state `{type(self).__name__}.{name}` overflowed its capacity of "
+                f"{buf.capacity} inside a compiled program: the overflowing appends overwrote the "
+                "buffer tail and compute() will raise. Raise `buffer_capacity` to at least the "
+                "per-device sample count.",
+                UserWarning,
+            )
 
     def _move_list_states_to_cpu(self) -> None:
         """Host offload of the list and buffer states (``compute_on_cpu``)."""
@@ -635,6 +667,7 @@ class Metric:
         self._cache = None
         self._is_synced = False
         self._states_detached = False
+        self._overflow_reported.clear()  # re-arm the one-shot overflow warning
         for attr, default in self._defaults.items():
             setattr(self, attr, _copy_state_value(default))
         self._mark_default_copies()

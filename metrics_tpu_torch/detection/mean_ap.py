@@ -12,6 +12,9 @@ What differs from the JAX package, and why:
 - ``update`` pads on the device. The per-image counts come from the inputs'
   shapes, which the host knows; the scatter index is built on the host and
   sent in one copy from pinned memory, so ``update`` never waits for the card.
+  The dense append is what the compiled update engine captures, as the JAX
+  package compiles it: from the second batch of a shape it is one graph
+  replay into the buffers (``_engine_accepts``).
 - ``compute`` fetches the merged matches ``(A, T, D)`` per image, not their
   class broadcast ``(K, A, T, D)``; ``_calculate`` selects a class's
   detections from them, which gives the same ``(T, n)`` slices bit for bit.
@@ -158,6 +161,11 @@ class MeanAveragePrecision(Metric):
             raise NotImplementedError(
                 "MeanAveragePrecision(device_state=False), the host-list path, is not ported to metrics_tpu_torch yet"
             )
+        # the JAX package's defaults for device state: compute() slices the
+        # buffers to per-image counts on the host, and ragged image batches
+        # reuse log2(N) captured update steps
+        kwargs.setdefault("compiled_compute", False)
+        kwargs.setdefault("batch_buckets", True)
         super().__init__(**kwargs)
 
         allowed_box_formats = ("xyxy", "xywh", "cxcywh")
@@ -201,18 +209,24 @@ class MeanAveragePrecision(Metric):
     # update
     # ------------------------------------------------------------------ #
     def _engine_accepts(self, args: Tuple, kwargs: Dict) -> bool:
-        """The compiled update's per-call gate: it declines every call. The
-        ``CatBuffer`` fill counts are python ints, which a captured graph
-        cannot carry, so the update stays eager; the JAX package compiles its
-        dense dict updates (``metrics_tpu/detection/mean_ap.py:292-298``)."""
-        return False
+        """The compiled update's per-call gate, the JAX package's: only the
+        dense padded dict form (two dicts with ``boxes`` and ``count``, no
+        keywords) is captured. COCO list-of-dicts inputs are declined without
+        tripping the engine's permanent fallback; :meth:`update` pads them
+        eagerly and hands the dense form back to the engine."""
+        if kwargs or len(args) != 2:
+            return False
+        return all(isinstance(a, dict) and "boxes" in a and "count" in a for a in args)
 
     def update(self, preds: List[Dict[str, Tensor]], target: List[Dict[str, Tensor]]) -> None:  # type: ignore[override]
         if isinstance(preds, dict) and isinstance(target, dict):
             self._append_dense(preds, target)  # the dense padded form pad_inputs produces
             return
         _input_validator(preds, target, iou_type=self.iou_type)
-        self._append_dense(*self.pad_inputs(preds, target))
+        dense_preds, dense_target = self.pad_inputs(preds, target)
+        engine = self._maybe_engine()
+        if engine is None or not engine.dispatch((dense_preds, dense_target), {}):
+            self._append_dense(dense_preds, dense_target)
 
     def _tensor(self, value: Any, dtype: torch.dtype, shape: Tuple[int, ...]) -> Tensor:
         return torch.as_tensor(value, device=self.device).reshape(shape).to(dtype)

@@ -48,7 +48,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from metrics_tpu_torch.classification import Accuracy, BinnedAveragePrecision, F1Score, Precision, Recall
-from metrics_tpu_torch.classification.binned_precision_recall import linspace_thresholds
+from metrics_tpu_torch.utils.data import linspace_thresholds
 from metrics_tpu_torch.core.collections import MetricCollection
 from metrics_tpu_torch.core.metric import resolve_device
 from metrics_tpu_torch.parallel.mesh import make_mesh

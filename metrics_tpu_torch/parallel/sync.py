@@ -271,38 +271,48 @@ def _sync_bucketed(entries: List[Tuple[str, Tensor, Reduction]], group: dist.Pro
 
 
 def _sync_bucketed_catbuffers(entries: List[Tuple[str, CatBuffer]], group: dist.ProcessGroup) -> Dict[str, CatBuffer]:
-    """``CatBuffer`` states: the fill counts and overflow flags of every
-    buffer in one ``all_gather``, then the payloads in one per dtype, each
-    buffer padded to the largest rank's count (ranks may hold different
-    capacities, since eager buffers grow geometrically). Each buffer comes
-    back compacted, its rows in rank-major order, its overflow flag or-ed
-    across ranks."""
+    """``CatBuffer`` states: the valid row counts, true counts and overflow
+    flags of every buffer in one ``all_gather`` (from the device tensors, so
+    a buffer that a captured step filled needs no read before it), then the
+    payloads in one per dtype, each buffer padded to the largest rank's valid
+    rows (ranks may hold different capacities, since eager buffers grow
+    geometrically). Each buffer comes back compacted, its rows in rank-major
+    order, its count the true total, its overflow flag or-ed across ranks and
+    set where a rank's count passed its capacity."""
     n = len(entries)
     device = entries[0][1].data.device
-    meta = torch.tensor([b.count for _, b in entries] + [int(b.overflowed) for _, b in entries], dtype=torch.int32, device=device)
-    gmeta = torch.stack(_all_gather(meta, group)).cpu()  # (world, 2n)
+    meta = torch.cat(
+        [b.count.clamp(max=b.capacity).reshape(1) for _, b in entries]
+        + [b.count.reshape(1) for _, b in entries]
+        + [b.overflowed.to(torch.int32).reshape(1) for _, b in entries]
+    ).to(device=device, dtype=torch.int32)
+    gmeta = torch.stack(_all_gather(meta, group)).cpu()  # (world, 3n): the one read of the counts
     world = gmeta.shape[0]
-    max_counts = gmeta[:, :n].amax(dim=0).tolist()
+    rank = dist.get_rank(group)
+    valid_rows, counts, flags = gmeta[:, :n], gmeta[:, n : 2 * n], gmeta[:, 2 * n :]
+    max_rows = valid_rows.amax(dim=0).tolist()
+    totals = counts.sum(dim=0).tolist()
+    overflowed = ((flags != 0) | (counts > valid_rows)).any(dim=0).tolist()
     out: Dict[str, CatBuffer] = {}
     buckets: Dict[torch.dtype, List[Tuple[int, str, CatBuffer]]] = {}
     for i, (name, buf) in enumerate(entries):
         buckets.setdefault(buf.data.dtype, []).append((i, name, buf))
     for items in buckets.values():
-        if not any(max_counts[i] for i, _, _ in items):
+        if not any(max_rows[i] for i, _, _ in items):  # no rank holds a row: nor a count, nor a flag
             out.update((name, buf.copy()) for _, name, buf in items)
             continue
-        flat = torch.cat([_pad_rows(buf.data[: buf.count], max_counts[i]).reshape(-1) for i, _, buf in items])
+        flat = torch.cat([
+            _pad_rows(buf.data[: int(valid_rows[rank, i])], max_rows[i]).reshape(-1) for i, _, buf in items
+        ])
         gathered = _all_gather(flat, group)
         offset = 0
         for i, name, buf in items:
-            m, item = max_counts[i], buf.data.shape[1:]
+            m, item = max_rows[i], buf.data.shape[1:]
             size = m * int(item.numel())
             data = torch.stack([g[offset : offset + size].view(m, *item) for g in gathered]).reshape(world * m, *item)
             offset += size
-            counts = gmeta[:, i]
-            valid = (torch.arange(m)[None, :] < counts[:, None]).reshape(-1).to(device)
-            overflowed = bool(gmeta[:, n + i].any())
-            out[name] = CatBuffer._compact(data, valid, int(counts.sum()), overflowed)
+            valid = (torch.arange(m)[None, :] < valid_rows[:, i][:, None]).reshape(-1).to(device)
+            out[name] = CatBuffer._compact(data, valid, totals[i], overflowed[i])
     return out
 
 

@@ -17,9 +17,12 @@ METRIC_EPS = 1e-6
 # dim-zero reductions (the `dist_reduce_fx` vocabulary)
 # --------------------------------------------------------------------------- #
 def dim_zero_cat(x: Union[Tensor, Sequence[Tensor]]) -> Tensor:
-    """Concatenate a (list of) tensor(s) along dim 0; scalars become 1-d."""
+    """Concatenate a (list of) tensor(s) along dim 0; scalars become 1-d. A
+    :class:`~metrics_tpu_torch.core.buffers.CatBuffer` gives its valid rows."""
     if isinstance(x, Tensor):
         return x
+    if hasattr(x, "to_array"):  # a CatBuffer (core.buffers imports this module)
+        return x.to_array()
     x = [torch.atleast_1d(el) for el in x]
     if not x:
         raise ValueError("No samples to concatenate")
@@ -44,6 +47,51 @@ def dim_zero_max(x: Tensor) -> Tensor:
 
 def dim_zero_min(x: Tensor) -> Tensor:
     return x.amin(dim=0)
+
+
+def append_cat(state: Any, value: Tensor) -> Any:
+    """A ``cat`` state with ``value`` appended: a new list for a list state;
+    a buffer state is appended to in place (``Metric.update_state`` hands
+    the update its own copy), which spares ``buf + [value]``'s clone."""
+    if isinstance(state, list):
+        return state + [value]
+    state.append(value)
+    return state
+
+
+def bincount(x: Tensor, minlength: Optional[int] = None, weights: Optional[Tensor] = None) -> Tensor:
+    """``jnp.bincount(x, weights, length=minlength)``: a static length, where
+    a negative value counts in bin 0 and a value >= ``minlength`` is dropped
+    (``torch.bincount`` raises on the first and grows on the second).
+
+    Counts are int32 (exact integer scatter-adds); weighted sums are masked
+    row sums, so the card gives the same bits on every run (float atomics
+    would not). ``minlength=None`` reads the maximum back: eager only.
+    """
+    x = x.reshape(-1)
+    if minlength is None:
+        minlength = int(x.max()) + 1 if x.numel() else 0
+    index = x.clamp(min=0).to(torch.int64)
+    if weights is not None:
+        bins = torch.arange(minlength, device=x.device)
+        return torch.where(index[None, :] == bins[:, None], weights.reshape(-1)[None, :], 0).sum(dim=1)
+    index = torch.where(index < minlength, index, minlength)  # the extra bin takes what is dropped
+    ones = torch.ones_like(index, dtype=torch.int32)
+    return torch.zeros(minlength + 1, dtype=torch.int32, device=x.device).index_add_(0, index, ones)[:minlength]
+
+
+def linspace_thresholds(num: int) -> Tensor:
+    """``jnp.linspace(0, 1.0, num)``, bit for bit.
+
+    ``torch.linspace`` rounds differently (1 of 100 values, 20 of 101, 125 of
+    1000 differ by an ulp) and a one-ulp shift moves scores between buckets.
+    ``jnp.linspace`` computes ``i * float32(1 / (num - 1))`` and sets the last
+    value to exactly 1.0.
+    """
+    if num <= 1:
+        return torch.zeros(num, dtype=torch.float32)
+    step = torch.tensor(1.0 / (num - 1), dtype=torch.float32)
+    return torch.cat([torch.arange(num - 1, dtype=torch.float32) * step, torch.ones(1, dtype=torch.float32)])
 
 
 def _flatten(x: Sequence) -> List:

@@ -353,3 +353,15 @@ def mesh_layout(sizes: Sequence[int]) -> Dict[str, Any]:
 def dryrun(n_devices: int) -> Dict[str, Any]:
     """``dryrun_multichip`` in this world; its outputs as numpy."""
     return to_numpy(dryrun_multichip(n_devices, device="cpu"))
+
+
+def twin_synced_compute(name: str, buffered: bool, calls: Sequence[tuple], kwargs: Optional[dict] = None) -> Any:
+    """The ``INVENTORY`` twin (``tests/helpers/torch_twins.py``, with
+    ``kwargs`` added) fed this rank's ``(args, kwargs)`` calls at the engine
+    defaults; its synced compute."""
+    from tests.helpers.torch_twins import make_twin
+
+    metric = make_twin(name, buffered, **(kwargs or {}))
+    for args, kwargs in calls:
+        metric.update(*to_torch(args), **to_torch(kwargs))
+    return to_numpy(metric.compute())

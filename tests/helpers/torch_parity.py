@@ -1,0 +1,252 @@
+"""The factory parity harness: one ``INVENTORY`` entry, two twins.
+
+For each entry of ``tests/helpers/inventory.py`` that has a port twin
+(``tests/helpers/torch_twins.py``), the harness builds the JAX package's
+metric from the entry and the port's from the twin table with the same
+constructor arguments, turns the entry's ``batch()`` into numpy and then into
+CPU tensors, and compares:
+
+- the public hyperparameters both objects carry (:func:`hyperparameters`);
+- (a) eager ``update`` then ``compute``: the states bit for bit (integer
+  states, float states that are copies of the inputs, ``CatBuffer`` rows,
+  counts and flags), the results bit for bit where ``BITWISE_RESULTS`` says
+  the JAX package's are exact and within ``RTOL``/``ATOL`` elsewhere;
+- (b) the same with the engines at their defaults, one update then one
+  compute per round: each kind's path and revert reason equal the JAX
+  engine's ``engine_stats()["partition"]`` (:func:`same_partition`), the
+  counters equal too, the results equal the eager run's bit for bit;
+- (c) the ``buffered`` factory under (a) and (b), its update captured where
+  the entry's ``buffered_level`` says the JAX update compiles.
+
+The synced case (d) runs in the gloo world of ``tests/helpers/torch_dist.py``
+(``tests/test_torch_parity.py``). :data:`UNTWINNED` lists the entries that
+have no twin yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+import metrics_tpu as M
+from metrics_tpu.core.buffers import CatBuffer as JaxCatBuffer
+from metrics_tpu_torch.core.buffers import CatBuffer
+from tests.helpers.inventory import INVENTORY
+from tests.helpers.torch_dist import to_torch
+from tests.helpers.torch_port import assert_bitwise, assert_close
+from tests.helpers.torch_twins import C, TWINS, make_twin
+
+# the stated bound for scalar results that are float sums (means, trapezoids,
+# weighted bin sums), summed in XLA's order by the JAX package
+RTOL = 1e-6
+ATOL = 1e-6
+
+# results that are exact in both packages: integer counts and their ratios,
+# binned curve points, and exact curve points (integer cumulative sums, one
+# IEEE division each); an average precision is a sum of products
+BITWISE_RESULTS = frozenset({
+    "StatScores", "Accuracy", "Precision", "Recall", "F1Score", "FBetaScore",
+    "BinnedPrecisionRecallCurve", "BinnedRecallAtFixedPrecision",
+    "MeanAveragePrecision", "CompositionalMetric", "ROC", "PrecisionRecallCurve",
+})
+
+# states compared bit for bit; BERTScore's are host token arrays that the
+# two packages pack differently (compared through its results)
+COMPARE_STATES = frozenset(TWINS) - {"BERTScore"}
+
+# where the INVENTORY maker builds what the port has not ported, the
+# reference side builds what the twin builds (torch_twins.py says why)
+REFERENCE_MAKERS = {
+    "MeanAveragePrecision": lambda: M.MeanAveragePrecision(device_state=True),
+    "CompositionalMetric": lambda: M.Accuracy(num_classes=C) + M.F1Score(num_classes=C),
+}
+_PROBS_LABELS = INVENTORY["Accuracy"].batch
+REFERENCE_BATCHES = {"CompositionalMetric": _PROBS_LABELS}
+
+UNTWINNED = frozenset(INVENTORY) - frozenset(TWINS)
+
+# a runtime revert names the exception, which differs between the packages
+# (a jit trace error there, Uncapturable here): the reasons compare by kind
+_RUNTIME = "runtime fallback"
+# the JAX package names the heavy kernels a class declares (analysis
+# metadata the port has not ported, ROADMAP A21)
+_HEAVY = "; heavy kernels declared:"
+
+
+def has_buffered(name: str) -> bool:
+    return INVENTORY[name].buffered is not None and TWINS[name].buffered is not None
+
+
+def reference(name: str, buffered: bool = False) -> Any:
+    entry = INVENTORY[name]
+    if buffered:
+        return entry.buffered()
+    return REFERENCE_MAKERS.get(name, entry.make)()
+
+
+def _numpy(tree: Any) -> Any:
+    if isinstance(tree, (jnp.ndarray, np.ndarray)):
+        return np.array(tree)
+    if isinstance(tree, dict):
+        return {k: _numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_numpy(v) for v in tree)
+    return tree
+
+
+def batches(name: str) -> List[Tuple[tuple, dict]]:
+    """The entry's update calls, as numpy: ``[(args, kwargs), ...]``."""
+    out = REFERENCE_BATCHES.get(name, INVENTORY[name].batch)()
+    calls = out if isinstance(out, list) else [out]
+    return [(_numpy(tuple(args)), _numpy(dict(kwargs))) for args, kwargs in calls]
+
+
+def _jax(tree: Any) -> Any:
+    if isinstance(tree, np.ndarray):
+        return jnp.asarray(tree)
+    if isinstance(tree, dict):
+        return {k: _jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_jax(v) for v in tree)
+    return tree
+
+
+def update_both(ref: Any, twin: Any, calls: List[Tuple[tuple, dict]]) -> None:
+    for args, kwargs in calls:
+        ref.update(*_jax(args), **_jax(kwargs))
+        twin.update(*to_torch(args), **to_torch(kwargs))
+
+
+# --------------------------------------------------------------------------- #
+# hyperparameters
+# --------------------------------------------------------------------------- #
+_SCALARS = (bool, int, float, str, type(None))
+
+
+def hyperparameters(metric: Any) -> Dict[str, Any]:
+    """The public, non-state scalar and str attributes (enums by value)."""
+    out = {}
+    for key, value in vars(metric).items():
+        if key.startswith("_") or key in metric._defaults or not isinstance(value, _SCALARS):
+            continue
+        out[key] = value.value if hasattr(value, "value") else value
+    return out
+
+
+def same_hyperparameters(ref: Any, twin: Any) -> List[str]:
+    """The shared hyperparameters, asserted equal; returns their names."""
+    a, b = hyperparameters(ref), hyperparameters(twin)
+    shared = sorted(set(a) & set(b))
+    assert shared, "the twins share no hyperparameter"
+    assert {k: a[k] for k in shared} == {k: b[k] for k in shared}
+    return shared
+
+
+# --------------------------------------------------------------------------- #
+# states and results
+# --------------------------------------------------------------------------- #
+def assert_same_states(ref: Any, twin: Any, msg: str = "") -> None:
+    """Every registered state of the twin against the reference's, bit for bit."""
+    assert set(twin._defaults) == set(ref._defaults), msg
+    for key in ref._defaults:
+        want, got = getattr(ref, key), getattr(twin, key)
+        where = f"{msg}: state {key!r}"
+        if isinstance(want, JaxCatBuffer):
+            assert isinstance(got, CatBuffer), where
+            assert got.capacity == want.capacity, where
+            assert_bitwise(got.count, np.asarray(want.count), where + " count")
+            assert_bitwise(got.overflowed, np.asarray(want.overflowed), where + " overflowed")
+            assert len(got) == int(want.count) and got.overflow_seen == bool(want.overflowed), where + " mirrors"
+            if want.materialized:
+                assert_bitwise(got.data[: min(len(got), got.capacity)],
+                               np.asarray(want.data)[: min(int(want.count), want.capacity)], where + " rows")
+        elif isinstance(want, list):
+            assert isinstance(got, list) and len(got) == len(want), where
+            for g, w in zip(got, want):
+                assert_bitwise(g, np.asarray(w), where)
+        else:
+            assert_bitwise(got, np.asarray(want), where)
+
+
+def leaves(result: Any) -> List[np.ndarray]:
+    """A result tree's arrays in order (dicts by sorted key)."""
+    if isinstance(result, dict):
+        return [x for k in sorted(result) for x in leaves(result[k])]
+    if isinstance(result, (list, tuple)):
+        return [x for v in result for x in leaves(v)]
+    if isinstance(result, torch.Tensor):
+        return [result.detach().cpu().numpy()]
+    return [np.asarray(result)]
+
+
+def assert_same_result(name: str, got: Any, want: Any, bitwise: bool = None, msg: str = "") -> None:
+    bitwise = name in BITWISE_RESULTS if bitwise is None else bitwise
+    g, w = leaves(got), leaves(want)
+    assert len(g) == len(w), f"{msg}: {len(g)} result arrays against {len(w)}"
+    for i, (a, b) in enumerate(zip(g, w)):
+        if bitwise:
+            assert_bitwise(a, b, f"{msg}: result {i}")
+        else:
+            assert_close(a.astype(np.float64), b.astype(np.float64), rtol=RTOL, atol=ATOL, msg=f"{msg}: result {i}")
+
+
+# --------------------------------------------------------------------------- #
+# engine partitions
+# --------------------------------------------------------------------------- #
+def _reason(reason: str) -> str:
+    if reason.startswith(_RUNTIME):
+        return _RUNTIME
+    return reason.split(_HEAVY)[0]
+
+
+def partition(metric: Any) -> Dict[str, Tuple[str, str]]:
+    view = metric.engine_stats()["partition"]
+    return {kind: (view[kind]["path"], _reason(view[kind]["reason"])) for kind in ("update", "compute")}
+
+
+def same_partition(ref: Any, twin: Any, msg: str = "") -> Dict[str, Tuple[str, str]]:
+    """Each kind's path and reason equal the JAX engine's; returns them."""
+    want, got = partition(ref), partition(twin)
+    assert got == want, f"{msg}: partition {got} != the JAX engine's {want}"
+    return got
+
+
+COUNTERS = ("eager_calls", "cache_misses", "cache_hits", "donated_calls")
+
+
+def counters(metric: Any) -> Dict[str, Dict[str, int]]:
+    stats = metric.engine_stats()
+    return {kind: {k: getattr(stats[kind], k) for k in COUNTERS} for kind in ("update", "compute")
+            if stats[kind] is not None}
+
+
+# --------------------------------------------------------------------------- #
+# the runs
+# --------------------------------------------------------------------------- #
+def _engines_off(metric: Any) -> None:
+    """The JAX metric (and a composition's operands) with both engines off."""
+    for m in [metric] + [getattr(metric, k) for k in ("metric_a", "metric_b") if isinstance(getattr(metric, k, None), M.Metric)]:
+        m._compiled_update = m._compiled_compute = False
+
+
+def run_eager(name: str, buffered: bool = False) -> Tuple[Any, Any, Any, Any]:
+    """(a): both twins with the engines off, then compute."""
+    ref = reference(name, buffered)
+    _engines_off(ref)
+    twin = make_twin(name, buffered, compiled_update=False, compiled_compute=False)
+    update_both(ref, twin, batches(name))
+    return ref, twin, ref.compute(), twin.compute()
+
+
+def run_engines(name: str, buffered: bool = False, rounds: int = 4) -> Dict[str, Any]:
+    """(b): the engines at their defaults; each round is one update of the
+    entry's calls, then one compute."""
+    ref, twin = reference(name, buffered), make_twin(name, buffered)
+    calls = batches(name)
+    results = []
+    for _ in range(rounds):
+        update_both(ref, twin, calls)
+        results.append((ref.compute(), twin.compute()))
+    return {"ref": ref, "twin": twin, "results": results}

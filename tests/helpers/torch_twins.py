@@ -1,0 +1,115 @@
+"""The port twin of each ``INVENTORY`` entry that has one, built with the
+entry's own constructor arguments (``tests/helpers/inventory.py``).
+
+This module imports torch, numpy and ``metrics_tpu_torch`` only (never JAX):
+the gloo ranks of ``tests/helpers/torch_dist.py`` import it to build the same
+twins. ``tests/helpers/torch_parity.py`` holds the harness that runs them
+against the JAX package.
+
+``TWINS[name].make(**kw)`` builds the twin of ``INVENTORY[name].make()`` and
+``TWINS[name].buffered(**kw)`` that of ``INVENTORY[name].buffered()``; ``kw``
+adds the port's own keywords (the engine switches), and ``device="cpu"`` is
+always passed. Three entries build, on the reference side too, something
+other than their ``INVENTORY`` maker, since the port has not ported what it
+uses (``REFERENCE_ARGS`` in the harness says what).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+import metrics_tpu_torch as mt
+
+C = 4  # the INVENTORY's class count
+
+
+class Twin(NamedTuple):
+    make: Callable[..., Any]
+    buffered: Optional[Callable[..., Any]] = None
+
+
+class WhitespaceTokenizer:
+    """The port side of the INVENTORY's BERTScore tokenizer: ids by first
+    appearance within one call, 8 wide, numpy out."""
+
+    def __call__(self, sentences, max_length=64, **kwargs):
+        vocab: Dict[str, int] = {}
+        ids = np.zeros((len(sentences), 8), dtype=np.int32)
+        mask = np.zeros((len(sentences), 8), dtype=np.int32)
+        for i, s in enumerate(sentences):
+            for j, tok in enumerate(s.split()[:8]):
+                ids[i, j] = vocab.setdefault(tok, len(vocab) + 1)
+                mask[i, j] = 1
+        return {"input_ids": ids, "attention_mask": mask}
+
+
+def sine_forward(model: Any, batch: Dict[str, Any]) -> torch.Tensor:
+    """The INVENTORY's BERTScore forward: token id i embeds as
+    ``sin(arange(8) * (1 + i))``."""
+    ids = torch.as_tensor(np.asarray(batch["input_ids"].cpu() if isinstance(batch["input_ids"], torch.Tensor)
+                                     else batch["input_ids"]))
+    rows = [torch.sin(torch.arange(8, dtype=torch.float32) * (1.0 + float(i))) for i in ids.reshape(-1).tolist()]
+    return torch.stack(rows).reshape(*ids.shape, 8)
+
+
+def _cpu(factory: Callable[..., Any]) -> Callable[..., Any]:
+    return lambda **kw: factory(device="cpu", **kw)
+
+
+TWINS: Dict[str, Twin] = {
+    "Accuracy": Twin(_cpu(lambda **kw: mt.Accuracy(num_classes=C, **kw))),
+    "AUC": Twin(
+        _cpu(lambda **kw: mt.AUC(reorder=True, **kw)),
+        _cpu(lambda **kw: mt.AUC(reorder=True, buffer_capacity=256, **kw)),
+    ),
+    "AUROC": Twin(
+        _cpu(lambda **kw: mt.AUROC(num_classes=C, **kw)),
+        _cpu(lambda **kw: mt.AUROC(num_classes=C, buffer_capacity=256, **kw)),
+    ),
+    "AveragePrecision": Twin(
+        _cpu(lambda **kw: mt.AveragePrecision(num_classes=C, **kw)),
+        _cpu(lambda **kw: mt.AveragePrecision(num_classes=C, buffer_capacity=256, **kw)),
+    ),
+    "BinnedAveragePrecision": Twin(_cpu(lambda **kw: mt.BinnedAveragePrecision(num_classes=C, thresholds=21, **kw))),
+    "BinnedPrecisionRecallCurve": Twin(
+        _cpu(lambda **kw: mt.BinnedPrecisionRecallCurve(num_classes=C, thresholds=21, **kw))
+    ),
+    "BinnedRecallAtFixedPrecision": Twin(
+        _cpu(lambda **kw: mt.BinnedRecallAtFixedPrecision(num_classes=C, min_precision=0.5, thresholds=21, **kw))
+    ),
+    "CalibrationError": Twin(
+        _cpu(lambda **kw: mt.CalibrationError(n_bins=10, **kw)),
+        _cpu(lambda **kw: mt.CalibrationError(n_bins=10, buffer_capacity=256, **kw)),
+    ),
+    "F1Score": Twin(_cpu(lambda **kw: mt.F1Score(num_classes=C, **kw))),
+    "FBetaScore": Twin(_cpu(lambda **kw: mt.FBetaScore(num_classes=C, beta=2.0, **kw))),
+    "Precision": Twin(_cpu(lambda **kw: mt.Precision(num_classes=C, **kw))),
+    "PrecisionRecallCurve": Twin(
+        _cpu(lambda **kw: mt.PrecisionRecallCurve(num_classes=C, **kw)),
+        _cpu(lambda **kw: mt.PrecisionRecallCurve(num_classes=C, buffer_capacity=256, **kw)),
+    ),
+    "ROC": Twin(
+        _cpu(lambda **kw: mt.ROC(num_classes=C, **kw)),
+        _cpu(lambda **kw: mt.ROC(num_classes=C, buffer_capacity=256, **kw)),
+    ),
+    "Recall": Twin(_cpu(lambda **kw: mt.Recall(num_classes=C, **kw))),
+    "StatScores": Twin(_cpu(lambda **kw: mt.StatScores(num_classes=C, **kw))),
+    # the INVENTORY entry is device_state=False, the host-list path, which the
+    # port has not ported: both sides run the device path
+    "MeanAveragePrecision": Twin(_cpu(lambda **kw: mt.MeanAveragePrecision(device_state=True, **kw))),
+    "BERTScore": Twin(_cpu(lambda **kw: mt.BERTScore(
+        model=object(), user_forward_fn=sine_forward, user_tokenizer=WhitespaceTokenizer(), **kw
+    ))),
+    # the INVENTORY composes MeanSquaredError and MeanAbsoluteError (regression,
+    # not ported yet): both sides compose two classification twins instead
+    "CompositionalMetric": Twin(
+        _cpu(lambda **kw: mt.Accuracy(num_classes=C, **kw) + mt.F1Score(num_classes=C, **kw))
+    ),
+}
+
+
+def make_twin(name: str, buffered: bool = False, **kwargs: Any) -> Any:
+    twin = TWINS[name]
+    return (twin.buffered if buffered else twin.make)(**kwargs)

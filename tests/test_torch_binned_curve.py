@@ -16,7 +16,7 @@ import metrics_tpu_torch as mt_torch
 from metrics_tpu.ops.classification.average_precision import (
     _average_precision_compute_with_precision_recall as jax_ap_from_curve,
 )
-from metrics_tpu_torch.classification.binned_precision_recall import linspace_thresholds
+from metrics_tpu_torch.utils.data import linspace_thresholds
 from metrics_tpu_torch.ops.classification.average_precision import (
     _average_precision_compute_with_precision_recall as torch_ap_from_curve,
 )

@@ -25,7 +25,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 import __graft_entry__
 import metrics_tpu as mt_jax
 import metrics_tpu_torch as mt_torch
-from metrics_tpu_torch.classification.binned_precision_recall import linspace_thresholds
+from metrics_tpu_torch.utils.data import linspace_thresholds
 from metrics_tpu_torch.entry import LR, N_THRESHOLDS, NUM_CLASSES, dryrun_inputs, dryrun_multichip, entry
 from tests.helpers import torch_dist as td
 from tests.helpers.torch_port import assert_bitwise, assert_close

@@ -249,6 +249,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch.ops.kernels.iou_matching, metrics_tpu_torch.ops.kernels.cosine_matching\n"
         "import metrics_tpu_torch.text, metrics_tpu_torch.ops.text.bert, metrics_tpu_torch.utils.imports\n"
         "import metrics_tpu_torch.parallel, metrics_tpu_torch.entry, metrics_tpu_torch.core.engine\n"
+        "import metrics_tpu_torch.ops.classification.auroc, metrics_tpu_torch.ops.classification.calibration_error\n"
+        "import metrics_tpu_torch.ops.classification.average_precision\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -290,6 +292,18 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.text.bert",
     "metrics_tpu_torch.parallel.mesh",
     "metrics_tpu_torch.entry",
+    "metrics_tpu_torch.ops.classification.precision_recall_curve",
+    "metrics_tpu_torch.ops.classification.roc",
+    "metrics_tpu_torch.ops.classification.auc",
+    "metrics_tpu_torch.ops.classification.auroc",
+    "metrics_tpu_torch.ops.classification.average_precision",
+    "metrics_tpu_torch.ops.classification.calibration_error",
+    "metrics_tpu_torch.classification.precision_recall_curve",
+    "metrics_tpu_torch.classification.roc",
+    "metrics_tpu_torch.classification.auc",
+    "metrics_tpu_torch.classification.auroc",
+    "metrics_tpu_torch.classification.avg_precision",
+    "metrics_tpu_torch.classification.calibration_error",
 ]
 
 
