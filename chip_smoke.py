@@ -116,6 +116,35 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    state under sync debug mode "error" with flat memory, buffers and results
    bitwise equal to phase 3b, B2 and the matcher once per 256-image chunk.
 
+8. The rest of classification and the aggregators, which run no kernel of
+   B1-B3 (their launch counts stay 0 through the phase). Each run goes eager,
+   then with the engines at their defaults, in one call: states and two
+   computes bitwise, each engine's eager calls, captures and replays those of
+   its signatures, the steady state under ``set_sync_debug_mode("error")``
+   with ``memory_allocated`` flat. (a) Phase 3's stream through one
+   MetricCollection of ConfusionMatrix, JaccardIndex, MatthewsCorrCoef and
+   CohenKappa (one compute group) with Specificity and Dice (macro): the
+   (1000, 1000) int32 matrix bitwise equal to numpy's ``add.at`` over the
+   host copy of the stream, the five scores within 1e-5 of float64, and one
+   synced compute in a world of one NCCL rank bitwise equal to the unsynced
+   one with one ``all_reduce`` per compute group. (b) HingeLoss
+   (Crammer-Singer) on the logits, KLDivergence of the softmax against a
+   seeded teacher's at temperature 2, MeanMetric of the per-batch mean
+   cross-entropy weighted by batch size, Sum/Max/Min/CatMetric
+   (``buffer_capacity=50_000``) of the per-sample cross-entropy: CatMetric's
+   rows, the max and the min bitwise equal to the losses, the rest within
+   1e-5 of float64. (c) Multilabel scores at MS-COCO 2014 val size (40,504
+   images, 80 labels, about 2.9 per image, sigmoid scores rounded through
+   float16) through HammingDistance, CoverageError,
+   LabelRankingAveragePrecision and LabelRankingLoss, within 1e-5 of a
+   float64 numpy oracle (sklearn's max-tie ranks; ties in the ranking loss
+   ordered by label index, as the stable sort orders them; sklearn's count
+   of tied pairs is printed beside it). (d) A MeanMetric and a buffered
+   CatMetric fed a NaN: eager warns once each and drops the row, compiled
+   masks it and keeps 0.0, as the JAX package does. Update steps and
+   computes timed eager and compiled by events and the profiler; the phase
+   stays under 120 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -1975,6 +2004,490 @@ def phase_seven(torch, mt, np, kernels_mod, coco, map_reference, map_results, sm
     return {"curves": curves, "overflow": overflow, "map": detection}
 
 
+# --------------------------------------------------------------------------- #
+# phase 8: the rest of classification and the aggregators
+# --------------------------------------------------------------------------- #
+FLOAT64_ATOL = 1e-5
+# MS-COCO 2014 val as a multilabel classification benchmark: 40,504 images,
+# 80 labels, about 2.9 labels per image
+COCO14_IMAGES, COCO14_LABELS, COCO14_POSITIVES = 40_504, 80, 2.9
+KD_TEMPERATURE = 2.0
+NAN_CAPACITY, NAN_BATCHES, NAN_WIDTH, NAN_AT = 64, 5, 4, 2
+PHASE8_LIMIT_S = 120.0
+
+
+def engine_flags(compiled: bool) -> dict:
+    return {} if compiled else {"compiled_update": False, "compiled_compute": False}
+
+
+def confmat_collection(mt, compiled: bool):
+    """8(a): ConfusionMatrix, JaccardIndex, MatthewsCorrCoef and CohenKappa
+    (one compute group: they share one confmat) with Specificity and Dice."""
+    flags = engine_flags(compiled)
+    return mt.MetricCollection(
+        {
+            "confmat": mt.ConfusionMatrix(num_classes=N_CLASSES, **flags),
+            "jaccard": mt.JaccardIndex(num_classes=N_CLASSES, **flags),
+            "mcc": mt.MatthewsCorrCoef(num_classes=N_CLASSES, **flags),
+            "kappa": mt.CohenKappa(num_classes=N_CLASSES, **flags),
+            "specificity": mt.Specificity(num_classes=N_CLASSES, average="macro", **flags),
+            "dice": mt.Dice(num_classes=N_CLASSES, average="macro", **flags),
+        },
+        **flags,
+    )
+
+
+def loss_metrics(mt, compiled: bool) -> dict:
+    """8(b): the loss side of an ImageNet eval loop with a teacher."""
+    flags = engine_flags(compiled)
+    return {
+        "hinge": mt.HingeLoss(multiclass_mode="crammer-singer", **flags),
+        "kl": mt.KLDivergence(**flags),
+        "mean_ce": mt.MeanMetric(**flags),
+        "sum_ce": mt.SumMetric(**flags),
+        "max_ce": mt.MaxMetric(**flags),
+        "min_ce": mt.MinMetric(**flags),
+        "cat_ce": mt.CatMetric(buffer_capacity=N_SAMPLES, **flags),
+    }
+
+
+def feed_losses(metrics: dict, batch) -> None:
+    logits, probs, target, teacher, ce = batch
+    metrics["hinge"].update(logits, target)
+    metrics["kl"].update(probs, teacher)
+    metrics["mean_ce"].update(ce.mean(), weight=float(ce.shape[0]))
+    for key in ("sum_ce", "max_ce", "min_ce", "cat_ce"):
+        metrics[key].update(ce)
+
+
+def ranking_collection(mt, compiled: bool):
+    """8(c): the multilabel metrics over COCO-2014-size scores."""
+    flags = engine_flags(compiled)
+    return mt.MetricCollection(
+        {
+            "hamming": mt.HammingDistance(**flags),
+            "coverage": mt.CoverageError(**flags),
+            "lrap": mt.LabelRankingAveragePrecision(**flags),
+            "lrl": mt.LabelRankingLoss(**flags),
+        },
+        **flags,
+    )
+
+
+def feed_pair(coll, batch) -> None:
+    coll.update(*batch)
+
+
+def members(metrics):
+    return metrics.items(keep_base=True) if hasattr(metrics, "compute_groups") else metrics.items()
+
+
+def set_states(metrics) -> dict:
+    """Every state tensor of a collection or a dict of metrics; a buffer as
+    its valid rows, count, flag and host mirrors."""
+    out = {}
+    for key, m in members(metrics):
+        for s, v in m.get_state().items():
+            if hasattr(v, "to_array"):
+                out[f"{key}.{s}.rows"] = v.data[: min(len(v), v.capacity)]
+                out[f"{key}.{s}.count"] = v.count
+                out[f"{key}.{s}.overflowed"] = v.overflowed
+                out[f"{key}.{s}.mirror"] = (len(v), v.overflow_seen)
+            else:
+                out[f"{key}.{s}"] = v
+    return out
+
+
+def compute_set(metrics) -> dict:
+    for _, m in members(metrics):
+        m._computed = None
+    if hasattr(metrics, "compute_groups"):
+        return dict(metrics.compute())
+    return {k: m.compute() for k, m in metrics.items()}
+
+
+def same_results(torch, label: str, got: dict, want: dict) -> None:
+    check(set(got) == set(want), f"{label}: result names differ")
+    for key, value in want.items():
+        check(value.dtype == got[key].dtype and value.shape == got[key].shape and torch.equal(got[key], value),
+              f"{label}: result {key} differs")
+
+
+def engines_of(metrics) -> dict:
+    if hasattr(metrics, "compute_groups"):
+        return {"collection": metrics._update_engine}
+    return {k: m._update_engine for k, m in metrics.items()}
+
+
+def eager_then_compiled(torch, label: str, make, feed, stream, buffered=()) -> dict:
+    """The stream through ``make(False)`` and then ``make(True)``: states and
+    two computes bit for bit; each update engine's eager calls, captures and
+    replays those of its signatures, every call past the capture in place;
+    the steady state (past the capture, before the ragged batch) under
+    ``set_sync_debug_mode("error")`` with ``memory_allocated`` flat."""
+    eager = make(False)
+    for batch in stream:
+        feed(eager, batch)
+    torch.cuda.synchronize()
+    want_states = set_states(eager)
+    want = [compute_set(eager) for _ in range(2)]
+
+    compiled = make(True)
+    steady = range(2, len(stream) - 1)
+    gc.collect()  # garbage of earlier phases would otherwise be freed inside the window
+    mem = []
+    for i, batch in enumerate(stream):
+        if i > steady.start:
+            mem.append(torch.cuda.memory_allocated())
+        if i in steady and i > steady.start:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            feed(compiled, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    same_states(torch, f"{label} compiled", set_states(compiled), want_states)
+    sizes = [int(batch[-1].shape[0]) for batch in stream]
+    engines = {}
+    for key, engine in engines_of(compiled).items():
+        sigs = [(i > 0, s) for i, s in enumerate(sizes)] if key in buffered else sizes  # a first append materializes
+        counts = expected_engine_counts(sigs)
+        check(engine is not None, f"{label}: {key} has no update engine")
+        check_engine(f"{label} {key} update", engine.stats, counts, donated=counts["cache_hits"])
+        check(engine.broken is None and all(step.graph is not None for step in engine._steps.values()),
+              f"{label}: {key} update broken ({engine.broken}) or a step without a graph")
+        engines[key] = counts
+    got = [compute_set(compiled) for _ in range(2)]  # the warmup, then the capture or the revert to eager
+    for n, (g, w) in enumerate(zip(got, want)):
+        same_results(torch, f"{label} compiled compute {n + 1}", g, w)
+    check(len(set(mem)) == 1, f"{label}: memory_allocated moved across the steady-state steps: {sorted(set(mem))}")
+    return {"eager": eager, "compiled": compiled, "results": want[0], "engines": engines, "memory": mem[0]}
+
+
+def step_timing(torch, make, feed, stream, compiled: bool) -> dict:
+    """An update step by CUDA events (median of the steady state), its
+    device-idle share and device operations by the profiler; each compute
+    by events and the profiler."""
+    metrics = make(compiled)
+    for batch in stream[:3]:
+        feed(metrics, batch)
+    times = []
+    for batch in stream[3:-11]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        feed(metrics, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    steps = iter(stream[-11:-1])
+    prof = profile_window(torch, lambda: feed(metrics, next(steps)), reps=9)
+    compute_ms = time_ms(torch, lambda: compute_set(metrics), warmup=2, reps=10)
+    compute_prof = profile_window(torch, lambda: compute_set(metrics), reps=3)
+    return {"step_us": statistics.median(times) * 1e3, "idle": idle_share(prof), "busy_us": sum(prof["device_us"].values()),
+            "device_ops": sum(prof["recorded"].values()) / 9, "prof": prof, "compute_ms": compute_ms,
+            "compute_idle": idle_share(compute_prof), "compute_prof": compute_prof}
+
+
+def timing_pairs(torch, make, feed, stream) -> dict:
+    out = {"eager": [], "compiled": []}
+    for compiled in (False, True, True, False):  # eager, compiled, compiled, eager in one run
+        out["compiled" if compiled else "eager"].append(step_timing(torch, make, feed, stream, compiled))
+    return out
+
+
+def print_timing(label: str, timing: dict, smi: str, ops: bool) -> None:
+    for kind in ("eager", "compiled"):
+        report_profile(f"{label} {kind} update step", timing[kind][0]["prof"])
+        report_profile(f"{label} {kind} compute", timing[kind][0]["compute_prof"])
+        runs = timing[kind]
+        print(f"phase {label} ({smi}): {kind} update step "
+              + ", ".join(f"{r['step_us']:.1f} us (idle {r['idle']}, device busy {r['busy_us']:.1f} us"
+                          + (f", {r['device_ops']:.1f} device operations" if ops else "") + ")" for r in runs)
+              + "; compute " + ", ".join(f"{r['compute_ms']:.3f} ms (idle {r['compute_idle']})" for r in runs))
+
+
+def timing_summary(timing: dict) -> dict:
+    return {kind: [{k: r[k] for k in ("step_us", "idle", "busy_us", "device_ops", "compute_ms", "compute_idle")}
+                   for r in runs] for kind, runs in timing.items()}
+
+
+def confmat_oracle(np, cm) -> dict:
+    """float64 Jaccard (macro), MCC, kappa, specificity (macro) and Dice
+    (macro) from an integer confusion matrix."""
+    cm = cm.astype(np.float64)
+    tp = np.diag(cm)
+    rows, cols, total = cm.sum(1), cm.sum(0), cm.sum()
+    fp, fn = cols - tp, rows - tp
+    tn = total - tp - fp - fn
+    union = rows + cols - tp
+    jaccard = np.where(union > 0, tp / np.where(union > 0, union, 1), 0.0).mean()
+    cov_tp = tp.sum() * total - (rows * cols).sum()
+    denom = (total**2 - (cols * cols).sum()) * (total**2 - (rows * rows).sum())
+    mcc = cov_tp / np.sqrt(denom) if denom else 0.0
+    expected = np.outer(rows, cols) / total
+    weights = 1.0 - np.eye(len(tp))
+    kappa = 1.0 - (weights * cm).sum() / (weights * expected).sum()
+    spec = np.where(tn + fp > 0, tn / np.where(tn + fp > 0, tn + fp, 1), 0.0).mean()
+    present = (tp + fp + fn) > 0
+    dice = (2 * tp / np.where(present, 2 * tp + fp + fn, 1))[present].mean()
+    return {"jaccard": jaccard, "mcc": mcc, "kappa": kappa, "specificity": spec, "dice": dice}
+
+
+def phase_eight_a(torch, mt, np, sync, stream, smi) -> dict:
+    """8(a): the confusion-matrix family at ImageNet-1k validation size."""
+    import torch.distributed as dist
+
+    pairs = [(pb, tg) for _, pb, tg, _, _ in stream]
+    run = eager_then_compiled(torch, "8(a)", lambda c: confmat_collection(mt, c), feed_pair, pairs)
+    eager, results = run["eager"], run["results"]
+    groups = sorted(sorted(g) for g in eager.compute_groups.values())
+    check(groups == [["confmat", "jaccard", "kappa", "mcc"], ["dice"], ["specificity"]],
+          f"8(a): compute groups {groups}")
+    view = run["compiled"].engine_stats()["partition"]
+    for kind in ("update", "compute"):
+        for key, entry in view[kind].items():
+            check(entry["path"] == "fused", f"8(a): {key} {kind} path {entry}")
+
+    # the matrix against numpy's add.at over the host copy of the stream
+    pred = torch.cat([pb.argmax(dim=1) for pb, _ in pairs]).cpu().numpy()
+    true = torch.cat([tg for _, tg in pairs]).cpu().numpy()
+    cm = np.zeros((N_CLASSES, N_CLASSES), np.int64)
+    np.add.at(cm, (true, pred), 1)
+    confmat = results["confmat"]
+    check(confmat.dtype == torch.int32 and np.array_equal(confmat.cpu().numpy(), cm.astype(np.int32)),
+          "8(a): the confusion matrix differs from numpy's add.at")
+    spec_state = eager["specificity"].get_state()
+    tp = torch.from_numpy(np.diag(cm).astype(np.int32)).cuda()
+    check(torch.equal(spec_state["tp"], tp), "8(a): the stat-score tp differs from the matrix diagonal")
+    oracle = confmat_oracle(np, cm)
+    errors = {}
+    for key, value in oracle.items():
+        got = float(results[key])
+        errors[key] = abs(got - value)
+        check(math.isfinite(got) and errors[key] <= FLOAT64_ATOL, f"8(a): {key} {got} vs float64 {value}")
+
+    # synced in a world of one NCCL rank: bitwise, one all_reduce per (reduction, dtype) bucket per group
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        expected = {"all_reduce": len(eager.compute_groups)}  # each group: one (sum, int32) bucket
+        for m in eager.values():
+            m._computed = None
+        t0 = time.perf_counter()
+        with sync.count_collectives() as box, sync.sync_axes(dist.group.WORLD):
+            synced = dict(eager.compute())
+        torch.cuda.synchronize()
+        synced_s = time.perf_counter() - t0
+        check(box["by_kind"] == expected, f"8(a): synced compute ran {box['by_kind']}, expected {expected}")
+        same_results(torch, "8(a) synced", synced, results)
+    finally:
+        dist.destroy_process_group()
+
+    timing = timing_pairs(torch, lambda c: confmat_collection(mt, c), feed_pair, pairs)
+    print_timing("8(a)", timing, smi, ops=True)
+    print(f"phase 8(a): {len(pairs)} updates of ConfusionMatrix/JaccardIndex/MatthewsCorrCoef/CohenKappa + Specificity +"
+          f" Dice ({N_SAMPLES} x {N_CLASSES}), groups {groups}; compiled states and 2 computes bitwise equal to eager;"
+          f" update engine {run['engines']['collection']}, steady state with sync debug mode 'error', memory_allocated"
+          f" flat at {run['memory']} bytes; the ({N_CLASSES}, {N_CLASSES}) int32 matrix bitwise equal to numpy; "
+          + ", ".join(f"{k} {float(results[k]):.7f} (float64 {oracle[k]:.7f}, error {errors[k]:.2e})" for k in oracle)
+          + f"; synced (world of one NCCL rank) {box['by_kind']} ({box['bytes']} bytes), bitwise, {synced_s * 1e3:.1f} ms")
+    return {"engines": run["engines"], "errors": errors, "values": {k: float(results[k]) for k in oracle},
+            "collectives": box["by_kind"], "timing": timing_summary(timing)}
+
+
+def loss_oracle(torch, stream) -> dict:
+    """float64 hinge (Crammer-Singer), KL(student || teacher), mean and sum
+    of the per-sample cross-entropy, on the card."""
+    hinge = kl = ce_sum = 0.0
+    n = 0
+    for logits, probs, target, teacher, ce in stream:
+        lg = logits.double()
+        rows = torch.arange(lg.shape[0], device=lg.device)
+        true = lg[rows, target]
+        other = lg.clone()
+        other[rows, target] = -math.inf
+        hinge += float((1.0 - (true - other.amax(dim=1))).clamp(min=0).sum())
+        p, q = probs.double(), teacher.double()
+        p, q = p / p.sum(1, keepdim=True), q / q.sum(1, keepdim=True)
+        kl += float(torch.where(p == 0, 0.0, p * torch.log(p / q)).sum())
+        ce_sum += float(torch.nn.functional.cross_entropy(lg, target, reduction="sum"))
+        n += lg.shape[0]
+    return {"hinge": hinge / n, "kl": kl / n, "mean_ce": ce_sum / n, "sum_ce": ce_sum}
+
+
+def phase_eight_b(torch, mt, stream, smi) -> dict:
+    """8(b): hinge, KL against a teacher and the aggregators of the
+    cross-entropy, on phase 3's stream."""
+    make = lambda c: loss_metrics(mt, c)  # noqa: E731
+    run = eager_then_compiled(torch, "8(b)", make, feed_losses, stream, buffered=("cat_ce",))
+    results = run["results"]
+    ce_all = torch.cat([ce for *_, ce in stream])
+    check(torch.equal(results["cat_ce"], ce_all), "8(b): CatMetric rows differ from the per-sample losses")
+    check(torch.equal(results["max_ce"], ce_all.max()) and torch.equal(results["min_ce"], ce_all.min()),
+          "8(b): MaxMetric/MinMetric differ from the per-sample losses' max/min")
+    oracle = loss_oracle(torch, stream)
+    errors = {}
+    for key, value in oracle.items():
+        got = float(results[key])
+        errors[key] = abs(got - value) / max(1.0, abs(value))  # relative for the sum of 50,000 losses
+        check(math.isfinite(got) and errors[key] <= FLOAT64_ATOL, f"8(b): {key} {got} vs float64 {value}")
+    timing = timing_pairs(torch, make, feed_losses, stream)
+    print_timing("8(b)", timing, smi, ops=False)
+    print(f"phase 8(b): {len(stream)} updates of HingeLoss (crammer-singer), KLDivergence (student vs teacher at"
+          f" temperature {KD_TEMPERATURE}), Mean/Sum/Max/Min/CatMetric of the cross-entropy; compiled states and"
+          f" 2 computes bitwise equal to eager; engines {run['engines']}; memory_allocated flat at {run['memory']} bytes;"
+          f" CatMetric rows, max and min bitwise equal to the per-sample losses; "
+          + ", ".join(f"{k} {float(results[k]):.7f} (float64 {oracle[k]:.7f}, error {errors[k]:.2e})" for k in oracle))
+    return {"engines": run["engines"], "errors": errors, "values": {k: float(results[k]) for k in oracle},
+            "timing": timing_summary(timing)}
+
+
+def coco14_stream(torch):
+    """Multilabel scores at MS-COCO 2014 val size: Bernoulli targets at COCO's
+    label density, sigmoid scores of a model with some skill rounded through
+    float16 (ties remain), batches of 1,024 and a ragged last batch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    out = []
+    for start in range(0, COCO14_IMAGES, BATCH):
+        b = min(BATCH, COCO14_IMAGES - start)
+        target = (torch.rand((b, COCO14_LABELS), generator=gen, device="cuda") < COCO14_POSITIVES / COCO14_LABELS)
+        logits = torch.randn((b, COCO14_LABELS), generator=gen, device="cuda") + 3.0 * target - 2.0
+        scores = torch.sigmoid(logits).half().float()
+        out.append((scores, target.to(torch.int32)))
+    return out
+
+
+def ranking_oracle(np, scores, target) -> dict:
+    """float64 numpy Hamming distance, coverage error and LRAP (sklearn's
+    definitions: max-tie ranks) and the ranking loss with tied pairs ordered
+    by label index (the stable sort the JAX package and the port use); also
+    sklearn's ranking loss, which counts every tied pair as misordered."""
+    n, labels = scores.shape
+    rel = target == 1
+    hamming = 1.0 - ((scores >= 0.5) == rel).mean()
+    coverage = lrap = lrl = lrl_sklearn = 0.0
+    tied_rows = 0
+    idx = np.arange(labels)
+    for lo in range(0, n, 2048):
+        s, r = scores[lo:lo + 2048].astype(np.float64), rel[lo:lo + 2048]
+        ge = s[:, None, :] >= s[:, :, None]  # ge[i, a, b]: label b scores at least label a
+        n_rel = r.sum(1)
+        min_rel = np.where(r, s, np.inf).min(1)
+        coverage += np.where(n_rel > 0, (s >= min_rel[:, None]).sum(1), 0).sum()
+        rank_all = ge.sum(2)
+        rank_rel = (ge & r[:, None, :]).sum(2)
+        per = np.where(r, rank_rel / rank_all, 0.0).sum(1) / np.maximum(n_rel, 1)
+        lrap += np.where((n_rel == 0) | (n_rel == labels), 1.0, per).sum()
+        above = (s[:, None, :] > s[:, :, None]) | ((s[:, None, :] == s[:, :, None]) & (idx[None, None, :] > idx[None, :, None]))
+        pair = r[:, :, None] & ~r[:, None, :]  # (relevant a, irrelevant b)
+        valid = (n_rel > 0) & (n_rel < labels)
+        denom = np.where(valid, n_rel * (labels - n_rel), 1)
+        lrl += np.where(valid, (pair & above).sum((1, 2)) / denom, 0.0).sum()
+        lrl_sklearn += np.where(valid, (pair & ge).sum((1, 2)) / denom, 0.0).sum()
+        tied_rows += int((pair & (s[:, None, :] == s[:, :, None])).any((1, 2)).sum())
+    return {"hamming": hamming, "coverage": coverage / n, "lrap": lrap / n, "lrl": lrl / n,
+            "lrl_sklearn": lrl_sklearn / n, "tied_rows": tied_rows}
+
+
+def phase_eight_c(torch, mt, np, smi) -> dict:
+    """8(c): the multilabel and ranking path at MS-COCO 2014 val size."""
+    stream = coco14_stream(torch)
+    make = lambda c: ranking_collection(mt, c)  # noqa: E731
+    run = eager_then_compiled(torch, "8(c)", make, feed_pair, stream)
+    results = run["results"]
+    view = run["compiled"].engine_stats()["partition"]
+    for kind in ("update", "compute"):
+        for key, entry in view[kind].items():
+            check(entry["path"] == "fused", f"8(c): {key} {kind} path {entry}")
+    scores = torch.cat([s for s, _ in stream]).cpu().numpy()
+    target = torch.cat([t for _, t in stream]).cpu().numpy()
+    oracle = ranking_oracle(np, scores, target)
+    errors = {}
+    for key in ("hamming", "coverage", "lrap", "lrl"):
+        got = float(results[key])
+        errors[key] = abs(got - oracle[key])
+        check(math.isfinite(got) and errors[key] <= FLOAT64_ATOL, f"8(c): {key} {got} vs float64 {oracle[key]}")
+    timing = timing_pairs(torch, make, feed_pair, stream)
+    print_timing("8(c)", timing, smi, ops=True)
+    print(f"phase 8(c): {len(stream)} updates ({COCO14_IMAGES} x {COCO14_LABELS}, {float(target.mean()) * COCO14_LABELS:.2f}"
+          f" labels per image) of HammingDistance/CoverageError/LabelRankingAveragePrecision/LabelRankingLoss;"
+          f" compiled states and 2 computes bitwise equal to eager (the ragged batch too); engine"
+          f" {run['engines']['collection']}; "
+          + ", ".join(f"{k} {float(results[k]):.7f} (float64 {oracle[k]:.7f}, error {errors[k]:.2e})" for k in errors)
+          + f"; {oracle['tied_rows']} rows tie a relevant with an irrelevant label, where sklearn's ranking loss"
+          f" counts the pair as misordered: {oracle['lrl_sklearn']:.7f}")
+    return {"engines": run["engines"], "errors": errors, "values": {k: float(results[k]) for k in errors},
+            "tied_rows": oracle["tied_rows"], "lrl_sklearn": oracle["lrl_sklearn"], "timing": timing_summary(timing)}
+
+
+def phase_eight_d(torch, mt) -> dict:
+    """8(d): a MeanMetric and a buffered CatMetric fed one batch with a NaN
+    (the third, a replay when compiled): eager warns once and drops it,
+    compiled masks it and CatMetric keeps 0.0, as in the JAX package."""
+    import warnings
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    stream = [torch.randn(NAN_WIDTH, generator=gen, device="cuda") for _ in range(NAN_BATCHES)]
+    stream[NAN_AT][1] = float("nan")
+    clean = torch.cat(stream)
+    out = {}
+    for compiled in (False, True):
+        flags = engine_flags(compiled)
+        mean, cat = mt.MeanMetric(**flags), mt.CatMetric(buffer_capacity=NAN_CAPACITY, **flags)
+        warned = 0
+        for x in stream:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                mean.update(x)
+                cat.update(x)
+            warned += sum("nan" in str(w.message) for w in rec)
+        rows, value = cat.compute(), mean.compute()
+        label = "compiled" if compiled else "eager"
+        if compiled:
+            want = torch.where(torch.isnan(clean), 0.0, clean)
+            check(warned == 0 and torch.equal(rows, want), f"8(d) compiled: {warned} warnings, rows {rows.tolist()}")
+            check(torch.equal(value, out["eager"]["mean"]), "8(d): the compiled mean differs from the eager one")
+        else:
+            check(warned == 2 and torch.equal(rows, clean[~torch.isnan(clean)]),
+                  f"8(d) eager: {warned} warnings (one per metric expected), rows {rows.tolist()}")
+        out[label] = {"mean": value, "rows": rows.numel(), "warnings": warned}
+    print(f"phase 8(d): NaN in batch {NAN_AT + 1} of {NAN_BATCHES}: eager warned {out['eager']['warnings']} times"
+          f" (once per metric) and CatMetric kept {out['eager']['rows']} rows; compiled warned"
+          f" {out['compiled']['warnings']} times and kept {out['compiled']['rows']} rows with 0.0 for the NaN;"
+          f" MeanMetric {float(out['eager']['mean']):.7f} both ways")
+    return {k: {"rows": v["rows"], "warnings": v["warnings"]} for k, v in out.items()}
+
+
+def imagenet_loss_stream(torch):
+    """Phase 3's stream with a teacher's probabilities (a second seeded logit
+    set at temperature 2) and the per-sample cross-entropy."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    out = []
+    for logits, probs, target in batches(torch):
+        teacher = torch.softmax(torch.randn(logits.shape, generator=gen, device="cuda") / KD_TEMPERATURE, dim=1)
+        ce = torch.nn.functional.cross_entropy(logits, target, reduction="none")
+        out.append((logits, probs, target, teacher, ce))
+    return out
+
+
+def phase_eight(torch, mt, np, kernels_mod, sync, smi) -> dict:
+    t0 = time.perf_counter()
+    stream = imagenet_loss_stream(torch)
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    out = {"a": phase_eight_a(torch, mt, np, sync, stream, smi), "b": phase_eight_b(torch, mt, stream, smi)}
+    del stream
+    out["c"] = phase_eight_c(torch, mt, np, smi)
+    out["d"] = phase_eight_d(torch, mt)
+    launches = kernels_mod.launch_counts()
+    check(not any(launches.values()), f"phase 8 launched a kernel of B1-B3: {launches}")
+    out["launches"] = launches
+    elapsed = time.perf_counter() - t0
+    print(f"phase 8 ({smi}): {elapsed:.1f} s in all (limit {PHASE8_LIMIT_S:.0f} s); kernel launches {launches}")
+    check(elapsed < PHASE8_LIMIT_S, f"phase 8 took {elapsed:.1f} s, over its {PHASE8_LIMIT_S:.0f} s")
+    out["seconds"] = elapsed
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2157,6 +2670,9 @@ def main() -> None:
     # ---- phase 7: the curve family and the compiled mAP update
     seven = phase_seven(torch, mt, np, kernels_mod, coco, map_metric, map_results, smi)
 
+    # ---- phase 8: the rest of classification and the aggregators (no kernel of B1-B3 on its path)
+    eight = phase_eight(torch, mt, np, kernels_mod, sync, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -2172,6 +2688,7 @@ def main() -> None:
             "bound_by": timing["bound_by"],
             "library_ms": timing.get("library_ms"),
             "ok": True,
+            "phase8_launches": eight["launches"][kname],
             **us,
             **extra,
         }

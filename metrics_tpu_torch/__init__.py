@@ -8,6 +8,7 @@ Pallas kernels become hand-written CUDA kernels under ``csrc/``, built with
 graph from the second call of each input signature (``core/engine.py``; the
 switches below turn that off).
 """
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
 from metrics_tpu_torch.classification import (
     AUC,
     AUROC,
@@ -17,12 +18,24 @@ from metrics_tpu_torch.classification import (
     BinnedPrecisionRecallCurve,
     BinnedRecallAtFixedPrecision,
     CalibrationError,
+    CohenKappa,
+    ConfusionMatrix,
+    CoverageError,
+    Dice,
     F1Score,
     FBetaScore,
+    HammingDistance,
+    HingeLoss,
+    JaccardIndex,
+    KLDivergence,
+    LabelRankingAveragePrecision,
+    LabelRankingLoss,
+    MatthewsCorrCoef,
     Precision,
     PrecisionRecallCurve,
     ROC,
     Recall,
+    Specificity,
     StatScores,
 )
 from metrics_tpu_torch.core.collections import MetricCollection
@@ -51,17 +64,34 @@ __all__ = [
     "BinnedPrecisionRecallCurve",
     "BinnedRecallAtFixedPrecision",
     "CalibrationError",
+    "CatMetric",
+    "CohenKappa",
     "CompositionalMetric",
+    "ConfusionMatrix",
+    "CoverageError",
+    "Dice",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "HingeLoss",
+    "JaccardIndex",
+    "KLDivergence",
+    "LabelRankingAveragePrecision",
+    "LabelRankingLoss",
+    "MatthewsCorrCoef",
+    "MaxMetric",
     "MeanAveragePrecision",
+    "MeanMetric",
     "Metric",
     "MetricCollection",
+    "MinMetric",
     "Precision",
     "PrecisionRecallCurve",
     "ROC",
     "Recall",
+    "Specificity",
     "StatScores",
+    "SumMetric",
     "bucketed_sync_enabled",
     "compiled_compute_enabled",
     "compiled_update_enabled",

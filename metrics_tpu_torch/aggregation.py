@@ -1,0 +1,225 @@
+"""Aggregators with a NaN strategy: SumMetric, MeanMetric, MaxMetric,
+MinMetric and CatMetric (counterpart of ``metrics_tpu/aggregation.py``).
+
+NaNs are masked, not filtered: a masked entry takes the reduction's identity
+and weight 0, so every update keeps static shapes and is captured. The
+strategy's raise, warning and CatMetric's row filter read a value back, so
+they run where the JAX package's ``_is_concrete`` holds: eager, not in a
+captured step (``utils.checks._capturing``). A captured CatMetric therefore
+keeps a NaN row with the imputed 0.0 where an eager one drops it, as the JAX
+package's compiled and eager updates do.
+
+The sketch aggregators (Quantile, Median, DistinctCount, HeavyHitters) wait
+for the sketches (ROADMAP A16), and a sharded buffer for A17.
+"""
+from __future__ import annotations
+
+from typing import Any, List, Tuple, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.core.buffers import CatBuffer
+from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.utils.checks import _capturing
+from metrics_tpu_torch.utils.data import append_cat, dim_zero_cat
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+
+def _as_float32(x: Union[float, Tensor, np.ndarray, List], device: torch.device) -> Tensor:
+    """``jnp.asarray(x, float32)``; a Python number becomes a fill on the
+    device (no host-to-device copy inside a captured step)."""
+    if isinstance(x, Tensor):
+        return x.to(torch.float32)
+    if isinstance(x, (int, float)):
+        return torch.full((), float(x), dtype=torch.float32, device=device)
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
+class BaseAggregator(Metric):
+    """Base of the simple aggregators: one ``value`` state and a NaN strategy,
+    ``"error"``, ``"warn"``, ``"ignore"`` or a float to impute."""
+
+    value: Union[Tensor, List[Tensor], CatBuffer]
+    is_differentiable = None
+    higher_is_better = None
+    full_state_update = False
+
+    def __init__(
+        self,
+        fn: str,
+        default_value: Union[Tensor, List],
+        nan_strategy: Union[str, float] = "error",
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        allowed_nan_strategy = ("error", "warn", "ignore")
+        if nan_strategy not in allowed_nan_strategy and not isinstance(nan_strategy, float):
+            raise ValueError(
+                f"Arg `nan_strategy` should either be a float or one of {allowed_nan_strategy} but got {nan_strategy}."
+            )
+        self.nan_strategy = nan_strategy
+        self.add_state("value", default=default_value, dist_reduce_fx=fn)
+
+    def _cast_and_nan_check_input(
+        self, x: Union[float, Tensor], weight: Union[float, Tensor, None] = None
+    ) -> Tuple[Tensor, Tensor]:
+        """Cast to float32 and apply the NaN strategy by masking: returns
+        ``(x, weight)``, a NaN position with weight 0 and an imputed value."""
+        x = _as_float32(x, self.device)
+        weight = torch.ones_like(x) if weight is None else _as_float32(weight, x.device).expand(x.shape)
+        nans = torch.isnan(x) | torch.isnan(weight)
+        if self.nan_strategy == "error":
+            if not _capturing() and bool(nans.any()):
+                raise RuntimeError("Encountered `nan` values in tensor")
+        elif self.nan_strategy in ("ignore", "warn"):
+            if self.nan_strategy == "warn" and not _capturing() and bool(nans.any()):
+                rank_zero_warn("Encountered `nan` values in tensor. Will be removed.", UserWarning)
+            x = torch.where(nans, 0.0, x)
+            weight = torch.where(nans, 0.0, weight)
+        else:
+            x = torch.where(nans, float(self.nan_strategy), x)
+            weight = torch.where(torch.isnan(weight), float(self.nan_strategy), weight)
+        return x, weight
+
+    def update(self, value: Union[float, Tensor]) -> None:  # type: ignore[override]
+        pass
+
+    def compute(self) -> Tensor:
+        return self.value
+
+
+class MaxMetric(BaseAggregator):
+    """Running maximum.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MaxMetric
+        >>> metric = MaxMetric(device="cpu")
+        >>> metric.update(1.0)
+        >>> metric.update(torch.tensor([2.0, 3.0]))
+        >>> float(metric.compute())
+        3.0
+    """
+
+    full_state_update = True
+
+    def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        super().__init__("max", torch.tensor(-torch.inf), nan_strategy, **kwargs)
+
+    def update(self, value: Union[float, Tensor]) -> None:  # type: ignore[override]
+        value, weight = self._cast_and_nan_check_input(value)
+        if value.numel():  # a masked entry has weight 0: -inf there
+            masked = torch.where(weight > 0, value, -torch.inf)
+            self.value = torch.maximum(self.value, masked.max())
+
+
+class MinMetric(BaseAggregator):
+    """Running minimum.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MinMetric
+        >>> metric = MinMetric(device="cpu")
+        >>> metric.update(torch.tensor([2.0, 1.0]))
+        >>> metric.update(torch.tensor(3.0))
+        >>> float(metric.compute())
+        1.0
+    """
+
+    full_state_update = True
+
+    def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        super().__init__("min", torch.tensor(torch.inf), nan_strategy, **kwargs)
+
+    def update(self, value: Union[float, Tensor]) -> None:  # type: ignore[override]
+        value, weight = self._cast_and_nan_check_input(value)
+        if value.numel():
+            masked = torch.where(weight > 0, value, torch.inf)
+            self.value = torch.minimum(self.value, masked.min())
+
+
+class SumMetric(BaseAggregator):
+    """Running sum.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import SumMetric
+        >>> metric = SumMetric(device="cpu")
+        >>> metric.update(1.0)
+        >>> metric.update(torch.tensor([2.0, 3.0]))
+        >>> float(metric.compute())
+        6.0
+    """
+
+    def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        super().__init__("sum", torch.tensor(0.0), nan_strategy, **kwargs)
+
+    def update(self, value: Union[float, Tensor]) -> None:  # type: ignore[override]
+        value, weight = self._cast_and_nan_check_input(value)
+        if value.numel():
+            self.value = self.value + torch.where(weight > 0, value, 0.0).sum()
+
+
+class CatMetric(BaseAggregator):
+    """Every value seen, concatenated; a ``buffer_capacity`` keeps them in a
+    :class:`~metrics_tpu_torch.core.buffers.CatBuffer`, whose update is
+    captured.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import CatMetric
+        >>> metric = CatMetric(device="cpu")
+        >>> metric.update(torch.tensor([1.0, 2.0]))
+        >>> metric.update(torch.tensor(3.0))
+        >>> metric.compute().tolist()
+        [1.0, 2.0, 3.0]
+    """
+
+    def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        super().__init__("cat", [], nan_strategy, **kwargs)
+
+    def update(self, value: Union[float, Tensor]) -> None:  # type: ignore[override]
+        value, weight = self._cast_and_nan_check_input(value)
+        if value.numel() and self.nan_strategy in ("ignore", "warn") and not _capturing():
+            keep = weight > 0
+            if not bool(keep.all()):
+                value = torch.atleast_1d(value)[keep.reshape(-1)]
+        if value.numel():
+            self.value = append_cat(self.value, value)
+
+    def compute(self) -> Tensor:
+        if isinstance(self.value, CatBuffer):
+            return self.value.to_array() if self.value else torch.zeros((0,), device=self.device)
+        if isinstance(self.value, list) and self.value:
+            return dim_zero_cat(self.value)
+        return self.value
+
+
+class MeanMetric(BaseAggregator):
+    """Weighted running mean.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanMetric
+        >>> mean = MeanMetric(device="cpu")
+        >>> mean.update(1.0)
+        >>> mean.update(torch.tensor([2.0, 3.0]))
+        >>> round(float(mean.compute()), 4)
+        2.0
+    """
+
+    def __init__(self, nan_strategy: Union[str, float] = "warn", **kwargs: Any) -> None:
+        super().__init__("sum", torch.tensor(0.0), nan_strategy, **kwargs)
+        self.add_state("weight", default=torch.tensor(0.0), dist_reduce_fx="sum")
+
+    def update(self, value: Union[float, Tensor], weight: Union[float, Tensor] = 1.0) -> None:  # type: ignore[override]
+        value, weight = self._cast_and_nan_check_input(value, weight)
+        if value.numel() == 0:
+            return
+        self.value = self.value + (value * weight).sum()
+        self.weight = self.weight + weight.sum()
+
+    def compute(self) -> Tensor:
+        return self.value / self.weight

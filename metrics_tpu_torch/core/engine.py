@@ -872,7 +872,23 @@ class _EngineBase:
             if out_sig is None:
                 out_sig = self._out_sigs[key] = _signature_flat(out_leaves, out_spec)
             self._state_sig.seed(out_leaves, out_spec, out_sig)
+        else:
+            result = _fresh_outputs(result, leaves)
         return True, result
+
+
+def _fresh_outputs(result: Any, leaves: list) -> Any:
+    """A compute's outputs that share storage with a state leaf, as copies.
+    A compute that returns its state as it is (a confusion matrix, an
+    aggregate) would otherwise hand out the engine's static, and a caller
+    holding it would keep the next update from writing in place; a jit
+    output is always a fresh buffer."""
+    ptrs = {x.untyped_storage().data_ptr() for x in leaves if isinstance(x, Tensor) and x.numel()}
+    flat, spec = tree_flatten(result)
+    shared = [isinstance(x, Tensor) and x.numel() > 0 and x.untyped_storage().data_ptr() in ptrs for x in flat]
+    if not any(shared):
+        return result
+    return tree_unflatten([x.clone() if s else x for x, s in zip(flat, shared)], spec)
 
 
 class CompiledUpdateEngine(_EngineBase):

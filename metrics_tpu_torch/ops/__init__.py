@@ -1,10 +1,38 @@
 """Functional metrics on tensors."""
-from metrics_tpu_torch.ops.classification.accuracy import accuracy
-from metrics_tpu_torch.ops.classification.f_beta import f1_score, fbeta_score
-from metrics_tpu_torch.ops.classification.precision_recall import precision, precision_recall, recall
-from metrics_tpu_torch.ops.classification.stat_scores import stat_scores
+from metrics_tpu_torch.ops.classification import (
+    accuracy,
+    auc,
+    auroc,
+    average_precision,
+    calibration_error,
+    cohen_kappa,
+    confusion_matrix,
+    coverage_error,
+    dice,
+    dice_score,
+    f1_score,
+    fbeta_score,
+    hamming_distance,
+    hinge_loss,
+    jaccard_index,
+    kl_divergence,
+    label_ranking_average_precision,
+    label_ranking_loss,
+    matthews_corrcoef,
+    precision,
+    precision_recall,
+    precision_recall_curve,
+    recall,
+    roc,
+    specificity,
+    stat_scores,
+)
 from metrics_tpu_torch.ops.text.bert import bert_score
 
 __all__ = [
-    "accuracy", "bert_score", "f1_score", "fbeta_score", "precision", "precision_recall", "recall", "stat_scores",
+    "accuracy", "auc", "auroc", "average_precision", "bert_score", "calibration_error", "cohen_kappa",
+    "confusion_matrix", "coverage_error", "dice", "dice_score", "f1_score", "fbeta_score", "hamming_distance",
+    "hinge_loss", "jaccard_index", "kl_divergence", "label_ranking_average_precision", "label_ranking_loss",
+    "matthews_corrcoef", "precision", "precision_recall", "precision_recall_curve", "recall", "roc",
+    "specificity", "stat_scores",
 ]

@@ -85,6 +85,14 @@ def _check_avg_args(average, mdmc_average, num_classes, ignore_index) -> None:
         )
 
 
+def _check_same_shape(preds: Tensor, target: Tensor) -> None:
+    """Raise if shapes differ."""
+    if preds.shape != target.shape:
+        raise RuntimeError(
+            f"`preds` and `target` must have the same shape; got {tuple(preds.shape)} vs {tuple(target.shape)}."
+        )
+
+
 def _basic_input_validation(
     preds: Tensor, target: Tensor, threshold: float, multiclass: Optional[bool], ignore_index: Optional[int]
 ) -> None:

@@ -5,6 +5,15 @@ import torch
 from torch import Tensor
 
 
+def safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)`` with ``0 * log(anything) = 0``, as the JAX package
+    defines it: ``where(x == 0, 0, x * log(where(x == 0, 1, y)))``.
+    ``torch.xlogy`` differs where ``x == 0`` and ``y`` is NaN (NaN there)."""
+    zero = x == 0
+    y_safe = torch.where(zero, torch.ones_like(y), y)
+    return torch.where(zero, torch.zeros_like(x * y), x * torch.log(y_safe))
+
+
 def safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     """``num / denom`` returning 0 where ``denom == 0`` (no NaN/Inf)."""
     zero = denom == 0

@@ -96,6 +96,26 @@ TWINS: Dict[str, Twin] = {
     ),
     "Recall": Twin(_cpu(lambda **kw: mt.Recall(num_classes=C, **kw))),
     "StatScores": Twin(_cpu(lambda **kw: mt.StatScores(num_classes=C, **kw))),
+    "CohenKappa": Twin(_cpu(lambda **kw: mt.CohenKappa(num_classes=C, **kw))),
+    "ConfusionMatrix": Twin(_cpu(lambda **kw: mt.ConfusionMatrix(num_classes=C, **kw))),
+    "Dice": Twin(_cpu(lambda **kw: mt.Dice(num_classes=C, multiclass=True, **kw))),
+    "HammingDistance": Twin(_cpu(lambda **kw: mt.HammingDistance(**kw))),
+    "HingeLoss": Twin(_cpu(lambda **kw: mt.HingeLoss(multiclass_mode="crammer-singer", **kw))),
+    "JaccardIndex": Twin(_cpu(lambda **kw: mt.JaccardIndex(num_classes=C, **kw))),
+    "KLDivergence": Twin(_cpu(lambda **kw: mt.KLDivergence(**kw))),
+    "MatthewsCorrCoef": Twin(_cpu(lambda **kw: mt.MatthewsCorrCoef(num_classes=C, **kw))),
+    "Specificity": Twin(_cpu(lambda **kw: mt.Specificity(num_classes=C, **kw))),
+    "CoverageError": Twin(_cpu(lambda **kw: mt.CoverageError(**kw))),
+    "LabelRankingAveragePrecision": Twin(_cpu(lambda **kw: mt.LabelRankingAveragePrecision(**kw))),
+    "LabelRankingLoss": Twin(_cpu(lambda **kw: mt.LabelRankingLoss(**kw))),
+    "MeanMetric": Twin(_cpu(lambda **kw: mt.MeanMetric(**kw))),
+    "SumMetric": Twin(_cpu(lambda **kw: mt.SumMetric(**kw))),
+    "MaxMetric": Twin(_cpu(lambda **kw: mt.MaxMetric(**kw))),
+    "MinMetric": Twin(_cpu(lambda **kw: mt.MinMetric(**kw))),
+    "CatMetric": Twin(
+        _cpu(lambda **kw: mt.CatMetric(**kw)),
+        _cpu(lambda **kw: mt.CatMetric(buffer_capacity=256, **kw)),
+    ),
     # the INVENTORY entry is device_state=False, the host-list path, which the
     # port has not ported: both sides run the device path
     "MeanAveragePrecision": Twin(_cpu(lambda **kw: mt.MeanAveragePrecision(device_state=True, **kw))),

@@ -8,8 +8,10 @@ compute in one gloo world of 4 ranks for the module, against the rank-major
 oracle (the same twin fed every rank's rows in rank order), bit for bit.
 
 The bound for results that are float sums is ``RTOL``/``ATOL`` = 1e-6 there;
-states are compared bit for bit; results are bit for bit where
-``BITWISE_RESULTS`` names the entry. The pinned list of untwinned entries
+states are compared bit for bit, except the float32 sums of the entries in
+``FLOAT_SUM_STATES``, which are held to that bound; results are bit for bit
+where ``BITWISE_RESULTS`` names the entry, and synced results bit for bit
+against the oracle unless the entry sums float32 states. The pinned list of untwinned entries
 shrinks by hand with each slice.
 """
 import numpy as np
@@ -27,25 +29,22 @@ NAMES = sorted(TWINS)
 BUFFERED = [n for n in NAMES if hp.has_buffered(n)]
 WORLD = 4
 
-UNTWINNED_AFTER_SLICE_8 = {
-    "BLEUScore", "BootStrapper", "CHRFScore", "CatMetric", "CharErrorRate", "ClasswiseWrapper", "CohenKappa",
-    "ConfusionMatrix", "CosineSimilarity", "CoverageError", "Dice", "DistinctCount",
-    "ErrorRelativeGlobalDimensionlessSynthesis", "ExplainedVariance", "ExtendedEditDistance",
-    "FrechetInceptionDistance", "HammingDistance", "HeavyHitters", "HingeLoss", "InceptionScore", "JaccardIndex",
-    "KLDivergence", "KernelInceptionDistance", "LabelRankingAveragePrecision", "LabelRankingLoss",
-    "LearnedPerceptualImagePatchSimilarity", "MatchErrorRate", "MatthewsCorrCoef", "MaxMetric",
-    "MeanAbsoluteError", "MeanAbsolutePercentageError", "MeanMetric", "MeanSquaredError", "MeanSquaredLogError",
-    "Median", "MinMaxMetric", "MinMetric", "MultiScaleStructuralSimilarityIndexMeasure", "MultioutputWrapper",
-    "PeakSignalNoiseRatio", "PearsonCorrCoef", "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining",
-    "Quantile", "R2Score", "ROUGEScore", "RetrievalFallOut", "RetrievalHitRate", "RetrievalMAP", "RetrievalMRR",
-    "RetrievalNormalizedDCG", "RetrievalPrecision", "RetrievalPrecisionRecallCurve", "RetrievalRPrecision",
-    "RetrievalRecall", "RetrievalRecallAtFixedPrecision", "SQuAD", "SacreBLEUScore",
-    "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility",
-    "SignalDistortionRatio", "SignalNoiseRatio", "SpearmanCorrCoef", "Specificity", "SpectralAngleMapper",
-    "SpectralDistortionIndex", "StructuralSimilarityIndexMeasure", "SumMetric",
-    "SymmetricMeanAbsolutePercentageError", "TranslationEditRate", "TweedieDevianceScore",
-    "UniversalImageQualityIndex", "WeightedMeanAbsolutePercentageError", "WordErrorRate", "WordInfoLost",
-    "WordInfoPreserved",
+UNTWINNED_AFTER_SLICE_9 = {
+    "BLEUScore", "BootStrapper", "CHRFScore", "CharErrorRate", "ClasswiseWrapper", "CosineSimilarity",
+    "DistinctCount", "ErrorRelativeGlobalDimensionlessSynthesis", "ExplainedVariance", "ExtendedEditDistance",
+    "FrechetInceptionDistance", "HeavyHitters", "InceptionScore", "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity", "MatchErrorRate", "MeanAbsoluteError", "MeanAbsolutePercentageError",
+    "MeanSquaredError", "MeanSquaredLogError", "Median", "MinMaxMetric",
+    "MultiScaleStructuralSimilarityIndexMeasure", "MultioutputWrapper", "PeakSignalNoiseRatio", "PearsonCorrCoef",
+    "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining", "Quantile", "R2Score", "ROUGEScore",
+    "RetrievalFallOut", "RetrievalHitRate", "RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG",
+    "RetrievalPrecision", "RetrievalPrecisionRecallCurve", "RetrievalRPrecision", "RetrievalRecall",
+    "RetrievalRecallAtFixedPrecision", "SQuAD", "SacreBLEUScore", "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio",
+    "SignalNoiseRatio", "SpearmanCorrCoef", "SpectralAngleMapper", "SpectralDistortionIndex",
+    "StructuralSimilarityIndexMeasure", "SymmetricMeanAbsolutePercentageError", "TranslationEditRate",
+    "TweedieDevianceScore", "UniversalImageQualityIndex", "WeightedMeanAbsolutePercentageError", "WordErrorRate",
+    "WordInfoLost", "WordInfoPreserved",
 }
 
 pytestmark = pytest.mark.filterwarnings("ignore")
@@ -72,8 +71,9 @@ def world(tmp_path_factory):
 # --------------------------------------------------------------------------- #
 def test_untwinned_entries_are_pinned():
     assert len(INVENTORY) == 95
-    assert set(hp.UNTWINNED) == UNTWINNED_AFTER_SLICE_8
-    assert len(TWINS) == 95 - len(UNTWINNED_AFTER_SLICE_8) == 18
+    assert len(UNTWINNED_AFTER_SLICE_9) == 60
+    assert set(hp.UNTWINNED) == UNTWINNED_AFTER_SLICE_9
+    assert len(TWINS) == 95 - len(UNTWINNED_AFTER_SLICE_9) == 35
 
 
 def test_every_buffered_entry_of_a_twin_has_a_buffered_twin():
@@ -196,8 +196,11 @@ def test_synced_compute_matches_the_rank_major_oracle(world, name, buffered):
     per_rank = _rank_calls(name)
     results = world.run(td.twin_synced_compute, [(name, buffered, calls) for calls in per_rank])
     want = _oracle(name, buffered, per_rank)
+    # a float32 sum state adds the ranks' partial sums in the collective's
+    # order, not the oracle's batch order: equal within the bound
+    bitwise = name not in hp.FLOAT_SUM_STATES
     for rank, got in enumerate(results):
-        hp.assert_same_result(name, got, want, bitwise=True, msg=f"{name} rank {rank}")
+        hp.assert_same_result(name, got, want, bitwise=bitwise, msg=f"{name} rank {rank}")
 
 
 def test_buffered_map_synced_compute_matches_the_rank_major_oracle(world):

@@ -226,6 +226,23 @@ def test_metrics_default_to_cuda_and_never_fall_back(monkeypatch):
         lambda: mt_torch.MeanAveragePrecision(),
         lambda: mt_torch.BERTScore(model=object()),
         lambda: mt_torch.Accuracy(device="cuda"),
+        lambda: mt_torch.ConfusionMatrix(num_classes=C),
+        lambda: mt_torch.JaccardIndex(num_classes=C),
+        lambda: mt_torch.MatthewsCorrCoef(num_classes=C),
+        lambda: mt_torch.CohenKappa(num_classes=C),
+        lambda: mt_torch.Specificity(num_classes=C),
+        lambda: mt_torch.Dice(num_classes=C),
+        lambda: mt_torch.HammingDistance(),
+        lambda: mt_torch.HingeLoss(),
+        lambda: mt_torch.KLDivergence(),
+        lambda: mt_torch.CoverageError(),
+        lambda: mt_torch.LabelRankingAveragePrecision(),
+        lambda: mt_torch.LabelRankingLoss(),
+        lambda: mt_torch.SumMetric(),
+        lambda: mt_torch.MeanMetric(),
+        lambda: mt_torch.MaxMetric(),
+        lambda: mt_torch.MinMetric(),
+        lambda: mt_torch.CatMetric(buffer_capacity=8),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
@@ -250,7 +267,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch.text, metrics_tpu_torch.ops.text.bert, metrics_tpu_torch.utils.imports\n"
         "import metrics_tpu_torch.parallel, metrics_tpu_torch.entry, metrics_tpu_torch.core.engine\n"
         "import metrics_tpu_torch.ops.classification.auroc, metrics_tpu_torch.ops.classification.calibration_error\n"
-        "import metrics_tpu_torch.ops.classification.average_precision\n"
+        "import metrics_tpu_torch.ops.classification.average_precision, metrics_tpu_torch.aggregation\n"
+        "import metrics_tpu_torch.ops.classification.ranking, metrics_tpu_torch.ops.classification.kl_divergence\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -304,6 +322,27 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.classification.auroc",
     "metrics_tpu_torch.classification.avg_precision",
     "metrics_tpu_torch.classification.calibration_error",
+    "metrics_tpu_torch.aggregation",
+    "metrics_tpu_torch.classification.confusion_matrix",
+    "metrics_tpu_torch.classification.jaccard",
+    "metrics_tpu_torch.classification.matthews_corrcoef",
+    "metrics_tpu_torch.classification.cohen_kappa",
+    "metrics_tpu_torch.classification.specificity",
+    "metrics_tpu_torch.classification.dice",
+    "metrics_tpu_torch.classification.hamming",
+    "metrics_tpu_torch.classification.hinge",
+    "metrics_tpu_torch.classification.kl_divergence",
+    "metrics_tpu_torch.classification.ranking",
+    "metrics_tpu_torch.ops.classification.confusion_matrix",
+    "metrics_tpu_torch.ops.classification.jaccard",
+    "metrics_tpu_torch.ops.classification.matthews_corrcoef",
+    "metrics_tpu_torch.ops.classification.cohen_kappa",
+    "metrics_tpu_torch.ops.classification.specificity",
+    "metrics_tpu_torch.ops.classification.dice",
+    "metrics_tpu_torch.ops.classification.hamming",
+    "metrics_tpu_torch.ops.classification.hinge",
+    "metrics_tpu_torch.ops.classification.kl_divergence",
+    "metrics_tpu_torch.ops.classification.ranking",
 ]
 
 
