@@ -145,6 +145,34 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    computes timed eager and compiled by events and the profiler; the phase
    stays under 120 s.
 
+9. Regression, pairwise and retrieval, which run no kernel of B1-B3 (their
+   launch counts stay 0 through the phase). (a) Retrieval at MS MARCO
+   passage-ranking dev (small) size: 6,980 queries x 1,000 re-ranked
+   candidates (6,980,000 rows) fed query-major, 64 queries an update, about
+   1.07 relevant passages a query and none for 14.3% of them, seeded scores
+   rounded through float16 (ties), through MRR, MAP, nDCG@10, P@10, R@100,
+   HitRate@10, R-precision, FallOut@10, the precision-recall curve and recall
+   at precision 0.1 (max_k = 100) over list states and the per-query host
+   loop (route i), and the eight scalar metrics with ``buffer_capacity=
+   7_000_000, max_queries=8_192, max_docs_per_query=1_024`` (route ii: one
+   captured update of the eight, one captured compute). Route (ii)'s buffer
+   rows are bitwise equal to route (i)'s appends, its steady-state update
+   runs under ``set_sync_debug_mode("error")`` with ``memory_allocated``
+   flat, its replayed compute reads nothing back; the routes agree within
+   1e-5 and each metric is within 1e-5 of a float64 numpy oracle; bounds set
+   too small raise eager and give NaN captured. (b) Per-pixel depth
+   regression at NYU Depth v2 test size (654 images of 480 x 640, 8 an
+   update, mm-quantised targets in 0.5-10 m, log-normal predictions) through
+   MSE, RMSE, MAE, MSLE, MAPE, SMAPE, WMAPE, R2, explained variance, Pearson
+   and Tweedie (power 1.5) in one collection, eager then compiled, bitwise,
+   each within 1e-5 relative of a float64 oracle summed on the host (Tweedie
+   1e-4), and one synced compute in a world of one NCCL rank bitwise equal
+   to the unsynced one (Pearson's moments stacked on a rank axis of one). (c) Spearman over the first 16 images (heavy ties), list and
+   buffered, against scipy within 1e-5; CosineSimilarity over 2,000 x 1,024
+   embedding pairs, list and buffered. (d) The pairwise matrices with TF32
+   off against float64. Update steps, computes and readbacks timed; the
+   phase stays under 420 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -244,12 +272,14 @@ def time_ms(torch, fn, warmup: int = 5, reps: int = 30) -> float:
     return statistics.median(times)
 
 
-def profile_window(torch, fn, reps: int) -> dict:
+def profile_window(torch, fn, reps: int, warmup: bool = True) -> dict:
     """Per-call device time of each kernel, device busy time and wall time,
-    and the host ops that took longest, over ``reps`` calls of ``fn``."""
+    and the host ops that took longest, over ``reps`` calls of ``fn`` (after
+    one call outside the window unless ``warmup`` is False)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()  # warm-up outside the window
+    if warmup:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         lead_in(torch)
@@ -2488,6 +2518,549 @@ def phase_eight(torch, mt, np, kernels_mod, sync, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: regression, pairwise and retrieval (no kernel of B1-B3 on its path)
+# --------------------------------------------------------------------------- #
+# MS MARCO passage ranking, dev (small): 6,980 queries, 1,000 BM25 candidates
+# each, about 1.07 relevant passages a query, BM25's recall@1000 0.857
+MSMARCO_QUERIES, MSMARCO_CANDIDATES, MSMARCO_QUERIES_PER_UPDATE = 6_980, 1_000, 64
+MSMARCO_RELEVANT, MSMARCO_RECALL_AT_1000, MSMARCO_RELEVANT_SCORE_SHIFT = 1.07, 0.857, 3.5
+MSMARCO_MAX_QUERIES, MSMARCO_MAX_DOCS, MSMARCO_CAPACITY = 8_192, 1_024, 7_000_000
+# NYU Depth v2 test split: 654 images of 480 x 640 depths, 0.5-10 m, stored in mm
+NYU_IMAGES, NYU_HEIGHT, NYU_WIDTH, NYU_IMAGES_PER_UPDATE = 654, 480, 640, 8
+NYU_NOISE = 0.1  # log-normal sigma of the predicted depth
+SPEARMAN_IMAGES, SPEARMAN_IMAGES_PER_UPDATE = 16, 4
+EMBEDDING_PAIRS, EMBEDDING_DIM, EMBEDDING_BATCH = 2_000, 1_024, 64  # phase 3c's WMT19 size
+PAIRWISE_ROWS, PAIRWISE_DIM, MANHATTAN_ROWS, MANHATTAN_DIM = 4_096, 1_024, 1_024, 256
+RETRIEVAL_ATOL = 1e-5  # tests/retrieval/test_option_grid.py:202
+REGRESSION_RTOL = 1e-5
+TWEEDIE_RTOL = 1e-4  # tests/regression/test_regression.py:103
+PAIRWISE_ATOL = 1e-5  # tests/regression/test_pairwise.py:36
+PHASE9_LIMIT_S = 420.0
+
+
+def msmarco_stream(torch):
+    """MS MARCO dev (small) size, query-major, 64 queries (64,000 rows) an
+    update and a ragged last one: sparse query ids, 0 relevant passages
+    for 14.3% of queries and 1 + Poisson(0.249) for the rest (1.07 on
+    average), seeded scores with the relevant ones raised, rounded through
+    float16 so that scores tie; the target is bool."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 100)
+    q, c = MSMARCO_QUERIES, MSMARCO_CANDIDATES
+    ids = torch.randperm(1_000_000, generator=gen, device="cuda")[:q].to(torch.int64)
+    found = torch.rand(q, generator=gen, device="cuda") < MSMARCO_RECALL_AT_1000
+    extra = torch.poisson(torch.full((q,), MSMARCO_RELEVANT / MSMARCO_RECALL_AT_1000 - 1.0, device="cuda"), generator=gen)
+    n_rel = torch.where(found, 1 + extra.to(torch.int64), 0)
+    # the first n_rel of a random order of the candidates are the relevant ones
+    order = torch.argsort(torch.rand((q, c), generator=gen, device="cuda"), dim=1)
+    relevant = torch.zeros((q, c), dtype=torch.bool, device="cuda")
+    relevant.scatter_(1, order, torch.arange(c, device="cuda")[None, :].expand(q, c) < n_rel[:, None])
+    scores = torch.randn((q, c), generator=gen, device="cuda") + MSMARCO_RELEVANT_SCORE_SHIFT * relevant
+    scores = scores.half().float()
+    out = []
+    for lo in range(0, q, MSMARCO_QUERIES_PER_UPDATE):
+        hi = min(q, lo + MSMARCO_QUERIES_PER_UPDATE)
+        out.append((scores[lo:hi].reshape(-1), relevant[lo:hi].reshape(-1),
+                    ids[lo:hi, None].expand(hi - lo, c).reshape(-1).contiguous()))
+    return out, (scores, relevant)
+
+
+def retrieval_metrics(mt, compiled_route: bool) -> dict:
+    """The eight scalar retrieval metrics; the compiled route gives them
+    static bounds and buffers."""
+    kw = dict(max_queries=MSMARCO_MAX_QUERIES, max_docs_per_query=MSMARCO_MAX_DOCS,
+              buffer_capacity=MSMARCO_CAPACITY) if compiled_route else {}
+    return {
+        "mrr": mt.RetrievalMRR(**kw),
+        "map": mt.RetrievalMAP(**kw),
+        "ndcg@10": mt.RetrievalNormalizedDCG(k=10, **kw),
+        "p@10": mt.RetrievalPrecision(k=10, **kw),
+        "r@100": mt.RetrievalRecall(k=100, **kw),
+        "hit@10": mt.RetrievalHitRate(k=10, **kw),
+        "r_precision": mt.RetrievalRPrecision(**kw),
+        "fall_out@10": mt.RetrievalFallOut(k=10, **kw),
+    }
+
+
+def retrieval_oracle(np, scores, relevant) -> dict:
+    """float64 numpy scores of every query (each has 1,000 candidates):
+    the stable sort of the negated scores, as both packages rank; an empty
+    query (no relevant passage) scores 0 ("neg"); none lacks a negative."""
+    s, rel = scores.astype(np.float64), relevant.astype(np.float64)
+    order = np.argsort(-s, axis=1, kind="stable")
+    tt = np.take_along_axis(rel, order, axis=1)
+    n_pos = tt.sum(1)
+    has = n_pos > 0
+    safe = np.maximum(n_pos, 1)
+    pos = np.arange(1, tt.shape[1] + 1, dtype=np.float64)
+    cs = np.cumsum(tt, axis=1)
+    first = np.argmax(tt > 0, axis=1)
+    gain = 1.0 / np.log2(np.arange(tt.shape[1], dtype=np.float64) + 2.0)
+    ideal = -np.sort(-rel, axis=1)
+    dcg, idcg = (tt[:, :10] * gain[:10]).sum(1), (ideal[:, :10] * gain[:10]).sum(1)
+    in_r = np.arange(tt.shape[1])[None, :] < n_pos[:, None]
+    n_neg = tt.shape[1] - n_pos
+    per = {
+        "mrr": np.where(has, 1.0 / (first + 1.0), 0.0),
+        "map": np.where(has, (cs / pos * tt).sum(1) / safe, 0.0),
+        "ndcg@10": np.where(has & (idcg > 0), dcg / np.where(idcg > 0, idcg, 1.0), 0.0),
+        "p@10": np.where(has, tt[:, :10].sum(1) / 10.0, 0.0),
+        "r@100": np.where(has, tt[:, :100].sum(1) / safe, 0.0),
+        "hit@10": np.where(has, (tt[:, :10].sum(1) > 0).astype(np.float64), 0.0),
+        "r_precision": np.where(has, (tt * in_r).sum(1) / safe, 0.0),
+        "fall_out@10": (1.0 - tt[:, :10]).sum(1) / n_neg,
+    }
+    out = {k: float(v.mean()) for k, v in per.items()}
+    k = np.arange(1, 101, dtype=np.float64)
+    out["curve_precision"] = np.where(has[:, None], cs[:, :100] / k, 0.0).mean(0)
+    out["curve_recall"] = np.where(has[:, None], cs[:, :100] / safe[:, None], 0.0).mean(0)
+    out["n_empty"] = int((~has).sum())
+    out["relevant_per_query"] = float(n_pos.mean())
+    return out
+
+
+def count_readbacks(torch, fn):
+    """``fn()``'s result and the reads of device values to the host it made."""
+    with ReadbackCounter(torch) as counter:
+        out = fn()
+    return out, counter.n
+
+
+def _feed_retrieval(metrics, batch) -> None:
+    preds, target, indexes = batch
+    metrics.update(preds, target, indexes=indexes)
+
+
+def phase_nine_a(torch, mt, np, smi) -> dict:
+    """9(a): retrieval at MS MARCO dev (small) size, route (i) eager over
+    list states, route (ii) compiled over buffers with static bounds."""
+    stream, (scores, relevant) = msmarco_stream(torch)
+    torch.cuda.synchronize()
+    rows = MSMARCO_QUERIES * MSMARCO_CANDIDATES
+
+    # route (i): list states, the per-query host loop
+    route1 = mt.MetricCollection({
+        **retrieval_metrics(mt, False),
+        "curve": mt.RetrievalPrecisionRecallCurve(max_k=100),
+        "r@p0.1": mt.RetrievalRecallAtFixedPrecision(min_precision=0.1, max_k=100),
+    })
+    step1 = []
+    for preds, target, indexes in stream:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _feed_retrieval(route1, (preds, target, indexes))
+        end.record()
+        end.synchronize()
+        step1.append(start.elapsed_time(end))
+    view = route1.engine_stats()["partition"]
+    for key, entry in view["update"].items():
+        check(entry["path"] == "eager" and "unbounded list" in entry["reason"], f"9(a) route (i): {key} update {entry}")
+    compute1_s, results1 = {}, {}
+    for key, m in route1.items(keep_base=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results1[key] = m.compute()
+        torch.cuda.synchronize()
+        compute1_s[key] = time.perf_counter() - t0
+    # the loop is the same in every member: MRR's readbacks, and its profile
+    _, readbacks1 = count_readbacks(torch, lambda: compute_set({"mrr": route1["mrr"]}))
+    mrr_prof = profile_window(torch, lambda: compute_set({"mrr": route1["mrr"]}), reps=1, warmup=False)
+    report_profile("9(a) route (i) RetrievalMRR compute (the per-query host loop)", mrr_prof)
+    from metrics_tpu_torch.utils.data import get_group_indexes
+
+    _, grouping = count_readbacks(torch, lambda: get_group_indexes(torch.cat(route1["mrr"].indexes)))
+    n_empty = int((relevant.sum(1) == 0).sum())
+    # each query's target sum is read back, and a non-empty query's binary check
+    per_query = MSMARCO_QUERIES + (MSMARCO_QUERIES - n_empty)
+    check(readbacks1 >= per_query, f"9(a) route (i): {readbacks1} readbacks, fewer than the loop's {per_query}")
+
+    # route (ii): buffers and static bounds, captured update and compute
+    route2 = mt.MetricCollection(retrieval_metrics(mt, True))
+    profiled = range(len(stream) - 12, len(stream) - 2)  # the profiler's warm-up and nine steps
+    gc.collect()
+    mem, step2 = [], []
+    for i, (preds, target, indexes) in enumerate(stream):
+        if i == profiled.start:
+            batches = iter(stream[profiled.start:profiled.stop])
+            update_prof = profile_window(torch, lambda: _feed_retrieval(route2, next(batches)), reps=len(profiled) - 1)
+        if i in profiled:
+            continue
+        steady = 3 <= i < profiled.start
+        if steady:
+            mem.append(torch.cuda.memory_allocated())
+            torch.cuda.set_sync_debug_mode("error")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        try:
+            start.record()
+            _feed_retrieval(route2, (preds, target, indexes))
+            end.record()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        end.synchronize()
+        step2.append(start.elapsed_time(end))
+    report_profile("9(a) route (ii) captured update step (eight metrics, one graph)", update_prof)
+    check(len(set(mem)) == 1, f"9(a) route (ii): memory_allocated moved across the steady-state steps: {sorted(set(mem))}")
+    sizes = [int(p.shape[0]) for p, _, _ in stream]
+    sigs = [(i > 0, s) for i, s in enumerate(sizes)]  # the first update materializes the buffers
+    engine = route2._update_engine
+    counts = expected_engine_counts(sigs)
+    check_engine("9(a) route (ii) update", engine.stats, counts, donated=counts["cache_hits"])
+    check(engine.broken is None and all(step.graph is not None for step in engine._steps.values()),
+          f"9(a) route (ii): update broken ({engine.broken}) or a step without a graph")
+    # the buffers hold, bit for bit, what route (i)'s eager appends hold
+    for key, m in route2.items(keep_base=True):
+        for s in ("indexes", "preds", "target"):
+            buf, lst = getattr(m, s), torch.cat(getattr(route1[key], s))
+            check(len(buf) == rows and not buf.overflow_seen and buf.data.dtype == lst.dtype
+                  and torch.equal(buf.data[:rows], lst), f"9(a): route (ii) {key}.{s} differs from route (i)'s appends")
+    computes2, compute2_ms = [], []
+    for n in range(6):  # the warmup (eager), the capture, four replays
+        for m in route2.values():
+            m._computed = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if n == 0:
+            got, readbacks_eager2 = count_readbacks(torch, lambda: dict(route2.compute()))
+        elif n == 5:
+            got, readbacks_replay2 = count_readbacks(torch, lambda: dict(route2.compute()))
+        else:
+            got = dict(route2.compute())
+        torch.cuda.synchronize()
+        compute2_ms.append((time.perf_counter() - t0) * 1e3)
+        computes2.append(got)
+    stats = route2._compute_engine.stats if route2._compute_engine is not None else None
+    check(stats is not None and stats.eager_calls == 1 and stats.cache_misses == 1 and stats.cache_hits == 4
+          and not stats.fallback_reasons, f"9(a) route (ii): compute engine {stats}")
+    for key, entry in route2.engine_stats()["partition"]["compute"].items():
+        check(entry["path"] == "fused", f"9(a) route (ii): {key} compute {entry}")
+    for n, got in enumerate(computes2[1:], start=2):
+        for key, value in computes2[0].items():
+            check(torch.equal(got[key], value), f"9(a) route (ii): compute {n} {key} differs from the eager warmup")
+    check(readbacks_replay2 == 0, f"9(a) route (ii): a replayed compute read back {readbacks_replay2} values")
+    compute_prof = profile_window(torch, lambda: compute_set(route2), reps=3)
+    report_profile("9(a) route (ii) compute (eight metrics, one graph)", compute_prof)
+    # each member alone, through its own compute engine: warmup, capture, then replays by events
+    compute2_member_ms = {}
+    for key, m in route2.items(keep_base=True):
+        for _ in range(2):
+            compute_set({key: m})
+        compute2_member_ms[key] = time_ms(torch, lambda key=key, m=m: compute_set({key: m}), warmup=1, reps=5)
+        check(m._compute_engine.stats.cache_misses == 1 and m._compute_engine.broken is None,
+              f"9(a) route (ii): {key}'s own compute was not captured")
+
+    # the float64 oracle, on the host
+    t0 = time.perf_counter()
+    oracle = retrieval_oracle(np, scores.cpu().numpy(), relevant.cpu().numpy())
+    oracle_s = time.perf_counter() - t0
+    check(oracle["n_empty"] == n_empty, "9(a): the oracle's empty queries differ")
+    errors = {}
+    for key in computes2[0]:
+        a, b = float(results1[key]), float(computes2[0][key])
+        errors[key] = max(abs(a - oracle[key]), abs(b - oracle[key]))
+        check(math.isfinite(a) and math.isfinite(b) and abs(a - b) <= RETRIEVAL_ATOL,
+              f"9(a): {key} route (i) {a} against route (ii) {b}")
+        check(errors[key] <= RETRIEVAL_ATOL, f"9(a): {key} {a}, {b} against float64 {oracle[key]}")
+    precision, recall, top_k = results1["curve"]
+    curve_err = max(float(np.abs(precision.double().cpu().numpy() - oracle["curve_precision"]).max()),
+                    float(np.abs(recall.double().cpu().numpy() - oracle["curve_recall"]).max()))
+    check(curve_err <= RETRIEVAL_ATOL and torch.equal(top_k.cpu(), torch.arange(1, 101, dtype=torch.int32)),
+          f"9(a): the precision-recall curve is {curve_err:.2e} from float64")
+    best_recall, best_k = results1["r@p0.1"]
+    qualify = oracle["curve_precision"] >= 0.1
+    want_recall = float(oracle["curve_recall"][qualify].max()) if qualify.any() else 0.0
+    check(abs(float(best_recall) - want_recall) <= RETRIEVAL_ATOL, f"9(a): recall at precision 0.1 {float(best_recall)}"
+          f" against float64 {want_recall}")
+    near = np.abs(oracle["curve_precision"] - 0.1) <= RETRIEVAL_ATOL  # where one rounding decides the k
+    if not near.any():
+        ties = np.flatnonzero(qualify & (oracle["curve_recall"] == want_recall)) + 1
+        check(int(best_k) in ties.tolist() or int(best_k) == int(ties.max()), f"9(a): best k {int(best_k)}, float64 {ties}")
+
+    # the bounds set too small: eager compute raises, a captured compute gives NaN
+    small = mt.RetrievalMAP(max_queries=8, max_docs_per_query=512, buffer_capacity=4 * 64 * 1000)
+    for preds, target, indexes in stream[:4]:  # 64 queries of 1,000 documents an update
+        small.update(preds, target, indexes=indexes)
+    try:
+        small.compute()
+        fail("9(a): compute() over too small bounds did not raise")
+    except Exception as err:  # the port's MetricsUserError
+        check("overflowed its static bounds" in str(err), f"9(a): compute over too small bounds raised {str(err)[:200]}")
+    small._computed = None
+    nan = small.compute()  # the engine's probe and capture: nothing read back, NaN
+    check(bool(torch.isnan(nan)), f"9(a): the captured compute over too small bounds gave {float(nan)}, not NaN")
+    del small
+
+    step1_us = statistics.median(step1[3:-1]) * 1e3
+    step2_us = statistics.median(step2[3:-1]) * 1e3
+    print(f"phase 9(a) ({smi}): {len(stream)} updates ({MSMARCO_QUERIES} queries x {MSMARCO_CANDIDATES} candidates, "
+          f"{oracle['relevant_per_query']:.3f} relevant a query, {n_empty} queries without one); update step route (i)"
+          f" eager {step1_us:.1f} us, route (ii) captured {step2_us:.1f} us; route (ii) buffers bitwise equal to route"
+          f" (i)'s appends, update engine {counts}, steady state with sync debug mode 'error', memory_allocated flat at"
+          f" {mem[0]} bytes")
+    print(f"phase 9(a) ({smi}): compute route (i) " + ", ".join(f"{k} {v:.2f} s" for k, v in compute1_s.items())
+          + f" ({sum(compute1_s.values()):.1f} s in all); readbacks of MRR's compute {readbacks1} (the grouping alone"
+          f" {grouping}, the loop {per_query}: 1 a query, 1 a non-empty query); route (ii) eight metrics in one graph:"
+          f" eager warmup"
+          f" {compute2_ms[0]:.1f} ms ({readbacks_eager2} readbacks), capture {compute2_ms[1]:.1f} ms, replays "
+          + ", ".join(f"{v:.1f}" for v in compute2_ms[2:]) + f" ms ({readbacks_replay2} readbacks); each alone, replayed: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in compute2_member_ms.items())
+          + f"; idle share route (ii) update {idle_share(update_prof)}, compute {idle_share(compute_prof)},"
+          f" route (i) MRR compute {idle_share(mrr_prof)}")
+    print("phase 9(a): " + ", ".join(f"{k} {float(results1[k]):.7f} / {float(computes2[0][k]):.7f} (float64"
+                                     f" {oracle[k]:.7f}, error {errors[k]:.2e})" for k in errors)
+          + f"; curve error {curve_err:.2e}; recall at precision 0.1 {float(best_recall):.7f} at k {int(best_k)};"
+          f" too small bounds raise eager and give NaN captured; oracle {oracle_s:.1f} s")
+    return {"update_step_us": {"route_i_eager": step1_us, "route_ii_captured": step2_us},
+            "compute_s_route_i": compute1_s, "readbacks_route_i": readbacks1,
+            "compute_ms_route_ii": compute2_ms, "readbacks_route_ii": {"eager": readbacks_eager2, "replay": readbacks_replay2},
+            "compute_idle_route_ii": idle_share(compute_prof), "update_idle_route_ii": idle_share(update_prof),
+            "compute_idle_route_i_mrr": idle_share(mrr_prof), "compute_ms_route_ii_members": compute2_member_ms, "errors": errors, "curve_error": curve_err,
+            "values": {k: float(computes2[0][k]) for k in errors}, "engine": counts}
+
+
+def nyu_stream(torch):
+    """NYU Depth v2 test size as flat per-pixel vectors, 8 images (2,457,600
+    depths) an update and a ragged last one of 6: targets in metres, uniform
+    in 0.5-10 m and quantised to 1 mm as the dataset stores them;
+    predictions the target times log-normal noise."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 110)
+    pixels = NYU_HEIGHT * NYU_WIDTH
+    out = []
+    for lo in range(0, NYU_IMAGES, NYU_IMAGES_PER_UPDATE):
+        n = min(NYU_IMAGES_PER_UPDATE, NYU_IMAGES - lo) * pixels
+        target = torch.round((0.5 + 9.5 * torch.rand(n, generator=gen, device="cuda")) * 1000.0) / 1000.0
+        preds = target * torch.exp(NYU_NOISE * torch.randn(n, generator=gen, device="cuda"))
+        out.append((preds, target))
+    return out
+
+
+def depth_metrics(mt, compiled: bool):
+    flags = engine_flags(compiled)
+    return mt.MetricCollection(
+        {
+            "mse": mt.MeanSquaredError(**flags),
+            "rmse": mt.MeanSquaredError(squared=False, **flags),
+            "mae": mt.MeanAbsoluteError(**flags),
+            "msle": mt.MeanSquaredLogError(**flags),
+            "mape": mt.MeanAbsolutePercentageError(**flags),
+            "smape": mt.SymmetricMeanAbsolutePercentageError(**flags),
+            "wmape": mt.WeightedMeanAbsolutePercentageError(**flags),
+            "r2": mt.R2Score(**flags),
+            "explained_variance": mt.ExplainedVariance(**flags),
+            "pearson": mt.PearsonCorrCoef(**flags),
+            "tweedie": mt.TweedieDevianceScore(power=1.5, **flags),
+        },
+        **flags,
+    )
+
+
+def depth_oracle(np, stream) -> dict:
+    """float64 results, summed chunk by chunk on the host."""
+    eps = 1.17e-06
+    acc = dict.fromkeys(("n", "se", "ae", "sle", "ape", "sape", "st", "stt", "sp", "spp", "spt", "sd", "sdd", "tw"), 0.0)
+    for preds, target in stream:
+        p, t = preds.cpu().numpy().astype(np.float64), target.cpu().numpy().astype(np.float64)
+        d = t - p
+        acc["n"] += p.size
+        acc["se"] += (d * d).sum()
+        acc["ae"] += np.abs(d).sum()
+        acc["sle"] += ((np.log1p(p) - np.log1p(t)) ** 2).sum()
+        acc["ape"] += (np.abs(d) / np.maximum(np.abs(t), eps)).sum()
+        acc["sape"] += (np.abs(d) / np.maximum(np.abs(t) + np.abs(p), eps)).sum()
+        acc["st"] += t.sum()
+        acc["stt"] += (t * t).sum()
+        acc["sp"] += p.sum()
+        acc["spp"] += (p * p).sum()
+        acc["spt"] += (p * t).sum()
+        acc["sd"] += d.sum()
+        acc["sdd"] += (d * d).sum()
+        acc["tw"] += (2 * (np.maximum(t, 0) ** 0.5 / (-0.5 * 0.5) - t * p ** -0.5 / -0.5 + p ** 0.5 / 0.5)).sum()
+    n = acc["n"]
+    tss = acc["stt"] - acc["st"] ** 2 / n
+    var_d = acc["sdd"] / n - (acc["sd"] / n) ** 2
+    var_t = acc["stt"] / n - (acc["st"] / n) ** 2
+    cov = acc["spt"] - acc["sp"] * acc["st"] / n
+    return {
+        "mse": acc["se"] / n, "rmse": math.sqrt(acc["se"] / n), "mae": acc["ae"] / n, "msle": acc["sle"] / n,
+        "mape": acc["ape"] / n, "smape": 2 * acc["sape"] / n, "wmape": acc["ae"] / acc["st"],
+        "r2": 1 - acc["se"] / tss, "explained_variance": 1 - var_d / var_t,
+        "pearson": cov / math.sqrt((acc["spp"] - acc["sp"] ** 2 / n) * tss), "tweedie": acc["tw"] / n,
+    }
+
+
+def phase_nine_b(torch, mt, np, sync, stream, smi) -> dict:
+    """9(b): per-pixel depth regression at NYU Depth v2 test size, eager then
+    compiled, bitwise, against a float64 oracle."""
+    make = lambda c: depth_metrics(mt, c)  # noqa: E731
+    run = eager_then_compiled(torch, "9(b)", make, feed_pair, stream)
+    results = run["results"]
+    view = run["compiled"].engine_stats()["partition"]
+    for kind in ("update", "compute"):
+        for key, entry in view[kind].items():
+            check(entry["path"] == "fused", f"9(b): {key} {kind} path {entry}")
+    t0 = time.perf_counter()
+    oracle = depth_oracle(np, stream)
+    oracle_s = time.perf_counter() - t0
+    errors = {}
+    for key, value in oracle.items():
+        got = float(results[key])
+        errors[key] = abs(got - value) / abs(value)
+        bound_ = TWEEDIE_RTOL if key == "tweedie" else REGRESSION_RTOL
+        check(math.isfinite(got) and errors[key] <= bound_, f"9(b): {key} {got} vs float64 {value}")
+    # synced in a world of one NCCL rank: Pearson's moments arrive stacked on a
+    # rank axis of one, so compute() keeps the single-rank branch; bitwise
+    import torch.distributed as dist
+
+    eager = run["eager"]
+    expected = {"all_reduce": 0, "all_gather": 0}
+    for m in eager.values():
+        reds = {(m._reductions[k], v.dtype) for k, v in m.get_state().items()}
+        expected["all_reduce"] += sum(r in ("sum", "mean", "max", "min") for r, _ in reds)
+        expected["all_gather"] += sum(r is None for r, _ in reds)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        for m in eager.values():
+            m._computed = None
+        with sync.count_collectives() as box, sync.sync_axes(dist.group.WORLD):
+            synced = dict(eager.compute())
+        check(box["by_kind"] == expected, f"9(b): synced compute ran {box['by_kind']}, expected {expected}")
+        same_results(torch, "9(b) synced", synced, results)
+    finally:
+        dist.destroy_process_group()
+    timing = timing_pairs(torch, make, feed_pair, stream)
+    print_timing("9(b)", timing, smi, ops=True)
+    print(f"phase 9(b): {len(stream)} updates ({NYU_IMAGES} x {NYU_HEIGHT} x {NYU_WIDTH} depths) of MSE, RMSE, MAE, MSLE,"
+          f" MAPE, SMAPE, WMAPE, R2, explained variance, Pearson and Tweedie (power 1.5) in one collection; compiled"
+          f" states and 2 computes bitwise equal to eager; update engine {run['engines']['collection']};"
+          f" memory_allocated flat at {run['memory']} bytes; synced (world of one NCCL rank) {box['by_kind']}, bitwise; "
+          + ", ".join(f"{k} {float(results[k]):.7f} (float64 {oracle[k]:.7f}, relative error {errors[k]:.2e})" for k in oracle)
+          + f"; oracle {oracle_s:.1f} s")
+    return {"engines": run["engines"], "errors": errors, "values": {k: float(results[k]) for k in oracle},
+            "collectives": box["by_kind"], "timing": timing_summary(timing)}
+
+
+def phase_nine_c(torch, mt, np, stream) -> dict:
+    """9(c): Spearman over the first 16 images of 9(b) (mm-quantised targets
+    tie heavily), list and buffered (captured appends), against scipy; the
+    buffered CosineSimilarity over 2,000 x 1,024 embedding pairs."""
+    from scipy.stats import spearmanr
+
+    pixels = NYU_HEIGHT * NYU_WIDTH
+    per = SPEARMAN_IMAGES_PER_UPDATE * pixels
+    head = stream[: SPEARMAN_IMAGES // NYU_IMAGES_PER_UPDATE]
+    preds, target = torch.cat([p for p, _ in head]), torch.cat([t for _, t in head])
+    chunks = [(preds[lo:lo + per], target[lo:lo + per]) for lo in range(0, preds.numel(), per)]
+    lists = mt.SpearmanCorrCoef(compiled_update=False)
+    buffered = mt.SpearmanCorrCoef(buffer_capacity=SPEARMAN_IMAGES * pixels)
+    for i, (p, t) in enumerate(chunks):
+        lists.update(p, t)
+        if i >= 3:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            buffered.update(p, t)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check_engine("9(c) buffered Spearman update", buffered._update_engine.stats,
+                 expected_engine_counts([(i > 0, per) for i in range(len(chunks))]))
+    for s in ("preds", "target"):
+        check(torch.equal(getattr(buffered, s).to_array(), torch.cat(getattr(lists, s))),
+              f"9(c): the buffered Spearman {s} rows differ from the list's")
+    got_list, got_buf = lists.compute(), buffered.compute()
+    check(torch.equal(got_list, got_buf), "9(c): buffered and list Spearman differ")
+    t0 = time.perf_counter()
+    want = float(spearmanr(preds.cpu().numpy(), target.cpu().numpy())[0])
+    scipy_s = time.perf_counter() - t0
+    spearman_err = abs(float(got_list) - want)
+    check(spearman_err <= REGRESSION_RTOL, f"9(c): Spearman {float(got_list)} against scipy {want}")
+    distinct = int(torch.unique(target).numel())
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 120)
+    a = torch.randn((EMBEDDING_PAIRS, EMBEDDING_DIM), generator=gen, device="cuda")
+    b = a + 0.75 * torch.randn((EMBEDDING_PAIRS, EMBEDDING_DIM), generator=gen, device="cuda")
+    cos_list = mt.CosineSimilarity(reduction="mean", compiled_update=False)
+    cos_buf = mt.CosineSimilarity(reduction="mean", buffer_capacity=EMBEDDING_PAIRS)
+    for lo in range(0, EMBEDDING_PAIRS, EMBEDDING_BATCH):
+        for m in (cos_list, cos_buf):
+            m.update(a[lo:lo + EMBEDDING_BATCH], b[lo:lo + EMBEDDING_BATCH])
+    sizes = [min(EMBEDDING_BATCH, EMBEDDING_PAIRS - lo) for lo in range(0, EMBEDDING_PAIRS, EMBEDDING_BATCH)]
+    check_engine("9(c) buffered CosineSimilarity update", cos_buf._update_engine.stats,
+                 expected_engine_counts([(i > 0, s) for i, s in enumerate(sizes)]))
+    cos_value = cos_buf.compute()
+    check(torch.equal(cos_value, cos_list.compute()), "9(c): buffered and list CosineSimilarity differ")
+    ad, bd = a.double(), b.double()
+    cos_want = float(((ad * bd).sum(1) / (ad.norm(dim=1) * bd.norm(dim=1))).mean())
+    cos_err = abs(float(cos_value) - cos_want)
+    check(cos_err <= REGRESSION_RTOL, f"9(c): CosineSimilarity {float(cos_value)} against float64 {cos_want}")
+    print(f"phase 9(c): Spearman over {SPEARMAN_IMAGES} images ({preds.numel()} depths, {distinct} distinct targets),"
+          f" list and buffered (captured appends, rows bitwise equal) {float(got_list):.7f}, scipy {want:.7f}"
+          f" (error {spearman_err:.2e}, scipy {scipy_s:.1f} s); CosineSimilarity (mean) over {EMBEDDING_PAIRS} x"
+          f" {EMBEDDING_DIM} pairs, list and buffered bitwise, {float(cos_value):.7f}, float64 {cos_want:.7f}"
+          f" (error {cos_err:.2e})")
+    return {"spearman": float(got_list), "spearman_error": spearman_err, "distinct_targets": distinct,
+            "cosine": float(cos_value), "cosine_error": cos_err}
+
+
+def phase_nine_d(torch, mt, smi) -> dict:
+    """9(d): the pairwise matrices with TF32 off against float64 on the card:
+    unit-normalised embeddings (cosine, linear, euclidean at 4,096 x 4,096,
+    D = 1,024), within 1e-5; Manhattan's (N, M, D) broadcast at 1,024 x
+    1,024, D = 256, whose distances are about 18, within 1e-5 of each
+    value's magnitude."""
+    from metrics_tpu_torch import ops
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "9(d): TF32 is on")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 130)
+    out = {}
+    for name, rows, dim in (("cosine", PAIRWISE_ROWS, PAIRWISE_DIM), ("linear", PAIRWISE_ROWS, PAIRWISE_DIM),
+                            ("euclidean", PAIRWISE_ROWS, PAIRWISE_DIM), ("manhattan", MANHATTAN_ROWS, MANHATTAN_DIM)):
+        x = torch.nn.functional.normalize(torch.randn((rows, dim), generator=gen, device="cuda"), dim=1)
+        y = torch.nn.functional.normalize(torch.randn((rows, dim), generator=gen, device="cuda"), dim=1)
+        fn = getattr(ops, f"pairwise_{name}_{'similarity' if name in ('cosine', 'linear') else 'distance'}")
+        got = fn(x, y)
+        xd, yd = x.double(), y.double()
+        if name == "manhattan":
+            want = (xd[:, None, :] - yd[None, :, :]).abs().sum(-1)
+        elif name == "euclidean":
+            want = torch.cdist(xd, yd)
+        else:
+            want = xd @ yd.T
+            if name == "cosine":
+                want = want / (xd.norm(dim=1)[:, None] * yd.norm(dim=1)[None, :])
+        err = (got.double() - want).abs()
+        scale = want.abs().clamp(min=1.0) if name == "manhattan" else 1.0
+        worst = float((err / scale).max())
+        check(got.shape == (rows, rows) and bool(torch.isfinite(got).all()) and worst <= PAIRWISE_ATOL,
+              f"9(d): pairwise {name} is {worst:.2e} from float64")
+        ms = time_ms(torch, lambda: fn(x, y), warmup=2, reps=5)
+        out[name] = {"max_err": worst, "ms": ms, "shape": [rows, rows, dim]}
+        del got, want, err
+    print(f"phase 9(d) ({smi}): TF32 off; " + ", ".join(
+        f"{k} {tuple(v['shape'])} {v['ms']:.3f} ms, {'relative ' if k == 'manhattan' else ''}error {v['max_err']:.2e}"
+        for k, v in out.items()))
+    return out
+
+
+def phase_nine(torch, mt, np, kernels_mod, sync, smi) -> dict:
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    out = {"a": phase_nine_a(torch, mt, np, smi)}
+    gc.collect()
+    stream = nyu_stream(torch)
+    out["b"] = phase_nine_b(torch, mt, np, sync, stream, smi)
+    out["c"] = phase_nine_c(torch, mt, np, stream)
+    del stream
+    gc.collect()
+    out["d"] = phase_nine_d(torch, mt, smi)
+    launches = kernels_mod.launch_counts()
+    check(not any(launches.values()), f"phase 9 launched a kernel of B1-B3: {launches}")
+    out["launches"] = launches
+    elapsed = time.perf_counter() - t0
+    print(f"phase 9 ({smi}): {elapsed:.1f} s in all (limit {PHASE9_LIMIT_S:.0f} s); kernel launches {launches}")
+    check(elapsed < PHASE9_LIMIT_S, f"phase 9 took {elapsed:.1f} s, over its {PHASE9_LIMIT_S:.0f} s")
+    out["seconds"] = elapsed
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2673,6 +3246,9 @@ def main() -> None:
     # ---- phase 8: the rest of classification and the aggregators (no kernel of B1-B3 on its path)
     eight = phase_eight(torch, mt, np, kernels_mod, sync, smi)
 
+    # ---- phase 9: regression, pairwise and retrieval (no kernel of B1-B3 on its path)
+    nine = phase_nine(torch, mt, np, kernels_mod, sync, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -2689,6 +3265,7 @@ def main() -> None:
             "library_ms": timing.get("library_ms"),
             "ok": True,
             "phase8_launches": eight["launches"][kname],
+            "phase9_launches": nine["launches"][kname],
             **us,
             **extra,
         }

@@ -223,6 +223,7 @@ class Metric:
         default: StateValue,
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
+        bufferable: Optional[bool] = None,
     ) -> None:
         """Register a state variable.
 
@@ -231,7 +232,10 @@ class Metric:
         (a ``cat`` buffer of fixed item shape). ``dist_reduce_fx`` is one of
         ``"sum"|"mean"|"max"|"min"|"cat"``, a callable applied to the
         stacked values, or None (keep every value). With ``buffer_capacity``
-        set, an empty-list ``cat`` state becomes a buffer of that capacity.
+        set, an empty-list state that is *bufferable* becomes a buffer of that
+        capacity: one consumed as a flat dim-0 concatenation. ``bufferable``
+        defaults to ``dist_reduce_fx == "cat"``; flat ``None``-reduce lists
+        (retrieval's) pass ``bufferable=True``.
         """
         if not isinstance(default, (Tensor, CatBuffer)) and not (isinstance(default, list) and default == []):
             raise ValueError("state variable must be a tensor, an empty list or a CatBuffer")
@@ -240,7 +244,7 @@ class Metric:
         if isinstance(default, CatBuffer) and dist_reduce_fx != "cat":
             raise ValueError(f"state {name!r}: a CatBuffer default needs dist_reduce_fx='cat'")
         if isinstance(default, list) and self.buffer_capacity is not None:
-            if dist_reduce_fx != "cat":
+            if not (dist_reduce_fx == "cat" if bufferable is None else bufferable):
                 raise MetricsUserError(
                     f"{type(self).__name__} does not support `buffer_capacity`: state {name!r} is "
                     "a list of per-element entries (not a flat dim-0 concatenation), so it cannot "

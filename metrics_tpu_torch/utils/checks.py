@@ -327,3 +327,59 @@ def _input_format_classification(
         preds, target = preds.squeeze(-1), target.squeeze(-1)
 
     return preds.to(torch.int32), target.to(torch.int32), case
+
+
+# --------------------------------------------------------------------------- #
+# retrieval input checks
+# --------------------------------------------------------------------------- #
+def _is_integer(x: Tensor) -> bool:
+    return not (x.is_floating_point() or x.is_complex() or x.dtype == torch.bool)
+
+
+def _check_retrieval_target_and_prediction_types(
+    preds: Tensor, target: Tensor, allow_non_binary_target: bool = False
+) -> Tuple[Tensor, Tensor]:
+    """Flat float32 scores and a flat target: float32 where it is floating,
+    int32 otherwise (bools too), the dtypes the JAX package gives them.
+    The binary check reads the target back, so it runs eager only."""
+    if target.is_complex():
+        raise ValueError("`target` must hold boolean, integer or float values")
+    if not _is_floating(preds):
+        raise ValueError("`preds` must hold float scores")
+    if not allow_non_binary_target and not _capturing() and bool(((target > 1) | (target < 0)).any()):
+        raise ValueError("`target` must be binary (0/1) for this metric")
+    target = target.to(torch.float32) if _is_floating(target) else target.to(torch.int32)
+    return preds.to(torch.float32).reshape(-1), target.reshape(-1)
+
+
+def _check_retrieval_functional_inputs(
+    preds: Tensor, target: Tensor, allow_non_binary_target: bool = False
+) -> Tuple[Tensor, Tensor]:
+    if preds.shape != target.shape:
+        raise ValueError("`preds` and `target` shapes must match")
+    if preds.numel() == 0 or preds.ndim == 0:
+        raise ValueError("`preds` and `target` must be non-scalar and contain at least one element")
+    return _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Flat int32 query ids, float32 scores and the target; rows whose
+    target is ``ignore_index`` are dropped (a shape that depends on values:
+    eager only, so a captured update reverts to eager there)."""
+    if indexes.shape != preds.shape or preds.shape != target.shape:
+        raise ValueError("`indexes`, `preds` and `target` shapes must all match")
+    if not _is_integer(indexes):
+        raise ValueError("`indexes` must hold integer query ids")
+    if ignore_index is not None:
+        valid = target != ignore_index
+        indexes, preds, target = indexes[valid], preds[valid], target[valid]
+    if indexes.numel() == 0 or indexes.ndim == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-scalar and contain at least one element")
+    preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
+    return indexes.to(torch.int32).reshape(-1), preds, target

@@ -5,6 +5,15 @@ import torch
 from torch import Tensor
 
 
+def safe_matmul(x: Tensor, y: Tensor) -> Tensor:
+    """``x @ y``; half-precision inputs are multiplied with float32
+    accumulation and cast back, as the JAX package's ``safe_matmul`` asks
+    for ``preferred_element_type=float32``."""
+    if x.dtype in (torch.float16, torch.bfloat16):
+        return torch.matmul(x.to(torch.float32), y.to(torch.float32)).to(x.dtype)
+    return torch.matmul(x, y)
+
+
 def safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
     """``x * log(y)`` with ``0 * log(anything) = 0``, as the JAX package
     defines it: ``where(x == 0, 0, x * log(where(x == 0, 1, y)))``.

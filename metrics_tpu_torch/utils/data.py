@@ -165,3 +165,30 @@ def _squeeze_if_scalar(data: Any) -> Any:
     """Squeeze size-1 tensors to 0-d (0-d tensors pass through untouched: a
     list of C per-class scalars costs no C squeeze ops)."""
     return apply_to_collection(data, Tensor, lambda x: x.squeeze() if x.ndim > 0 and x.numel() == 1 else x)
+
+
+# --------------------------------------------------------------------------- #
+# grouping
+# --------------------------------------------------------------------------- #
+def get_group_indexes(indexes: Tensor) -> List[Tensor]:
+    """The positions of each value of ``indexes``, one int32 tensor per value,
+    in the order the values first appear, each group's positions ascending:
+    what the JAX package's host dict of lists gives.
+
+    One stable sort groups the positions on the device; only the group
+    starts, sizes and order are read back (three reads, where a ``tolist()``
+    of every index would move the whole stream to the host).
+    """
+    idx = indexes.reshape(-1)
+    n = idx.numel()
+    if n == 0:
+        return []
+    order = torch.argsort(idx, stable=True)  # positions ascending within a value
+    sorted_idx = idx[order]
+    starts = torch.ones(n, dtype=torch.bool, device=idx.device)
+    starts[1:] = sorted_idx[1:] != sorted_idx[:-1]
+    start_pos = torch.arange(n, device=idx.device)[starts]
+    sizes = torch.diff(start_pos, append=start_pos.new_full((1,), n)).tolist()
+    first_seen = torch.argsort(order[starts]).tolist()  # the groups in first-appearance order
+    groups = torch.split(order.to(torch.int32), sizes)
+    return [groups[g] for g in first_seen]

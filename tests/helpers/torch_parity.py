@@ -49,7 +49,7 @@ ATOL = 1e-6
 BITWISE_RESULTS = frozenset({
     "StatScores", "Accuracy", "Precision", "Recall", "F1Score", "FBetaScore",
     "BinnedPrecisionRecallCurve", "BinnedRecallAtFixedPrecision",
-    "MeanAveragePrecision", "CompositionalMetric", "ROC", "PrecisionRecallCurve",
+    "MeanAveragePrecision", "ROC", "PrecisionRecallCurve",
     # integer matrices and counts, ratios of them, maxima and copied rows
     "ConfusionMatrix", "JaccardIndex", "Specificity", "Dice", "HammingDistance",
     "MaxMetric", "MinMetric", "CatMetric",
@@ -62,6 +62,12 @@ BITWISE_RESULTS = frozenset({
 FLOAT_SUM_STATES = frozenset({
     "HingeLoss", "KLDivergence", "CoverageError", "LabelRankingAveragePrecision", "LabelRankingLoss",
     "SumMetric", "MeanMetric",
+    # the regression error sums and running moments (Pearson's merge across
+    # ranks is a different sum from one rank's sequential updates), and the
+    # composition of MSE and MAE
+    "MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "MeanAbsolutePercentageError",
+    "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError", "R2Score",
+    "ExplainedVariance", "TweedieDevianceScore", "PearsonCorrCoef", "CompositionalMetric",
 })
 
 # states compared bit for bit; BERTScore's are host token arrays that the
@@ -72,10 +78,7 @@ COMPARE_STATES = frozenset(TWINS) - {"BERTScore"}
 # reference side builds what the twin builds (torch_twins.py says why)
 REFERENCE_MAKERS = {
     "MeanAveragePrecision": lambda: M.MeanAveragePrecision(device_state=True),
-    "CompositionalMetric": lambda: M.Accuracy(num_classes=C) + M.F1Score(num_classes=C),
 }
-_PROBS_LABELS = INVENTORY["Accuracy"].batch
-REFERENCE_BATCHES = {"CompositionalMetric": _PROBS_LABELS}
 
 UNTWINNED = frozenset(INVENTORY) - frozenset(TWINS)
 
@@ -110,7 +113,7 @@ def _numpy(tree: Any) -> Any:
 
 def batches(name: str) -> List[Tuple[tuple, dict]]:
     """The entry's update calls, as numpy: ``[(args, kwargs), ...]``."""
-    out = REFERENCE_BATCHES.get(name, INVENTORY[name].batch)()
+    out = INVENTORY[name].batch()
     calls = out if isinstance(out, list) else [out]
     return [(_numpy(tuple(args)), _numpy(dict(kwargs))) for args, kwargs in calls]
 

@@ -9,9 +9,10 @@ against the JAX package.
 ``TWINS[name].make(**kw)`` builds the twin of ``INVENTORY[name].make()`` and
 ``TWINS[name].buffered(**kw)`` that of ``INVENTORY[name].buffered()``; ``kw``
 adds the port's own keywords (the engine switches), and ``device="cpu"`` is
-always passed. Three entries build, on the reference side too, something
-other than their ``INVENTORY`` maker, since the port has not ported what it
-uses (``REFERENCE_ARGS`` in the harness says what).
+always passed. mAP builds, on the reference side too, something other than
+its ``INVENTORY`` maker, since the port has not ported the path that maker
+uses (``REFERENCE_MAKERS`` in the harness); BERTScore's twin runs a torch
+copy of the ``INVENTORY``'s sine forward.
 """
 from __future__ import annotations
 
@@ -56,6 +57,12 @@ def sine_forward(model: Any, batch: Dict[str, Any]) -> torch.Tensor:
 
 def _cpu(factory: Callable[..., Any]) -> Callable[..., Any]:
     return lambda **kw: factory(device="cpu", **kw)
+
+
+def _default(name: str, **args: Any) -> Callable[..., Any]:
+    """The port's class ``name`` built with ``args``, on the CPU."""
+    cls = getattr(mt, name)
+    return _cpu(lambda **kw: cls(**args, **kw))
 
 
 TWINS: Dict[str, Twin] = {
@@ -122,10 +129,27 @@ TWINS: Dict[str, Twin] = {
     "BERTScore": Twin(_cpu(lambda **kw: mt.BERTScore(
         model=object(), user_forward_fn=sine_forward, user_tokenizer=WhitespaceTokenizer(), **kw
     ))),
-    # the INVENTORY composes MeanSquaredError and MeanAbsoluteError (regression,
-    # not ported yet): both sides compose two classification twins instead
-    "CompositionalMetric": Twin(
-        _cpu(lambda **kw: mt.Accuracy(num_classes=C, **kw) + mt.F1Score(num_classes=C, **kw))
+    "CompositionalMetric": Twin(_cpu(lambda **kw: mt.MeanSquaredError(**kw) + mt.MeanAbsoluteError(**kw))),
+    # regression
+    **{name: Twin(_default(name)) for name in (
+        "ExplainedVariance", "MeanAbsoluteError", "MeanAbsolutePercentageError", "MeanSquaredError",
+        "MeanSquaredLogError", "PearsonCorrCoef", "R2Score", "SymmetricMeanAbsolutePercentageError",
+        "WeightedMeanAbsolutePercentageError",
+    )},
+    "TweedieDevianceScore": Twin(_default("TweedieDevianceScore", power=1.5)),
+    **{name: Twin(_default(name), _default(name, buffer_capacity=256)) for name in (
+        "CosineSimilarity", "SpearmanCorrCoef",
+        # retrieval
+        "RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
+        "RetrievalHitRate", "RetrievalNormalizedDCG", "RetrievalRPrecision",
+    )},
+    "RetrievalPrecisionRecallCurve": Twin(
+        _default("RetrievalPrecisionRecallCurve", max_k=4),
+        _default("RetrievalPrecisionRecallCurve", max_k=4, buffer_capacity=256),
+    ),
+    "RetrievalRecallAtFixedPrecision": Twin(
+        _default("RetrievalRecallAtFixedPrecision", min_precision=0.3, max_k=4),
+        _default("RetrievalRecallAtFixedPrecision", min_precision=0.3, max_k=4, buffer_capacity=256),
     ),
 }
 

@@ -243,6 +243,13 @@ def test_metrics_default_to_cuda_and_never_fall_back(monkeypatch):
         lambda: mt_torch.MaxMetric(),
         lambda: mt_torch.MinMetric(),
         lambda: mt_torch.CatMetric(buffer_capacity=8),
+        lambda: mt_torch.MeanSquaredError(),
+        lambda: mt_torch.PearsonCorrCoef(),
+        lambda: mt_torch.SpearmanCorrCoef(buffer_capacity=8),
+        lambda: mt_torch.TweedieDevianceScore(power=1.5),
+        lambda: mt_torch.RetrievalMAP(),
+        lambda: mt_torch.RetrievalNormalizedDCG(max_queries=4, max_docs_per_query=4, buffer_capacity=8),
+        lambda: mt_torch.RetrievalRecallAtFixedPrecision(min_precision=0.5),
     ):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
@@ -269,6 +276,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch.ops.classification.auroc, metrics_tpu_torch.ops.classification.calibration_error\n"
         "import metrics_tpu_torch.ops.classification.average_precision, metrics_tpu_torch.aggregation\n"
         "import metrics_tpu_torch.ops.classification.ranking, metrics_tpu_torch.ops.classification.kl_divergence\n"
+        "import metrics_tpu_torch.regression, metrics_tpu_torch.ops.regression, metrics_tpu_torch.ops.pairwise\n"
+        "import metrics_tpu_torch.retrieval, metrics_tpu_torch.ops.retrieval, metrics_tpu_torch.ops.retrieval.segmented\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -343,6 +352,16 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.ops.classification.hinge",
     "metrics_tpu_torch.ops.classification.kl_divergence",
     "metrics_tpu_torch.ops.classification.ranking",
+    "metrics_tpu_torch.regression.basic",
+    "metrics_tpu_torch.regression.other",
+    "metrics_tpu_torch.regression.moments",
+    "metrics_tpu_torch.ops.regression.basic",
+    "metrics_tpu_torch.ops.regression.other",
+    "metrics_tpu_torch.ops.regression.moments",
+    "metrics_tpu_torch.ops.pairwise",
+    "metrics_tpu_torch.ops.retrieval",
+    "metrics_tpu_torch.retrieval.metrics",
+    "metrics_tpu_torch.retrieval.precision_recall_curve",
 ]
 
 
