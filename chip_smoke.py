@@ -173,6 +173,31 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    off against float64. Update steps, computes and readbacks timed; the
    phase stays under 420 s.
 
+10. The wrappers and the text metrics other than BERTScore, which run no
+   kernel of B1-B3 (their launch counts stay 0 through the phase). (a) On
+   phase 3's stream: BootStrapper(Accuracy, 100 replicas, quantiles 0.025
+   and 0.975, raw) with poisson and then multinomial resampling, each
+   replica's counts bitwise against a numpy redraw of the same seed and its
+   statistics within 1e-6 of float64, the update step by events and its
+   device operations by the profiler; ClasswiseWrapper's 1,000 values
+   bitwise against Accuracy(average=None); MinMaxMetric's forward per batch
+   bitwise against a plain Accuracy's batch values and their running min
+   and max; MetricTracker over five epochs with a seeded 1-10% of noisy
+   rows, its best values and steps equal to five separate collections';
+   MultioutputWrapper(MSE, 3 outputs) on per-pixel surface normals at NYU
+   Depth v2 test size with 5% NaN holes, states bitwise against three MSEs
+   fed the NaN-filtered columns, within 1e-5 relative of float64, its reads
+   to the host counted. (b) Text from seeded Zipf corpora (no dataset is
+   read), each metric's states on the card bitwise equal to a CPU twin's
+   and its results within 1e-6: WER, CER, MER, WIL and WIP at LibriSpeech
+   test-clean size (2,620 utterances, 52,576 words, 5% word edits), the
+   batched edit-distance scan bitwise against the pure-Python DP and timed
+   by events with its device operations; BLEU, SacreBLEU (13a), chrF++, TER
+   and EED at WMT19 newstest2019 size (2,000 segments, 30% word edits);
+   ROUGE-1/2/L/Lsum at CNN/DailyMail test size (11,490 summaries of 3-4
+   sentences, the regex sentence splitter); SQuAD at v1.1 dev size (10,570
+   questions). The phase stays under 300 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -3061,6 +3086,508 @@ def phase_nine(torch, mt, np, kernels_mod, sync, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the wrappers and the text metrics other than BERTScore
+# --------------------------------------------------------------------------- #
+BOOT_REPLICAS = 100
+BOOT_QUANTILES = (0.025, 0.975)
+WRAPPER_ATOL = 1e-6
+TRACKER_EPOCHS = 5
+NORMALS_HOLES = 0.05  # share of NaN pixels in the target normals
+TEXT_ATOL = 1e-6
+VOCAB_SIZE, ZIPF_S = 20_000, 1.1
+# LibriSpeech test-clean: 2,620 utterances, 52,576 words
+LIBRI_UTTERANCES, LIBRI_WORDS, ASR_EDIT_RATE, ASR_PER_UPDATE = 2620, 52_576, 0.05, 64
+ASR_CHAR_CHECK = 256
+# WMT19 de-en newstest2019: 2,000 segments, one reference each
+WMT_SEGMENTS, WMT_MEAN_WORDS, MT_EDIT_RATE, MT_PER_UPDATE = 2000, 22, 0.30, 64
+# CNN/DailyMail test: 11,490 summaries of 3-4 sentences
+CNNDM_SUMMARIES, SUMMARY_PER_UPDATE = 11_490, 64
+# SQuAD v1.1 dev: 10,570 questions with 1-3 gold answers
+SQUAD_QUESTIONS, SQUAD_PER_UPDATE = 10_570, 256
+PHASE10_LIMIT_S = 300.0
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bits (NaN included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    a, b = a.detach().cpu().contiguous(), b.detach().cpu().contiguous()
+    if a.is_floating_point():
+        width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(width), b.view(width))
+    return torch.equal(a, b)
+
+
+def event_ms(torch, fn):
+    """``fn()``'s result and its time by CUDA events, in ms."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host-clock time of ``fn()`` in ms, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def imagenet_probs(torch, np):
+    """Phase 3's stream as (probs, target) on the card, and each batch's
+    argmax and labels on the host (from the same float32 probabilities)."""
+    stream, host = [], []
+    for _, probs, target in batches(torch):
+        stream.append((probs, target))
+        host.append((probs.cpu().numpy().argmax(axis=1), target.cpu().numpy()))
+    return stream, host
+
+
+def boot_oracle(np, host, seed: int, strategy: str):
+    """Each replica's correct and seen rows, redrawn in numpy from the seed
+    with the calls, in the order, that both packages make."""
+    rng = np.random.default_rng(seed)
+    correct = np.zeros(BOOT_REPLICAS, dtype=np.int64)
+    seen = np.zeros(BOOT_REPLICAS, dtype=np.int64)
+    for argmax, label in host:
+        size = len(label)
+        for r in range(BOOT_REPLICAS):
+            if strategy == "poisson":
+                rows = np.repeat(np.arange(size), rng.poisson(1, size=size))
+            else:
+                rows = rng.integers(0, size, size=size)
+            correct[r] += int(np.sum(argmax[rows] == label[rows]))
+            seen[r] += len(rows)
+    return correct, seen
+
+
+def bootstrap_run(torch, mt, np, stream, host, strategy: str, smi: str) -> dict:
+    """10(a): BootStrapper(Accuracy(1000 classes), 100 replicas) over the
+    ImageNet-size stream: each replica's counts against the numpy redraw,
+    bit for bit; mean, std and quantiles within 1e-6 of float64 from ``raw``;
+    the update step by events, its device operations by the profiler."""
+    seed = SEED + 210
+    boot = mt.BootStrapper(mt.Accuracy(num_classes=N_CLASSES), num_bootstraps=BOOT_REPLICAS,
+                           quantile=list(BOOT_QUANTILES), raw=True, seed=seed, sampling_strategy=strategy)
+    times = []
+    for probs, target in stream[:-4]:
+        times.append(event_ms(torch, lambda: boot.update(probs, target))[1])
+    steps = iter(stream[-4:])
+    prof = profile_window(torch, lambda: boot.update(*next(steps)), reps=3)  # the first call is the warm-up
+    torch.cuda.synchronize()
+    correct, seen = boot_oracle(np, host, seed, strategy)
+    tp = boot.tp.cpu().numpy()
+    check(boot._vmapped and boot._vmap_update is True, f"10(a) bootstrap {strategy}: the replicas did not advance by vmap")
+    check(np.array_equal(tp, correct), f"10(a) bootstrap {strategy}: replica counts differ from the numpy redraw")
+    check(np.array_equal(tp + boot.fn.cpu().numpy(), seen), f"10(a) bootstrap {strategy}: replica row counts differ")
+    out, compute_ms = event_ms(torch, boot.compute)
+    raw = out["raw"].double().cpu().numpy()
+    check(np.max(np.abs(raw - correct / seen)) <= WRAPPER_ATOL, f"10(a) bootstrap {strategy}: raw values")
+    want = {"mean": raw.mean(), "std": raw.std(ddof=1), "quantile": np.quantile(raw, BOOT_QUANTILES)}
+    errs = {k: float(np.max(np.abs(out[k].double().cpu().numpy() - v))) for k, v in want.items()}
+    check(all(e <= WRAPPER_ATOL for e in errs.values()), f"10(a) bootstrap {strategy}: {errs} against float64")
+    device_ops = sum(prof["recorded"].values()) / 3
+    step_ms = statistics.median(times)
+    print(f"phase 10(a) ({smi}): BootStrapper(Accuracy, {BOOT_REPLICAS} replicas, {strategy}) counts bitwise against the"
+          f" numpy redraw; mean {float(out['mean']):.6f} std {float(out['std']):.6f} quantiles"
+          f" {[round(float(q), 6) for q in out['quantile']]}, errors {errs}; update step {step_ms:.3f} ms"
+          f" (median of {len(times)}), {device_ops:.1f} device operations per update, compute {compute_ms:.3f} ms")
+    report_profile(f"BootStrapper {strategy} update", prof)
+    return {"update_ms": step_ms, "device_ops": device_ops, "compute_ms": compute_ms, "errors": errs,
+            "idle": idle_share(prof)}
+
+
+def classwise_run(torch, mt, stream, smi: str) -> dict:
+    wrapped = mt.ClasswiseWrapper(mt.Accuracy(num_classes=N_CLASSES, average=None))
+    plain = mt.Accuracy(num_classes=N_CLASSES, average=None)
+    for probs, target in stream:
+        wrapped.update(probs, target)
+        plain.update(probs, target)
+    got, want = wrapped.compute(), plain.compute()
+    check(list(got) == [f"accuracy_{i}" for i in range(N_CLASSES)], "10(a) ClasswiseWrapper: keys")
+    check(same_bits(torch, torch.stack(list(got.values())), want), "10(a) ClasswiseWrapper: values differ from Accuracy's")
+    print(f"phase 10(a) ({smi}): ClasswiseWrapper(Accuracy(average=None)): {len(got)} values bitwise equal to Accuracy's")
+    return {"classes": len(got)}
+
+
+def minmax_run(torch, mt, stream, smi: str) -> dict:
+    wrapped = mt.MinMaxMetric(mt.Accuracy(num_classes=N_CLASSES))
+    plain = mt.Accuracy(num_classes=N_CLASSES)
+    lo = hi = None
+    for probs, target in stream:
+        out = wrapped(probs, target)
+        value = plain(probs, target)
+        lo = value if lo is None else torch.minimum(lo, value)
+        hi = value if hi is None else torch.maximum(hi, value)
+        check(same_bits(torch, out["raw"], value) and same_bits(torch, out["min"], lo) and same_bits(torch, out["max"], hi),
+              "10(a) MinMaxMetric: a forward's raw, min or max differs from the plain Accuracy's")
+    print(f"phase 10(a) ({smi}): MinMaxMetric(Accuracy) forward per batch bitwise: min {float(lo):.6f}, max {float(hi):.6f}")
+    return {"min": float(lo), "max": float(hi)}
+
+
+def tracker_collection(mt):
+    return mt.MetricCollection([mt.Accuracy(num_classes=N_CLASSES), mt.F1Score(num_classes=N_CLASSES, average="macro")])
+
+
+def tracker_run(torch, mt, np, stream, smi: str) -> dict:
+    """Five epochs of the stream, each with a seeded share (1-10%) of its rows
+    replaced by noise, through a MetricTracker and five separate collections."""
+    shares = np.random.default_rng(SEED + 220).uniform(0.01, 0.10, TRACKER_EPOCHS)
+    tracker = mt.MetricTracker(tracker_collection(mt), maximize=True)
+    separate = []
+    for epoch, share in enumerate(shares):
+        tracker.increment()
+        separate.append(tracker_collection(mt))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 221 + epoch)
+        for probs, target in stream:
+            b = probs.shape[0]
+            noisy = torch.rand(b, generator=gen, device="cuda") < float(share)
+            noise = torch.softmax(torch.randn((b, N_CLASSES), generator=gen, device="cuda"), dim=1)
+            batch = torch.where(noisy[:, None], noise, probs)
+            tracker.update(batch, target)
+            separate[-1].update(batch, target)
+    best, step = tracker.best_metric(return_step=True)
+    results = [c.compute() for c in separate]
+    every = tracker.compute_all()
+    for key in results[0]:
+        values = np.asarray([float(r[key]) for r in results])
+        i = int(np.nanargmax(values))
+        check(best[key] == float(values[i]) and step[key] == i, f"10(a) MetricTracker: best {key} differs")
+        check(same_bits(torch, every[key], torch.stack([r[key] for r in results])), f"10(a) MetricTracker: {key} per epoch")
+    print(f"phase 10(a) ({smi}): MetricTracker over {TRACKER_EPOCHS} epochs (noise shares "
+          f"{[round(float(s), 4) for s in shares]}): best {best} at steps {step}, equal to five separate collections")
+    return {"best": best, "step": step}
+
+
+def normals_stream(torch):
+    """Per-pixel surface normals at NYU Depth v2 test size (654 images of
+    480 x 640, 8 an update): unit target normals with NaN holes in about 5%
+    of the pixels, predictions the target plus noise, renormalised."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 230)
+    pixels = NYU_HEIGHT * NYU_WIDTH
+    out = []
+    for lo in range(0, NYU_IMAGES, NYU_IMAGES_PER_UPDATE):
+        n = min(NYU_IMAGES_PER_UPDATE, NYU_IMAGES - lo) * pixels
+        target = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen, device="cuda"), dim=1)
+        preds = torch.nn.functional.normalize(target + 0.2 * torch.randn((n, 3), generator=gen, device="cuda"), dim=1)
+        holes = torch.rand(n, generator=gen, device="cuda") < NORMALS_HOLES
+        target[holes] = float("nan")
+        out.append((preds, target))
+    return out
+
+
+def multioutput_run(torch, mt, np, smi: str) -> dict:
+    """MultioutputWrapper(MeanSquaredError(), 3 outputs) on the normals:
+    states bitwise equal to three MSE metrics fed the NaN-filtered columns,
+    results within 1e-5 relative of float64, reads to the host counted."""
+    stream = normals_stream(torch)
+    wrapped = mt.MultioutputWrapper(mt.MeanSquaredError(), num_outputs=3)
+    times, readbacks = [], 0
+    for preds, target in stream:
+        with ReadbackCounter(torch) as counter:
+            times.append(event_ms(torch, lambda: wrapped.update(preds, target))[1])
+        readbacks += counter.n
+    plain = [mt.MeanSquaredError() for _ in range(3)]
+    sums, counts = np.zeros(3), np.zeros(3)
+    for preds, target in stream:
+        keep = torch.nonzero(~(torch.isnan(preds).any(1) | torch.isnan(target).any(1))).squeeze(1)
+        for i, metric in enumerate(plain):
+            p, t = preds[keep, i], target[keep, i]
+            metric.update(p, t)
+            sums[i] += float(((p.double() - t.double()) ** 2).sum())
+            counts[i] += p.numel()
+    for i, (child, metric) in enumerate(zip(wrapped.metrics, plain)):
+        for key, value in metric.get_state().items():
+            check(same_bits(torch, child.get_state()[key], value), f"10(a) MultioutputWrapper: output {i} state {key}")
+    got, compute_ms = event_ms(torch, wrapped.compute)
+    want = sums / counts
+    rel = float(np.max(np.abs(got.double().cpu().numpy() - want) / want))
+    check(rel <= REGRESSION_RTOL, f"10(a) MultioutputWrapper: {rel:.2e} relative from float64")
+    check(readbacks == 3 * len(stream), f"10(a) MultioutputWrapper: {readbacks} reads to the host for {len(stream)} updates")
+    step_ms = statistics.median(times)
+    print(f"phase 10(a) ({smi}): MultioutputWrapper(MSE, 3 outputs) over {len(stream)} updates of up to"
+          f" {NYU_IMAGES_PER_UPDATE * NYU_HEIGHT * NYU_WIDTH:,} normals: states bitwise, {rel:.2e} relative from float64,"
+          f" {readbacks} reads to the host ({readbacks / len(stream):.0f} an update); update {step_ms:.3f} ms, compute"
+          f" {compute_ms:.3f} ms")
+    return {"update_ms": step_ms, "compute_ms": compute_ms, "readbacks": readbacks, "rel_err": rel}
+
+
+def phase_ten_a(torch, mt, np, smi: str) -> dict:
+    stream, host = imagenet_probs(torch, np)
+    out = {f"bootstrap_{s}": bootstrap_run(torch, mt, np, stream, host, s, smi) for s in ("poisson", "multinomial")}
+    out["classwise"] = classwise_run(torch, mt, stream, smi)
+    out["minmax"] = minmax_run(torch, mt, stream, smi)
+    out["tracker"] = tracker_run(torch, mt, np, stream, smi)
+    del stream, host
+    gc.collect()
+    out["multioutput"] = multioutput_run(torch, mt, np, smi)
+    gc.collect()
+    return out
+
+
+# ---- 10(b): text
+def zipf_words(np, rng):
+    """A seeded vocabulary of letter strings and its Zipf rank probabilities."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = set()
+    while len(words) < VOCAB_SIZE:
+        words.add("".join(rng.choice(letters, int(rng.integers(2, 11)))))
+    words = sorted(words)
+    rng.shuffle(words)
+    p = 1.0 / np.arange(1, VOCAB_SIZE + 1) ** ZIPF_S
+    return words, p / p.sum()
+
+
+def lengths_with_total(np, rng, n: int, total: int):
+    lens = np.maximum(1, rng.poisson(total / n, n))
+    while lens.sum() != total:
+        i = int(rng.integers(0, n))
+        if lens.sum() < total:
+            lens[i] += 1
+        elif lens[i] > 1:
+            lens[i] -= 1
+    return lens
+
+
+class Corpus:
+    """Seeded references from a Zipf vocabulary, and hypotheses made from them
+    by seeded substitutions, deletions and insertions (3:1:1)."""
+
+    def __init__(self, np, seed: int):
+        self.np = np
+        self.rng = np.random.default_rng(seed)
+        self.words, self.p = zipf_words(np, self.rng)
+
+    def draw(self, n: int):
+        return [self.words[i] for i in self.rng.choice(VOCAB_SIZE, size=n, p=self.p)]
+
+    def perturb(self, words, rate: float):
+        out = []
+        u = self.rng.random(len(words))
+        fresh = iter(self.draw(len(words)))
+        for w, x in zip(words, u):
+            if x < rate * 0.6:
+                out.append(next(fresh))
+            elif x < rate * 0.8:
+                continue
+            elif x < rate:
+                out.extend([w, next(fresh)])
+            else:
+                out.append(w)
+        return out
+
+    def pairs(self, lengths, rate: float):
+        hyps, refs = [], []
+        for n in lengths:
+            ref = self.draw(int(n))
+            refs.append(" ".join(ref))
+            hyps.append(" ".join(self.perturb(ref, rate)))
+        return hyps, refs
+
+
+def text_states(torch, metric) -> dict:
+    """A text metric's states on the host, a list state stacked."""
+    out = {}
+    for key, value in metric.get_state().items():
+        if isinstance(value, list):
+            value = torch.stack(value) if value else torch.zeros(0)
+        out[key] = value.detach().cpu()
+    return out
+
+
+def leaves_of(torch, result) -> list:
+    if isinstance(result, dict):
+        return [x for k in sorted(result) for x in leaves_of(torch, result[k])]
+    if isinstance(result, (list, tuple)):
+        return [x for v in result for x in leaves_of(torch, v)]
+    return [result.detach().double().cpu()]
+
+
+def card_against_cpu(torch, label: str, make, feed, chunks, smi: str) -> dict:
+    """One metric (or collection) on the card and its twin on the CPU fed the
+    same chunks: states bit for bit, results within 1e-6; the card's update
+    time per chunk (host clock, the work being on the host) and compute."""
+    card, cpu = make(None), make("cpu")
+    times = []
+    for chunk in chunks:
+        t0 = time.perf_counter()
+        feed(card, chunk)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        feed(cpu, chunk)
+    members = card.items(keep_base=True) if hasattr(card, "compute_groups") else [(label, card)]
+    twins = dict(cpu.items(keep_base=True)) if hasattr(cpu, "compute_groups") else {label: cpu}
+    for key, metric in members:
+        got, want = text_states(torch, metric), text_states(torch, twins[key])
+        check(set(got) == set(want), f"10(b) {label}: state names")
+        for s, v in want.items():
+            check(same_bits(torch, got[s], v), f"10(b) {label}: {key} state {s} differs from the CPU twin's")
+    t0 = time.perf_counter()
+    result = card.compute()
+    torch.cuda.synchronize()
+    compute_ms = (time.perf_counter() - t0) * 1e3
+    got, want = leaves_of(torch, result), leaves_of(torch, cpu.compute())
+    err = max(float((g - w).abs().max()) if g.numel() else 0.0 for g, w in zip(got, want))
+    check(len(got) == len(want) and err <= TEXT_ATOL and all(bool(torch.isfinite(g).all()) for g in got),
+          f"10(b) {label}: results {err:.2e} from the CPU twin's")
+    shown = result if not isinstance(result, dict) else {k: round(float(v), 6) for k, v in result.items()}
+    print(f"phase 10(b) ({smi}): {label}: states bitwise equal to the CPU twin's, results within {err:.1e};"
+          f" update {statistics.median(times):.3f} ms per chunk (median of {len(times)}), compute {compute_ms:.3f} ms;"
+          f" {shown if isinstance(shown, dict) else round(float(shown), 6)}")
+    return {"update_ms": statistics.median(times), "compute_ms": compute_ms, "err": err}
+
+
+def chunked(seq, size: int):
+    return [seq[i : i + size] for i in range(0, len(seq), size)]
+
+
+def asr_phase(torch, mt, np, smi: str) -> dict:
+    """LibriSpeech test-clean size: 2,620 utterances, 52,576 words, about 5%
+    word edits, 64 utterances an update through WER, CER, MER, WIL and WIP."""
+    from metrics_tpu_torch.ops.text import helper
+
+    corpus = Corpus(np, SEED + 300)
+    lengths = lengths_with_total(np, corpus.rng, LIBRI_UTTERANCES, LIBRI_WORDS)
+    hyps, refs = corpus.pairs(lengths, ASR_EDIT_RATE)
+    chunks = list(zip(chunked(hyps, ASR_PER_UPDATE), chunked(refs, ASR_PER_UPDATE)))
+
+    # the scan on the card against the pure-Python DP: every utterance's words, the first 256's characters
+    word_dist, char_dist = [], []
+    for h, r in chunks:
+        word_dist.append(helper.batch_edit_distances([x.split() for x in h], [x.split() for x in r], "cuda").cpu())
+    for h, r in zip(chunked(hyps[:ASR_CHAR_CHECK], ASR_PER_UPDATE), chunked(refs[:ASR_CHAR_CHECK], ASR_PER_UPDATE)):
+        char_dist.append(helper.batch_edit_distances([list(x) for x in h], [list(x) for x in r], "cuda").cpu())
+    want_words = [helper._edit_distance_host(h.split(), r.split()) for h, r in zip(hyps, refs)]
+    want_chars = [helper._edit_distance_host(list(h), list(r)) for h, r in zip(hyps[:ASR_CHAR_CHECK], refs[:ASR_CHAR_CHECK])]
+    check(torch.cat(word_dist).tolist() == want_words, "10(b) edit distance (words) differs from the pure-Python DP")
+    check(torch.cat(char_dist).tolist() == want_chars, "10(b) edit distance (characters) differs from the pure-Python DP")
+    word_edits = sum(want_words) / LIBRI_WORDS
+
+    def make(device):
+        kw = {} if device is None else {"device": device}
+        return mt.MetricCollection({"wer": mt.WordErrorRate(**kw), "cer": mt.CharErrorRate(**kw),
+                                    "mer": mt.MatchErrorRate(**kw), "wil": mt.WordInfoLost(**kw),
+                                    "wip": mt.WordInfoPreserved(**kw)})
+
+    run = card_against_cpu(torch, "ASR collection (WER, CER, MER, WIL, WIP)", make,
+                           lambda m, c: m.update(*c), chunks, smi)
+
+    # the scan alone, per 64-utterance batch: events, device operations, bound
+    h, r = chunks[0]
+    name = torch.cuda.get_device_name(0)
+    scan = {}
+    for form, split in (("words", str.split), ("characters", list)):
+        enc = helper.encode_token_batch([split(x) for x in h], [split(x) for x in r], torch.device("cuda"))
+        b, p = enc[0].shape
+        width = enc[2].shape[1]
+        ms = time_ms(torch, lambda enc=enc: helper.edit_distance_batch(*enc))
+        cpu_enc = [t.cpu() for t in enc]
+        plain_ms = host_ms(lambda: helper.edit_distance_batch(*cpu_enc), reps=5)
+        prof = profile_window(torch, lambda enc=enc: helper.edit_distance_batch(*enc), reps=5)
+        bound_ms, bound_by = bound(b * (p + 1) * (width + 1) * 4, 0, name)
+        scan[form] = {"shape": [b, p, width], "ms": ms, "plain_cpu_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "device_ops": sum(prof["recorded"].values()) / 5,
+                      "device_us": sum(prof["device_us"].values()), "idle": idle_share(prof),
+                      "cummin_us": sum(us for k, us in prof["device_us"].items() if "cummin" in k.lower() or "scan" in k.lower())}
+        print(f"phase 10(b) ({smi}): edit_distance_batch, {form}, (B, P, R) = {(b, p, width)}: {ms * 1e3:.1f} us/call"
+              f" (device busy {scan[form]['device_us']:.1f} us, of it the cummin scans {scan[form]['cummin_us']:.1f} us;"
+              f" {scan[form]['device_ops']:.0f} device operations per call), the same code on the host CPU"
+              f" {plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.2f} us ({bound_by})")
+        report_profile(f"edit_distance_batch {form}", prof)
+    print(f"  ASR corpus: {LIBRI_UTTERANCES} utterances, {LIBRI_WORDS} words, word edit distance {word_edits:.4f} a word;"
+          f" scan bitwise against the pure-Python DP on every utterance (words) and the first {ASR_CHAR_CHECK} (characters)")
+    return {**run, "scan": scan, "word_edit_share": word_edits}
+
+
+def mt_phase(torch, mt, np, smi: str) -> dict:
+    """WMT19 de-en newstest2019 size: 2,000 segments, one reference each,
+    about 30% word edits, through BLEU, SacreBLEU (13a), chrF++, TER and EED."""
+    corpus = Corpus(np, SEED + 310)
+    lengths = np.maximum(1, corpus.rng.poisson(WMT_MEAN_WORDS, WMT_SEGMENTS))
+    hyps, refs = corpus.pairs(lengths, MT_EDIT_RATE)
+    hyps = [h[:1].upper() + h[1:] + "." for h in hyps]  # a capital and a full stop for the tokenizers
+    refs = [r[:1].upper() + r[1:] + "." for r in refs]
+    targets = [[r] for r in refs]
+    out = {}
+    chunks = list(zip(chunked(hyps, MT_PER_UPDATE), chunked(targets, MT_PER_UPDATE)))
+    for label, cls, kw in (("BLEUScore", mt.BLEUScore, {}), ("SacreBLEUScore", mt.SacreBLEUScore, {"tokenize": "13a"}),
+                           ("CHRFScore", mt.CHRFScore, {}), ("TranslationEditRate", mt.TranslationEditRate, {}),
+                           ("ExtendedEditDistance", mt.ExtendedEditDistance, {})):
+        out[label] = card_against_cpu(torch, label, lambda d, cls=cls, kw=kw: cls(**kw) if d is None else cls(device=d, **kw),
+                                      lambda m, c: m.update(*c), chunks, smi)
+    return out
+
+
+def rouge_phase(torch, mt, np, smi: str) -> dict:
+    """CNN/DailyMail test size: 3-4 sentence summaries with about 30% word
+    edits, ROUGE-1/2/L/Lsum with the regex sentence splitter."""
+    from metrics_tpu_torch.ops.text import rouge as rouge_ops
+
+    check(not rouge_ops._punkt_available(), "10(b) ROUGE: expected the regex splitter (no punkt data on the card's host)")
+    corpus = Corpus(np, SEED + 320)
+    hyps, refs = [], []
+    for _ in range(CNNDM_SUMMARIES):
+        sentences = int(corpus.rng.integers(3, 5))
+        h, r = corpus.pairs(corpus.rng.integers(8, 22, sentences), MT_EDIT_RATE)
+        hyps.append(" ".join(s.capitalize() + "." for s in h))
+        refs.append(" ".join(s.capitalize() + "." for s in r))
+    chunks = list(zip(chunked(hyps, SUMMARY_PER_UPDATE), chunked(refs, SUMMARY_PER_UPDATE)))
+    return card_against_cpu(torch, "ROUGEScore", lambda d: mt.ROUGEScore() if d is None else mt.ROUGEScore(device=d),
+                            lambda m, c: m.update(*c), chunks, smi)
+
+
+def squad_phase(torch, mt, np, smi: str) -> dict:
+    """SQuAD v1.1 dev size: 10,570 questions with 1-3 gold answers; the
+    predictions copy a gold answer (with case, punctuation and article
+    noise), overlap one, or miss."""
+    corpus = Corpus(np, SEED + 330)
+    rng = corpus.rng
+    preds, targets = [], []
+    for q in range(SQUAD_QUESTIONS):
+        answers = [" ".join(corpus.draw(int(rng.integers(1, 6)))) for _ in range(int(rng.integers(1, 4)))]
+        u = rng.random()
+        if u < 0.6:
+            pred = "The " + answers[0].title() + "."
+        elif u < 0.85:
+            pred = " ".join(answers[-1].split()[:1] + corpus.draw(2))
+        else:
+            pred = " ".join(corpus.draw(int(rng.integers(1, 6))))
+        qid = f"q{q:05d}"
+        preds.append({"prediction_text": pred, "id": qid})
+        targets.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": qid})
+    chunks = list(zip(chunked(preds, SQUAD_PER_UPDATE), chunked(targets, SQUAD_PER_UPDATE)))
+    return card_against_cpu(torch, "SQuAD", lambda d: mt.SQuAD() if d is None else mt.SQuAD(device=d),
+                            lambda m, c: m.update(*c), chunks, smi)
+
+
+def phase_ten(torch, mt, np, kernels_mod, smi) -> dict:
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    out = {"a": phase_ten_a(torch, mt, np, smi)}
+    out["seconds_a"] = time.perf_counter() - t0
+    out["asr"] = asr_phase(torch, mt, np, smi)
+    out["mt"] = mt_phase(torch, mt, np, smi)
+    out["rouge"] = rouge_phase(torch, mt, np, smi)
+    out["squad"] = squad_phase(torch, mt, np, smi)
+    launches = kernels_mod.launch_counts()
+    check(not any(launches.values()), f"phase 10 launched a kernel of B1-B3: {launches}")
+    out["launches"] = launches
+    elapsed = time.perf_counter() - t0
+    print(f"phase 10 ({smi}): {elapsed:.1f} s in all (wrappers {out['seconds_a']:.1f} s; limit {PHASE10_LIMIT_S:.0f} s);"
+          f" kernel launches {launches}")
+    check(elapsed < PHASE10_LIMIT_S, f"phase 10 took {elapsed:.1f} s, over its {PHASE10_LIMIT_S:.0f} s")
+    out["seconds"] = elapsed
+    return out
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3249,6 +3776,9 @@ def main() -> None:
     # ---- phase 9: regression, pairwise and retrieval (no kernel of B1-B3 on its path)
     nine = phase_nine(torch, mt, np, kernels_mod, sync, smi)
 
+    # ---- phase 10: the wrappers and the text metrics other than BERTScore (no kernel of B1-B3 on its path)
+    ten = phase_ten(torch, mt, np, kernels_mod, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -3266,6 +3796,7 @@ def main() -> None:
             "ok": True,
             "phase8_launches": eight["launches"][kname],
             "phase9_launches": nine["launches"][kname],
+            "phase10_launches": ten["launches"][kname],
             **us,
             **extra,
         }

@@ -416,6 +416,11 @@ class MetricCollection:
         """One state per compute group, keyed by leader name."""
         return {g[0]: self._metrics[g[0]].init_state() for g in self._groups}
 
+    def reset_state(self, states: Dict[str, StateDict], mask: Optional[Any] = None) -> Dict[str, StateDict]:
+        """Pure reset: every group's state restored to its leader's defaults
+        (:meth:`Metric.reset_state`; a ``mask`` raises there)."""
+        return {g[0]: self._metrics[g[0]].reset_state(states[g[0]], mask) for g in self._groups}
+
     def update_state(self, states: Dict[str, StateDict], *args: Any, **kwargs: Any) -> Dict[str, StateDict]:
         """Pure update of every group's state."""
         out = {}

@@ -277,6 +277,31 @@ class Metric:
         """Fresh state from the registered defaults."""
         return {k: _copy_state_value(v) for k, v in self._defaults.items()}
 
+    def reset_state(self, state: StateDict, mask: Optional[Tensor] = None) -> StateDict:
+        """Pure reset: ``state`` restored to the registered defaults.
+
+        ``init_state`` over the incoming state's structure: a materialized
+        :class:`CatBuffer` comes back as zeros of its own shape and capacity,
+        empty, with its overflow flag clear. The masked, tenant-stacked form
+        of the JAX package belongs with tenancy, which the port has not
+        ported, and raises.
+        """
+        if mask is not None:
+            raise NotImplementedError(
+                f"{type(self).__name__}.reset_state(state, mask): the masked (tenant-stacked) reset comes with "
+                "tenancy, which metrics_tpu_torch has not ported; call reset_state(state)"
+            )
+        out: StateDict = {}
+        for attr, default in self._defaults.items():
+            cur = state.get(attr)
+            if isinstance(cur, CatBuffer) and cur.materialized:
+                out[attr] = CatBuffer(torch.zeros_like(cur.data), 0)
+            elif isinstance(cur, list):
+                out[attr] = []
+            else:
+                out[attr] = _copy_state_value(default)
+        return out
+
     def get_state(self) -> StateDict:
         return {k: getattr(self, k) for k in self._defaults}
 
@@ -432,18 +457,32 @@ class Metric:
 
     def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """Two updates: one into the global state, one on a fresh state for
-        the batch value."""
+        the batch value. The global states of the metrics this one holds (a
+        wrapper's base metric) are kept and restored too, since ``reset()``
+        resets them."""
         self.update(*args, **kwargs)
-        update_count = self._update_count
-        global_state = self.get_state()
+        snapshot = self._deep_snapshot()
         with self._batch_compute_mode():
             self.reset()
             self.update(*args, **kwargs)
             batch_val = self.compute()
-        self.set_state(global_state)
-        self._update_count = update_count
-        self._computed = None
+        self._deep_restore(snapshot)
         return batch_val
+
+    def _deep_snapshot(self) -> List[Tuple["Metric", StateDict, int]]:
+        """This metric's state and update count, then its child metrics'."""
+        snapshot: List[Tuple[Metric, StateDict, int]] = [(self, self.get_state(), self._update_count)]
+        for child in self._child_metrics():
+            snapshot.extend(child._deep_snapshot())
+        return snapshot
+
+    @staticmethod
+    def _deep_restore(snapshot: List[Tuple["Metric", StateDict, int]]) -> None:
+        for metric, state, count in snapshot:
+            metric.set_state(state)
+            metric._update_count = count
+            metric._computed = None
+            metric._is_synced = False
 
     def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
         """One update on a fresh state, then a merge into the global state."""
@@ -722,6 +761,35 @@ class Metric:
         self._move_attributes(self._device)
         self._computed = None
         # the graphs bind the old device's addresses
+        self._update_engine = None
+        self._compute_engine = None
+        return self
+
+    def astype(self, dtype: torch.dtype) -> "Metric":
+        """Cast the floating-point states and their defaults to ``dtype``, so
+        the cast outlives ``reset()``; integer and bool states keep theirs.
+        The engines are dropped, as by :meth:`to`: their steps were captured
+        for the old dtypes."""
+
+        def cast(x: Tensor) -> Tensor:
+            return x.to(dtype) if x.is_floating_point() else x
+
+        def apply(val: StateValue) -> StateValue:
+            if isinstance(val, list):
+                return [cast(v) for v in val]
+            if isinstance(val, CatBuffer):
+                if not val.materialized:
+                    return val
+                out = CatBuffer._from_parts(cast(val.data), val.count, val.overflowed, len(val), val.overflow_seen)
+                out._device = val.device
+                return out
+            return cast(val)
+
+        for attr in self._defaults:
+            setattr(self, attr, apply(getattr(self, attr)))
+        self._defaults = {k: apply(d) for k, d in self._defaults.items()}
+        self._mark_default_copies()
+        self._computed = None
         self._update_engine = None
         self._compute_engine = None
         return self

@@ -198,3 +198,8 @@ def add_launches(delta: Dict[str, int]) -> None:
     """Add ``delta[name]`` launches to each named kernel's count."""
     for name, n in delta.items():
         KERNELS[name].launches += n
+
+
+# the kernels' public wrappers, as the JAX package's ``ops.kernels`` exports them
+from metrics_tpu_torch.ops.kernels.cosine_matching import pairwise_cosine_pr  # noqa: E402,F401
+from metrics_tpu_torch.ops.kernels.iou_matching import evaluate_matches  # noqa: E402,F401

@@ -383,3 +383,88 @@ def _check_retrieval_inputs(
         raise ValueError("`indexes`, `preds` and `target` must be non-scalar and contain at least one element")
     preds, target = _check_retrieval_target_and_prediction_types(preds, target, allow_non_binary_target)
     return indexes.to(torch.int32).reshape(-1), preds, target
+
+
+def _allclose_recursive(res1, res2, atol: float = 1e-8) -> bool:
+    """Recursively compare two (possibly nested) results."""
+    from collections.abc import Mapping, Sequence
+
+    if isinstance(res1, Tensor):
+        return bool(torch.allclose(res1, res2, atol=atol))
+    if isinstance(res1, str):
+        return res1 == res2
+    if isinstance(res1, Sequence):
+        return all(_allclose_recursive(r1, r2) for r1, r2 in zip(res1, res2))
+    if isinstance(res1, Mapping):
+        return all(_allclose_recursive(res1[k], res2[k]) for k in res1.keys())
+    return res1 == res2
+
+
+def check_forward_full_state_property(
+    metric_class,
+    init_args: Optional[dict] = None,
+    input_args: Optional[dict] = None,
+    num_update_to_compare=(10, 100, 1000),
+    reps: int = 5,
+) -> bool:
+    """Probe whether ``full_state_update=False`` is safe (and faster) for a metric.
+
+    Runs both forward variants on ``input_args``, compares their outputs and
+    computes, then times 10/100/1000 forwards ``reps`` times each (the
+    device synchronised before each clock read). Returns True when the
+    partial-state path matches and is faster on average.
+    """
+    from time import perf_counter
+
+    init_args = init_args or {}
+    input_args = input_args or {}
+
+    class FullState(metric_class):
+        full_state_update = True
+
+    class PartState(metric_class):
+        full_state_update = False
+
+    fullstate, partstate = FullState(**init_args), PartState(**init_args)
+
+    equal = True
+    for _ in range(num_update_to_compare[0]):
+        out1 = fullstate(**input_args)
+        try:
+            out2 = partstate(**input_args)
+        except RuntimeError:
+            equal = False
+            break
+        equal = equal and _allclose_recursive(out1, out2)
+    if equal:
+        res1 = fullstate.compute()
+        try:
+            res2 = partstate.compute()
+        except RuntimeError:
+            equal = False
+        else:
+            equal = equal and _allclose_recursive(res1, res2)
+    if not equal:
+        return False
+
+    def settle(metric) -> None:
+        if metric.device.type == "cuda":
+            torch.cuda.synchronize(metric.device)
+
+    res = torch.zeros((2, len(num_update_to_compare), reps), dtype=torch.float64)
+    for i, metric in enumerate([fullstate, partstate]):
+        for j, t in enumerate(num_update_to_compare):
+            for r in range(reps):
+                settle(metric)
+                start = perf_counter()
+                for _ in range(t):
+                    _ = metric(**input_args)
+                settle(metric)
+                res[i, j, r] = perf_counter() - start
+                metric.reset()
+    mean = res.mean(-1)
+    std = res.std(-1, correction=0)
+    for t, n in enumerate(num_update_to_compare):
+        print(f"Full state for {n} steps took: {mean[0, t]}+-{std[0, t]:0.3f}")
+        print(f"Partial state for {n} steps took: {mean[1, t]:0.3f}+-{std[1, t]:0.3f}")
+    return bool(mean[1, -1] < mean[0, -1])

@@ -144,6 +144,11 @@ def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     return (ge & (order < topk)).to(torch.int32)
 
 
+def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities or one-hot rows -> dense labels (the first maximum)."""
+    return torch.argmax(x, dim=argmax_dim)
+
+
 # --------------------------------------------------------------------------- #
 # collection traversal
 # --------------------------------------------------------------------------- #
@@ -192,3 +197,10 @@ def get_group_indexes(indexes: Tensor) -> List[Tensor]:
     first_seen = torch.argsort(order[starts]).tolist()  # the groups in first-appearance order
     groups = torch.split(order.to(torch.int32), sizes)
     return [groups[g] for g in first_seen]
+
+
+def allclose(t1: Tensor, t2: Tensor, **kwargs: Any) -> bool:
+    """Shape-then-value closeness check (reads the answer back to the host)."""
+    if t1.shape != t2.shape:
+        return False
+    return bool(torch.allclose(t1.to(t2.dtype) if t1.dtype != t2.dtype else t1, t2, **kwargs))

@@ -1,6 +1,6 @@
 """Availability probes for optional dependencies.
 
-The port's own copy of ``package_available`` and the one flag it reads; the
+The port's own copy of ``package_available`` and the flags it reads; the
 JAX package keeps its own in ``metrics_tpu/utils/imports.py``. A probe finds
 a package without importing it, so an optional dependency is imported only
 where it is used.
@@ -21,3 +21,5 @@ def package_available(name: str) -> bool:
 
 
 _TRANSFORMERS_AVAILABLE = package_available("transformers")
+_NLTK_AVAILABLE = package_available("nltk")
+_REGEX_AVAILABLE = package_available("regex")

@@ -355,13 +355,18 @@ def dryrun(n_devices: int) -> Dict[str, Any]:
     return to_numpy(dryrun_multichip(n_devices, device="cpu"))
 
 
-def twin_synced_compute(name: str, buffered: bool, calls: Sequence[tuple], kwargs: Optional[dict] = None) -> Any:
+def twin_synced_compute(
+    name: str, buffered: bool, calls: Sequence[tuple], kwargs: Optional[dict] = None, seed: Optional[int] = None
+) -> Any:
     """The ``INVENTORY`` twin (``tests/helpers/torch_twins.py``, with
     ``kwargs`` added) fed this rank's ``(args, kwargs)`` calls at the engine
-    defaults; its synced compute."""
+    defaults; its synced compute. ``seed`` remakes the twin's host generator
+    (BootStrapper's resampling) from that seed."""
     from tests.helpers.torch_twins import make_twin
 
     metric = make_twin(name, buffered, **(kwargs or {}))
+    if seed is not None:
+        metric._rng = np.random.default_rng(seed)
     for args, kwargs in calls:
         metric.update(*to_torch(args), **to_torch(kwargs))
     return to_numpy(metric.compute())

@@ -24,7 +24,7 @@ have no twin yet.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import jax.numpy as jnp
 import numpy as np
@@ -68,7 +68,15 @@ FLOAT_SUM_STATES = frozenset({
     "MeanSquaredError", "MeanAbsoluteError", "MeanSquaredLogError", "MeanAbsolutePercentageError",
     "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError", "R2Score",
     "ExplainedVariance", "TweedieDevianceScore", "PearsonCorrCoef", "CompositionalMetric",
+    # the wrappers over MeanSquaredError: BootStrapper's stacked sums, the
+    # min and max of MSE values, and the per-output MSE results
+    "BootStrapper", "MinMaxMetric", "MultioutputWrapper",
 })
+
+# entries whose maker draws from an unseeded generator (BootStrapper's
+# resample indices): both twins get a generator made from this seed after
+# construction, so they resample the same rows
+SEEDED = {"BootStrapper": 20261017}
 
 # states compared bit for bit; BERTScore's are host token arrays that the
 # two packages pack differently (compared through its results)
@@ -94,11 +102,24 @@ def has_buffered(name: str) -> bool:
     return INVENTORY[name].buffered is not None and TWINS[name].buffered is not None
 
 
+def seed_generator(name: str, metric: Any, seed: Optional[int] = None) -> Any:
+    """``metric`` with the host generator of a ``SEEDED`` entry remade from
+    ``seed`` (the entry's own by default); other entries pass unchanged."""
+    if name in SEEDED:
+        metric._rng = np.random.default_rng(SEEDED[name] if seed is None else seed)
+    return metric
+
+
 def reference(name: str, buffered: bool = False) -> Any:
     entry = INVENTORY[name]
     if buffered:
-        return entry.buffered()
-    return REFERENCE_MAKERS.get(name, entry.make)()
+        return seed_generator(name, entry.buffered())
+    return seed_generator(name, REFERENCE_MAKERS.get(name, entry.make)())
+
+
+def twin(name: str, buffered: bool = False, **kwargs: Any) -> Any:
+    """The port twin, seeded as :func:`reference` seeds its side."""
+    return seed_generator(name, make_twin(name, buffered, **kwargs))
 
 
 def _numpy(tree: Any) -> Any:
@@ -262,18 +283,18 @@ def run_eager(name: str, buffered: bool = False) -> Tuple[Any, Any, Any, Any]:
     """(a): both twins with the engines off, then compute."""
     ref = reference(name, buffered)
     _engines_off(ref)
-    twin = make_twin(name, buffered, compiled_update=False, compiled_compute=False)
-    update_both(ref, twin, batches(name))
-    return ref, twin, ref.compute(), twin.compute()
+    port = twin(name, buffered, compiled_update=False, compiled_compute=False)
+    update_both(ref, port, batches(name))
+    return ref, port, ref.compute(), port.compute()
 
 
 def run_engines(name: str, buffered: bool = False, rounds: int = 4) -> Dict[str, Any]:
     """(b): the engines at their defaults; each round is one update of the
     entry's calls, then one compute."""
-    ref, twin = reference(name, buffered), make_twin(name, buffered)
+    ref, port = reference(name, buffered), twin(name, buffered)
     calls = batches(name)
     results = []
     for _ in range(rounds):
-        update_both(ref, twin, calls)
-        results.append((ref.compute(), twin.compute()))
-    return {"ref": ref, "twin": twin, "results": results}
+        update_both(ref, port, calls)
+        results.append((ref.compute(), port.compute()))
+    return {"ref": ref, "twin": port, "results": results}

@@ -70,6 +70,16 @@ def use_card_replay_path(monkeypatch: Any) -> None:
     monkeypatch.setattr(engine.CapturedStep, "probe", probe_then_graph)
 
 
+def local_punkt_only(monkeypatch: Any) -> None:
+    """Make the JAX package's ROUGE sentence splitter look for nltk's punkt
+    data only on this machine, as the port's does: its own probe would try to
+    download the data. Both packages then split the same way."""
+    import metrics_tpu.ops.text.rouge as jax_rouge
+    from metrics_tpu_torch.ops.text import rouge as port_rouge
+
+    monkeypatch.setattr(jax_rouge, "_punkt_available", port_rouge._punkt_available)
+
+
 def both(x: np.ndarray):
     """The same numpy array as a JAX array and as a CPU tensor."""
     return jnp.asarray(x), torch.from_numpy(np.array(x, copy=True))

@@ -12,7 +12,9 @@ adds the port's own keywords (the engine switches), and ``device="cpu"`` is
 always passed. mAP builds, on the reference side too, something other than
 its ``INVENTORY`` maker, since the port has not ported the path that maker
 uses (``REFERENCE_MAKERS`` in the harness); BERTScore's twin runs a torch
-copy of the ``INVENTORY``'s sine forward.
+copy of the ``INVENTORY``'s sine forward. BootStrapper's maker draws from an
+unseeded generator, so the harness seeds both sides alike (``SEEDED`` in
+``tests/helpers/torch_parity.py``).
 """
 from __future__ import annotations
 
@@ -142,6 +144,20 @@ TWINS: Dict[str, Twin] = {
         # retrieval
         "RetrievalMAP", "RetrievalMRR", "RetrievalPrecision", "RetrievalRecall", "RetrievalFallOut",
         "RetrievalHitRate", "RetrievalNormalizedDCG", "RetrievalRPrecision",
+    )},
+    # wrappers: the base metric is built on the CPU too; the engine switches go to the wrapper
+    "BootStrapper": Twin(_cpu(lambda **kw: mt.BootStrapper(mt.MeanSquaredError(device="cpu"), num_bootstraps=4, **kw))),
+    "ClasswiseWrapper": Twin(_cpu(lambda **kw: mt.ClasswiseWrapper(
+        mt.Accuracy(num_classes=C, average="none", device="cpu"), **kw
+    ))),
+    "MinMaxMetric": Twin(_cpu(lambda **kw: mt.MinMaxMetric(mt.MeanSquaredError(device="cpu"), **kw))),
+    "MultioutputWrapper": Twin(_cpu(lambda **kw: mt.MultioutputWrapper(
+        mt.MeanSquaredError(device="cpu"), num_outputs=2, **kw
+    ))),
+    # text
+    **{name: Twin(_default(name)) for name in (
+        "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance", "CharErrorRate",
+        "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved", "ROUGEScore", "SQuAD",
     )},
     "RetrievalPrecisionRecallCurve": Twin(
         _default("RetrievalPrecisionRecallCurve", max_k=4),

@@ -362,6 +362,26 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.ops.retrieval",
     "metrics_tpu_torch.retrieval.metrics",
     "metrics_tpu_torch.retrieval.precision_recall_curve",
+    "metrics_tpu_torch.wrappers.bootstrapping",
+    "metrics_tpu_torch.wrappers.classwise",
+    "metrics_tpu_torch.wrappers.minmax",
+    "metrics_tpu_torch.wrappers.multioutput",
+    "metrics_tpu_torch.wrappers.tracker",
+    "metrics_tpu_torch.ops.text.error_rates",
+    "metrics_tpu_torch.ops.text.bleu",
+    "metrics_tpu_torch.ops.text.sacre_bleu",
+    "metrics_tpu_torch.ops.text.chrf",
+    "metrics_tpu_torch.ops.text.ter",
+    "metrics_tpu_torch.ops.text.eed",
+    "metrics_tpu_torch.ops.text.rouge",
+    "metrics_tpu_torch.ops.text.squad",
+    "metrics_tpu_torch.text.error_rates",
+    "metrics_tpu_torch.text.bleu",
+    "metrics_tpu_torch.text.chrf",
+    "metrics_tpu_torch.text.ter",
+    "metrics_tpu_torch.text.eed",
+    "metrics_tpu_torch.text.rouge",
+    "metrics_tpu_torch.text.squad",
 ]
 
 
