@@ -198,6 +198,43 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    sentences, the regex sentence splitter); SQuAD at v1.1 dev size (10,570
    questions). The phase stays under 300 s.
 
+11. The rest of detection and the sketches. (a) Phase 3b's stream through
+   ``MeanAveragePrecision(device_state=False, class_metrics=True)``, the
+   host-list route, updated with no synchronisation allowed: every result
+   bitwise equal to phase 3b's device-state results; B2 and the matcher
+   launched once per (pd, pg) bucket chunk of at most 256 images; every
+   image's evaluation bitwise equal to the plain-kernel run's; the compute
+   split into host prep, device evaluation, fetch and ``_calculate``.
+   (b) 500 images at LVIS's 300 detections: the list route bitwise equal to
+   ``device_state=True, detections_capacity=512`` and different from the
+   default capacity of 128, which warns once per image. (c) segm at COCO
+   val2017 image size (480 x 640) on 500 images, cut from 5,000 because 100
+   dense bool masks an image hold 31 MB on the card: seeded ellipse masks,
+   detections dense on the card, ground truths compressed RLE strings made
+   by the port's ``rle_encode``; results bitwise equal to the plain-matcher
+   run, the matcher once per chunk, ``mask_iou`` on 8 images equal to
+   float32(intersection) / float32(union) of exact counts, the peak
+   ``memory_allocated`` and the compute split. (d) Quantile (0.5, 0.9, 0.99,
+   0.999) and Median on 100,000,000 lognormal values (1% zeros, 0.1%
+   NaN/+inf/-inf), DistinctCount (precision 12 and 18) on int32 keys from
+   10,000,000 distinct values, HeavyHitters (threshold 0.001, 64 hitters,
+   16 domain bits) on Zipf(1.1) token ids over GPT-2's 50,257 ids, in
+   batches of 2**20, and AUROC(approx="sketch") on 10,000,000 binary scores:
+   eager then compiled, states bitwise, the steady state under
+   ``set_sync_debug_mode("error")`` with ``memory_allocated`` flat; each
+   value against numpy's float64 nearest rank (within ``relative_accuracy``),
+   ``torch.unique`` (4 sigma), the true counts (every key at or above the
+   threshold found by the descent, within [true, true + 2N/width]) and the
+   exact AUROC (5e-3); after 8 batches every state bitwise equal to a
+   ``device="cpu"`` twin's, but for the quantile counts of values within
+   four float32 ulps of a bucket boundary, which are counted; update steps
+   and computes timed eager and compiled. (e) Every phase-11 metric's
+   synced compute in a world of one NCCL rank bitwise equal to its unsynced
+   one: the list-route mAPs on their first 64 images run the count exchange
+   and one gather round per image and list state (masks padded to the
+   largest (H, W) first); the sketches add no collective beyond their
+   (reduction, dtype) buckets. The phase stays under 240 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -718,16 +755,16 @@ def check_match_kernel(torch, kernels_mod, im):
 # --------------------------------------------------------------------------- #
 # phase 3b: the detection path at COCO val2017 size
 # --------------------------------------------------------------------------- #
-def coco_stream(torch):
+def coco_stream(torch, n=COCO_IMAGES, d=COCO_DETS, seed=SEED + 2):
     """The seeded COCO-size stream on the card: a list of updates, each a
     (preds, targets) pair of lists of per-image dicts (views of a few large
     tensors). Ground truths per image 1 + Poisson(6.4), at most 64, sides
-    log-uniform in 4-400 px; 100 detections per image, first up to three
-    jittered copies of each ground truth (corner noise 10% of the side,
+    log-uniform in 4-400 px; ``d`` (100) detections per image, first up to
+    three jittered copies of each ground truth (corner noise 10% of the side,
     label kept with probability 0.9, score U(0.3, 1)), then random boxes
-    (score U(0, 0.6))."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    n, g_max, d = COCO_IMAGES, COCO_MAX_GT, COCO_DETS
+    (score U(0, 0.6)). ``n`` images (5,000) from generator ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    g_max = COCO_MAX_GT
 
     def rand(*shape):
         return torch.rand(shape, generator=gen, device="cuda")
@@ -754,6 +791,8 @@ def coco_stream(torch):
     cand_scores = 0.3 + 0.7 * rand(n, g_max, 3)
     exists = exists.reshape(n, -1)
     first = torch.argsort((~exists).to(torch.int8), dim=1, stable=True)[:, :d]  # existing copies first
+    if first.shape[1] < d:  # more detections than candidate copies: the rest are random boxes
+        first = torch.nn.functional.pad(first, (0, d - first.shape[1]))
     n_copy = exists.sum(dim=1).clamp(max=d)
     is_copy = torch.arange(d, device="cuda")[None, :] < n_copy[:, None]
     det_boxes = torch.where(is_copy[..., None], torch.gather(cand_boxes.reshape(n, -1, 4), 1, first[..., None].expand(n, d, 4)), place(n, d))
@@ -2139,11 +2178,13 @@ def members(metrics):
 
 def set_states(metrics) -> dict:
     """Every state tensor of a collection or a dict of metrics; a buffer as
-    its valid rows, count, flag and host mirrors."""
+    its valid rows, count, flag and host mirrors; a sketch as its components."""
     out = {}
     for key, m in members(metrics):
         for s, v in m.get_state().items():
-            if hasattr(v, "to_array"):
+            if getattr(v, "_is_mergeable_sketch", False):
+                out.update((f"{key}.{s}.{f}", c) for f, c in v.components().items())
+            elif hasattr(v, "to_array"):
                 out[f"{key}.{s}.rows"] = v.data[: min(len(v), v.capacity)]
                 out[f"{key}.{s}.count"] = v.count
                 out[f"{key}.{s}.overflowed"] = v.overflowed
@@ -2164,6 +2205,9 @@ def compute_set(metrics) -> dict:
 def same_results(torch, label: str, got: dict, want: dict) -> None:
     check(set(got) == set(want), f"{label}: result names differ")
     for key, value in want.items():
+        if isinstance(value, dict):  # a metric that returns a dict (HeavyHitters)
+            same_results(torch, f"{label} {key}", got[key], value)
+            continue
         check(value.dtype == got[key].dtype and value.shape == got[key].shape and torch.equal(got[key], value),
               f"{label}: result {key} differs")
 
@@ -3588,6 +3632,616 @@ def phase_ten(torch, mt, np, kernels_mod, smi) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 11: the rest of detection (host lists, segm) and the sketches
+# --------------------------------------------------------------------------- #
+PHASE11_LIMIT_S = 240.0
+# LVIS v1 evaluates up to 300 detections an image (its maxDets)
+LVIS_DETS, LVIS_IMAGES = 300, 500
+# COCO val2017 images are 640 x 480; 500 of its 5,000 images, since 100
+# dense 480 x 640 bool masks an image hold 31 MB on the card (16.5 GB for 500)
+SEGM_IMAGES = 500
+SEGM_CHECK_IMAGES = 8
+SYNC_MAP_IMAGES = 64  # images of each list-route mAP synced in 11(e): five gather rounds an image
+SKETCH_ITEMS, SKETCH_BATCH, SKETCH_CPU_BATCHES, SKETCH_TIMED_BATCHES = 100_000_000, 1 << 20, 8, 24
+SKETCH_QUANTILES = (0.5, 0.9, 0.99, 0.999)
+DISTINCT_KEYS = 10_000_000
+GPT2_VOCAB, ZIPF_S = 50_257, 1.1  # GPT-2's vocabulary; Zipf's exponent of token frequencies
+HEAVY = dict(threshold=0.001, max_hitters=64, domain_bits=16)
+AUROC_SKETCH_SCORES = 10_000_000
+AUROC_SKETCH_ATOL = 5e-3  # tests/sketches/test_sketch_metrics.py:111
+# a quantile-sketch bucket index is float32 arithmetic on log(|x|): two
+# correct float32 pipelines (the card's, the CPU's) may put a value one
+# bucket apart only where its exact position lies within a few float32 ulps
+# of an integer; 2**-21 relative is four of them
+BOUNDARY_RTOL = 2.0 ** -21
+
+
+def map_chunks(sizes) -> int:
+    """Chunks the list routes hand to the kernels: images with a detection
+    or a ground truth grouped by their (pd, pg) bucket (a count of 0 takes
+    the smallest, 8), 256 at a time."""
+    def bucket(n):
+        size = 8
+        while size < n:
+            size *= 2
+        return size
+
+    buckets = {}
+    for n_det, n_gt in sizes:
+        if n_det or n_gt:
+            key = (bucket(n_det), bucket(n_gt))
+            buckets[key] = buckets.get(key, 0) + 1
+    return sum(math.ceil(v / 256) for v in buckets.values())
+
+
+def stream_sizes(stream):
+    return [(len(p["scores"]), len(t["labels"])) for preds, targets in stream for p, t in zip(preds, targets)]
+
+
+def timed_compute(torch, metric, map_mod, chunk_attr: str):
+    """compute() with its split: the chunk evaluations (kernels, synchronised
+    after each), the fetches to the host, the rest of the evaluation (host
+    prep) and the curve math (``_calculate``), in seconds; and the per-image
+    evaluations ``_calculate`` read."""
+    split = {"chunks_s": 0.0, "fetch_s": 0.0, "eval_s": 0.0}
+    evals = []
+    chunk_fn, fetch_fn, eval_fn = getattr(metric, chunk_attr), map_mod._fetch_chunk, metric._evaluate_images
+
+    def chunk(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = chunk_fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        split["chunks_s"] += time.perf_counter() - t0
+        return out
+
+    def fetch(*args, **kwargs):
+        t0 = time.perf_counter()
+        fetch_fn(*args, **kwargs)
+        split["fetch_s"] += time.perf_counter() - t0
+
+    def evaluate(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = eval_fn(*args, **kwargs)
+        split["eval_s"] += time.perf_counter() - t0
+        evals.append(out)
+        return out
+
+    setattr(metric, chunk_attr, chunk)
+    metric._evaluate_images = evaluate
+    map_mod._fetch_chunk = fetch
+    try:
+        metric._computed = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = metric.compute()
+        torch.cuda.synchronize()
+        split["compute_s"] = time.perf_counter() - t0
+    finally:
+        map_mod._fetch_chunk = fetch_fn
+        del metric._evaluate_images
+        delattr(metric, chunk_attr)
+    split["host_prep_s"] = split["eval_s"] - split["chunks_s"] - split["fetch_s"]
+    split["calculate_s"] = split["compute_s"] - split["eval_s"]
+    return results, split, evals[0]
+
+
+def same_evals(np, label: str, got: list, want: list) -> None:
+    """Per-image evaluations (what ``_calculate`` reads) bit for bit."""
+    check(len(got) == len(want), f"{label}: {len(got)} images against {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check((g is None) == (w is None), f"{label}: image {i} evaluated on one side only")
+        if w is not None:
+            for key, value in w.items():
+                check(g[key].dtype == value.dtype and g[key].shape == value.shape
+                      and np.array_equal(g[key].view(np.uint8), value.view(np.uint8)), f"{label}: image {i} {key} differs")
+
+
+def same_map_results(torch, label: str, got: dict, want: dict) -> None:
+    check(set(got) == set(want), f"{label}: result keys differ")
+    for key, value in want.items():
+        check(got[key].dtype == value.dtype and got[key].shape == value.shape and torch.equal(got[key], value),
+              f"{label}: result {key} differs")
+
+
+def phase_eleven_a(torch, mt, np, kernels_mod, coco, map_results, smi) -> dict:
+    """11(a): phase 3b's stream through the host-list bbox route."""
+    from metrics_tpu_torch.detection import mean_ap as map_mod
+
+    metric = mt.MeanAveragePrecision(device_state=False, class_metrics=True)
+    check(not metric.supports_compiled_update, "11(a): the list route must not capture its update")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for preds, targets in coco:
+            metric.update(preds, targets)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    update_s = time.perf_counter() - t0
+    n_chunks = map_chunks(stream_sizes(coco))
+    kernels_mod.reset_launch_counts()
+    results, split, evals = timed_compute(torch, metric, map_mod, "_evaluate_bbox_chunk")
+    launches = kernels_mod.launch_counts()
+    for kname in DETECTION_KERNELS:
+        check(launches[kname] == n_chunks, f"11(a): {kname} launched {launches[kname]} times for {n_chunks} bucket chunks")
+    same_map_results(torch, "11(a) host-list route against phase 3b's device-state route", results, map_results)
+    # the plain run's evaluations: _calculate is a deterministic function of
+    # them, so equal evaluations give equal results (its 20 s stay unspent)
+    metric._plain_kernels = True
+    kernels_mod.reset_launch_counts()
+    evals_plain = metric._evaluate_images(metric._get_classes())
+    check(not any(kernels_mod.launch_counts().values()), "11(a): the plain run launched a kernel")
+    same_evals(np, "11(a) kernels against their plain versions", evals_plain, evals)
+    metric._plain_kernels = False
+    print(f"phase 11(a) ({smi}): host-list bbox route, {COCO_IMAGES} images in {len(coco)} updates of {COCO_BATCH}"
+          f" with synchronisation forbidden: {update_s:.2f} s; compute {split['compute_s']:.2f} s (host prep"
+          f" {split['host_prep_s']:.2f} s, device evaluation {split['chunks_s']:.2f} s in {n_chunks} bucket chunks,"
+          f" fetch {split['fetch_s']:.2f} s, _calculate {split['calculate_s']:.2f} s); launches {launches} (one of each"
+          " per chunk); every result bitwise equal to phase 3b's device-state route; every image's evaluation (what"
+          " _calculate reads) bitwise equal to the plain-kernel run's")
+    return {"metric": metric, "results": results, "update_s": update_s, "split": split, "chunks": n_chunks,
+            "launches": launches}
+
+
+def phase_eleven_b(torch, mt, kernels_mod, smi) -> dict:
+    """11(b): 300 detections an image: the list route keeps them all."""
+    import warnings
+
+    stream, _ = coco_stream(torch, n=LVIS_IMAGES, d=LVIS_DETS, seed=SEED + 31)
+    routes = {
+        "list": mt.MeanAveragePrecision(device_state=False, class_metrics=True),
+        "device_512": mt.MeanAveragePrecision(class_metrics=True, detections_capacity=512, compiled_update=False),
+        "device_128": mt.MeanAveragePrecision(class_metrics=True, compiled_update=False),
+    }
+    caught = {}
+    for key, metric in routes.items():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            for preds, targets in stream:
+                metric.update(preds, targets)
+        caught[key] = sum("detections_capacity" in str(w.message) for w in seen)
+    check(caught == {"list": 0, "device_512": 0, "device_128": LVIS_IMAGES},
+          f"11(b): capacity warnings {caught}, expected one per image of the default device route only")
+    kernels_mod.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = {key: metric.compute() for key, metric in routes.items()}
+    compute_s = time.perf_counter() - t0
+    launches = kernels_mod.launch_counts()
+    n_chunks = map_chunks(stream_sizes(stream)) + 2 * math.ceil(LVIS_IMAGES / 256)
+    for kname in DETECTION_KERNELS:
+        check(launches[kname] == n_chunks, f"11(b): {kname} launched {launches[kname]} times, expected {n_chunks}")
+    same_map_results(torch, "11(b) list route against device_state with detections_capacity=512", results["list"],
+                     results["device_512"])
+    differs = [k for k, v in results["list"].items() if not torch.equal(v, results["device_128"][k])]
+    check(differs, "11(b): the list route equals the default capacity of 128, which keeps only 128 detections")
+    print(f"phase 11(b) ({smi}): {LVIS_IMAGES} images at {LVIS_DETS} detections (LVIS maxDets): list route bitwise equal"
+          f" to device_state=True with detections_capacity=512; the default capacity of 128 warned {caught['device_128']}"
+          f" times and differs in {len(differs)} results ({', '.join(differs[:4])}...); three computes {compute_s:.2f} s;"
+          f" launches {launches}")
+    return {"metric": routes["list"], "results": results["list"], "launches": launches, "compute_s": compute_s}
+
+
+def ellipse_masks(torch, boxes):
+    """(n, 480, 640) bool: the ellipse inscribed in each xyxy box, as a mask
+    head would draw an object, on the card."""
+    ys = torch.arange(int(COCO_H), device=boxes.device, dtype=torch.float32)[None, :, None] + 0.5
+    xs = torch.arange(int(COCO_W), device=boxes.device, dtype=torch.float32)[None, None, :] + 0.5
+    x1, y1, x2, y2 = (boxes[:, i, None, None] for i in range(4))
+    rx = ((x2 - x1) / 2).clamp(min=0.5)
+    ry = ((y2 - y1) / 2).clamp(min=0.5)
+    return ((xs - (x1 + x2) / 2) / rx) ** 2 + ((ys - (y1 + y2) / 2) / ry) ** 2 <= 1.0
+
+
+def segm_stream(torch, np, rle):
+    """500 COCO-size images with masks: detections dense bool on the card,
+    ground truths compressed RLE strings made by the port's rle_encode from
+    the seeded masks (COCO annotations' format)."""
+    boxes_stream, _ = coco_stream(torch, n=SEGM_IMAGES, seed=SEED + 37)
+    stream, gt_dense, encode_s = [], [], 0.0
+    for preds, targets in boxes_stream:
+        sp, st = [], []
+        for p, t in zip(preds, targets):
+            sp.append({"masks": ellipse_masks(torch, p["boxes"]), "scores": p["scores"], "labels": p["labels"]})
+            gt = ellipse_masks(torch, t["boxes"])
+            host = gt.cpu().numpy()
+            t0 = time.perf_counter()
+            st.append({"masks": [rle.rle_encode(m) for m in host], "labels": t["labels"]})
+            encode_s += time.perf_counter() - t0
+            if len(gt_dense) < SEGM_CHECK_IMAGES:
+                gt_dense.append(gt)
+        stream.append((sp, st))
+    return stream, gt_dense, encode_s
+
+
+def phase_eleven_c(torch, mt, np, kernels_mod, smi) -> dict:
+    """11(c): segm at COCO val2017 image size, 500 images."""
+    from metrics_tpu_torch.detection import mean_ap as map_mod
+    from metrics_tpu_torch.ops.detection import boxes as box_ops
+    from metrics_tpu_torch.ops.detection import rle
+
+    t0 = time.perf_counter()
+    stream, gt_dense, encode_s = segm_stream(torch, np, rle)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+    n_gt = sum(len(t["labels"]) for _, targets in stream for t in targets)
+    metric = mt.MeanAveragePrecision(iou_type="segm", class_metrics=True)
+    check(not metric.device_state, "11(c): segm must be host-listed")
+    decode = {"s": 0.0}
+    decode_fn = map_mod.masks_from_rle_list
+
+    def timed_decode(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = decode_fn(*args, **kwargs)
+        decode["s"] += time.perf_counter() - t1
+        return out
+
+    map_mod.masks_from_rle_list = timed_decode
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for preds, targets in stream:
+            metric.update(preds, targets)
+        torch.cuda.synchronize()
+        update_s = time.perf_counter() - t0
+    finally:
+        map_mod.masks_from_rle_list = decode_fn
+    # mask_iou on the first images against float64 numpy, counts exact
+    worst = 0.0
+    for i in range(SEGM_CHECK_IMAGES):
+        det, gt = metric.detections[i], metric.groundtruths[i]
+        check(torch.equal(gt, gt_dense[i]), f"11(c): image {i}'s RLE ground truths do not decode to their masks")
+        got = box_ops.mask_iou(det, gt).cpu().numpy()
+        d64 = det.reshape(det.shape[0], -1).cpu().numpy().astype(np.float64)
+        g64 = gt.reshape(gt.shape[0], -1).cpu().numpy().astype(np.float64)
+        inter = d64 @ g64.T
+        union = d64.sum(1)[:, None] + g64.sum(1)[None, :] - inter
+        want32 = np.where(union > 0, inter.astype(np.float32) / np.where(union > 0, union, 1).astype(np.float32), 0)
+        check(np.array_equal(got.view(np.uint32), want32.astype(np.float32).view(np.uint32)),
+              f"11(c): image {i}: mask_iou is not float32(intersection) / float32(union) of the exact counts")
+        worst = max(worst, float(np.abs(got - np.where(union > 0, inter / np.where(union > 0, union, 1), 0)).max()))
+    # compute, with its split: mask IoU, the matcher, the curve math
+    split = {"mask_iou_s": 0.0, "matcher_s": 0.0}
+    iou_fn, match_fn = map_mod.mask_iou, map_mod.evaluate_given_ious
+
+    def timed(fn, key):
+        def wrapped(*args, **kwargs):
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[key] += time.perf_counter() - t1
+            return out
+        return wrapped
+
+    map_mod.mask_iou, map_mod.evaluate_given_ious = timed(iou_fn, "mask_iou_s"), timed(match_fn, "matcher_s")
+    n_chunks = map_chunks([(len(p["scores"]), len(t["labels"])) for preds, targets in stream
+                           for p, t in zip(preds, targets)])
+    try:
+        kernels_mod.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        results, csplit, _ = timed_compute(torch, metric, map_mod, "_evaluate_segm_chunk")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        map_mod.mask_iou, map_mod.evaluate_given_ious = iou_fn, match_fn
+    launches = kernels_mod.launch_counts()
+    check(launches["greedy_match"] == n_chunks and launches["pairwise_iou"] == 0,
+          f"11(c): launches {launches}, expected the matcher once per each of {n_chunks} chunks and no box IoU")
+    for key, value in results.items():
+        check(bool(torch.isfinite(value).all()), f"11(c): result {key} is not finite")
+    check(0.0 < float(results["map"]) < 1.0, f"11(c): map {float(results['map'])} is not in (0, 1)")
+    metric._plain_kernels = True
+    metric._computed = None
+    plain = metric.compute()
+    metric._plain_kernels = False
+    same_map_results(torch, "11(c) matcher kernel against its plain version", plain, results)
+    state_gb = sum(x.numel() for x in metric.detections + metric.groundtruths) / 1e9
+    print(f"phase 11(c) ({smi}): segm, {SEGM_IMAGES} images of 480 x 640 (cut from COCO val2017's 5,000 for device memory),"
+          f" {n_gt} RLE ground truths: made in {make_s:.1f} s (RLE encode {encode_s:.1f} s); update {update_s:.2f} s"
+          f" (RLE decode {decode['s']:.2f} s); state {state_gb:.2f} GB of masks on the card; compute"
+          f" {csplit['compute_s']:.2f} s (host prep {csplit['host_prep_s']:.2f} s; {n_chunks} chunks"
+          f" {csplit['chunks_s']:.2f} s: mask IoU {split['mask_iou_s']:.2f} s, sort, flags and matcher"
+          f" {split['matcher_s']:.2f} s, padding the rest; fetch {csplit['fetch_s']:.2f} s; _calculate"
+          f" {csplit['calculate_s']:.2f} s); peak memory_allocated"
+          f" {peak / 1e9:.2f} GB ({(peak - base) / 1e9:.2f} GB above the state); launches {launches};"
+          f" results bitwise equal to the plain-matcher run; mask_iou on {SEGM_CHECK_IMAGES} images exact"
+          f" (within {worst:.1e} of float64); map {float(results['map']):.6f}")
+    return {"metric": metric, "results": results, "launches": launches, "update_s": update_s, "decode_s": decode["s"],
+            "split": {**csplit, **split}, "peak_gb": peak / 1e9, "chunks": n_chunks}
+
+
+def sketch_streams(torch):
+    """The sketches' streams on the card, in batches of 2**20: lognormal
+    float32 values with 1% zeros and 0.1% NaN/+inf/-inf; int32 keys drawn
+    from 10,000,000 distinct values; Zipf(1.1) token ids over GPT-2's
+    vocabulary (ranks mapped to ids by a seeded permutation); and 10,000,000
+    binary scores for AUROC (40% positives, scores N(0.35, 0.15) shifted by
+    0.25 for positives, clipped to [1e-4, 1])."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    n = SKETCH_ITEMS
+    values = torch.empty(n, device="cuda").log_normal_(0.0, 1.0, generator=gen)
+    u = torch.rand(n, generator=gen, device="cuda")
+    values = torch.where(u < 0.01, torch.zeros((), device="cuda"), values)
+    for lo, special in ((0.01, math.nan), (0.01 + 1e-3 / 3, math.inf), (0.01 + 2e-3 / 3, -math.inf)):
+        values = torch.where((u >= lo) & (u < lo + 1e-3 / 3), torch.full((), special, device="cuda"), values)
+    del u
+    draw = torch.randint(0, DISTINCT_KEYS, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    keys = (draw.to(torch.int64) * 2654435761) & 0xFFFFFFFF  # a bijection of the 32-bit words
+    keys = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(torch.int32)
+    del draw
+    ranks = torch.arange(1, GPT2_VOCAB + 1, device="cuda", dtype=torch.float64)
+    cdf = torch.cumsum(ranks ** -ZIPF_S, dim=0)
+    cdf = cdf / cdf[-1]
+    perm = torch.randperm(GPT2_VOCAB, generator=gen, device="cuda")
+    tokens = torch.empty(n, device="cuda", dtype=torch.int32)
+    for start in range(0, n, 1 << 24):  # float64 draws in slices, to bound the temporaries
+        u64 = torch.rand(min(1 << 24, n - start), generator=gen, device="cuda", dtype=torch.float64)
+        tokens[start : start + u64.numel()] = perm[torch.searchsorted(cdf, u64).clamp(max=GPT2_VOCAB - 1)].to(torch.int32)
+    m = AUROC_SKETCH_SCORES
+    target = (torch.rand(m, generator=gen, device="cuda") < 0.4).to(torch.int32)
+    scores = (0.35 + 0.15 * torch.randn(m, generator=gen, device="cuda") + 0.25 * target).clamp(1e-4, 1.0)
+    cut = lambda x: list(torch.split(x, SKETCH_BATCH))  # noqa: E731
+    stream = list(zip(cut(values), cut(keys), cut(tokens)))
+    return stream, list(zip(cut(scores), cut(target))), (values, keys, tokens, scores, target)
+
+
+def sketch_metrics(mt, compiled: bool, device=None) -> dict:
+    flags = dict(compiled_update=compiled, compiled_compute=compiled) if not compiled else {}
+    return {
+        "quantile": mt.Quantile(q=list(SKETCH_QUANTILES), device=device, **flags),
+        "median": mt.Median(device=device, **flags),
+        "distinct_p12": mt.DistinctCount(precision=12, device=device, **flags),
+        "distinct_p18": mt.DistinctCount(precision=18, device=device, **flags),
+        "heavy": mt.HeavyHitters(**HEAVY, device=device, **flags),
+    }
+
+
+def feed_sketches(metrics: dict, batch) -> None:
+    values, keys, tokens = batch
+    for name, metric in metrics.items():
+        metric.update(values if name in ("quantile", "median") else keys if name.startswith("distinct") else tokens)
+
+
+def feed_auroc(metrics: dict, batch) -> None:
+    metrics["auroc"].update(*batch)
+
+
+def exact_auroc(torch, scores, target) -> float:
+    """The exact AUROC in float64 on the card: the Mann-Whitney statistic
+    with mid-ranks for ties."""
+    order = torch.argsort(scores)
+    s, t = scores[order], target[order]
+    _, inverse, counts = torch.unique_consecutive(s, return_inverse=True, return_counts=True)
+    ends = torch.cumsum(counts, dim=0).to(torch.float64)
+    ranks = ((ends - counts + 1 + ends) / 2)[inverse]
+    n_pos = float(t.sum())
+    n_neg = t.numel() - n_pos
+    return float((ranks[t == 1].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def boundary_check(torch, np, card_sketch, cpu_sketch, values_card, values_cpu, label: str) -> dict:
+    """A quantile sketch on the card against its CPU twin: the values whose
+    bucket differs, each within BOUNDARY_RTOL of a boundary in float64, and
+    the count differences exactly theirs."""
+    idx_card = card_sketch.bucket_index(values_card).cpu()
+    idx_cpu = cpu_sketch.bucket_index(values_cpu)
+    x = values_cpu
+    counted = torch.isfinite(x) & (torch.abs(x) >= card_sketch.min_magnitude)
+    differ = (idx_card != idx_cpu) & counted
+    diff_vals = x[differ].to(torch.float64).numpy()
+    pos = np.log(np.abs(diff_vals) / card_sketch.min_magnitude) / card_sketch._log_ratio
+    dist = np.abs(pos - np.round(pos))
+    limit = BOUNDARY_RTOL * np.maximum(np.abs(pos), 1.0)
+    worst = float(dist.max()) if dist.size else 0.0
+    check(bool((dist <= limit).all()), f"{label}: a value one bucket over lies {worst:.2e} from a boundary")
+    for comp, sign in (("pos", x > 0), ("neg", x < 0)):
+        sel = differ & sign
+        b = card_sketch.num_buckets
+        want = (torch.bincount(idx_card[sel], minlength=b) - torch.bincount(idx_cpu[sel], minlength=b)).to(torch.int64)
+        got = getattr(card_sketch, comp).cpu().to(torch.int64) - getattr(cpu_sketch, comp).to(torch.int64)
+        check(torch.equal(got, want), f"{label}: the {comp} counts differ by more than the boundary values")
+    return {"values": int(differ.sum()), "max_distance": worst}
+
+
+def sketch_vs_cpu(torch, np, mt, stream, auroc_stream) -> dict:
+    """11(d): the states after the first 8 batches on the card against a
+    device="cpu" twin's: bitwise, the quantile counts by the boundary rule."""
+    card, cpu = sketch_metrics(mt, False), sketch_metrics(mt, False, device="cpu")
+    card["auroc"] = mt.AUROC(approx="sketch", compiled_update=False, compiled_compute=False)
+    cpu["auroc"] = mt.AUROC(approx="sketch", compiled_update=False, compiled_compute=False, device="cpu")
+    part, apart = stream[:SKETCH_CPU_BATCHES], auroc_stream[:SKETCH_CPU_BATCHES]
+    for batch in part:
+        feed_sketches({k: v for k, v in card.items() if k != "auroc"}, batch)
+        feed_sketches({k: v for k, v in cpu.items() if k != "auroc"}, tuple(x.cpu() for x in batch))
+    for batch in apart:
+        feed_auroc(card, batch)
+        feed_auroc(cpu, tuple(x.cpu() for x in batch))
+    values_card = torch.cat([b[0] for b in part])
+    values_cpu = values_card.cpu()
+    scores_card = torch.cat([s for s, _ in apart])
+    target_cpu = torch.cat([t for _, t in apart]).cpu()
+    report = {}
+    for name, metric in card.items():
+        for state, sk in metric.get_state().items():
+            twin = cpu[name].get_state()[state]
+            for comp, value in sk.components().items():
+                other = getattr(twin, comp)
+                if comp in ("pos", "neg") and not torch.equal(value.cpu(), other):
+                    continue  # the boundary rule, below
+                check(same_bits(torch, value, other), f"11(d): {name}.{state}.{comp} differs from the CPU twin's")
+            if hasattr(sk, "bucket_index"):
+                if name == "auroc":
+                    is_pos = (target_cpu == 1) if state == "pos_scores" else (target_cpu != 1)
+                    vc = torch.where(is_pos.to(scores_card.device), scores_card, math.nan)
+                    report[f"{name}.{state}"] = boundary_check(torch, np, sk, twin, vc, vc.cpu(), f"11(d) {name}.{state}")
+                else:
+                    report[f"{name}.{state}"] = boundary_check(torch, np, sk, twin, values_card, values_cpu,
+                                                               f"11(d) {name}.{state}")
+    return report
+
+
+def phase_eleven_d(torch, mt, np, kernels_mod, smi) -> dict:
+    """11(d): the sketches over 100,000,000 items, compiled against eager."""
+    t0 = time.perf_counter()
+    stream, auroc_stream, (values, keys, tokens, scores, target) = sketch_streams(torch)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    run = eager_then_compiled(torch, "11(d) sketches", lambda c: sketch_metrics(mt, c), feed_sketches, stream)
+    arun = eager_then_compiled(torch, "11(d) AUROC sketch",
+                               lambda c: {"auroc": mt.AUROC(approx="sketch", **({} if c else dict(
+                                   compiled_update=False, compiled_compute=False)))},
+                               feed_auroc, auroc_stream)
+    res, eager = run["results"], run["eager"]
+    # oracles over the whole stream
+    host = values.cpu().numpy()
+    finite = host[np.isfinite(host)].astype(np.float64)
+    exact_q = np.quantile(finite, SKETCH_QUANTILES, method="inverted_cdf")
+    got_q = res["quantile"].cpu().numpy().astype(np.float64)
+    rel = np.abs(got_q - exact_q) / np.abs(exact_q)
+    check(bool((rel <= eager["quantile"].sketch.relative_accuracy).all()), f"11(d): quantiles {got_q} vs {exact_q}")
+    check(same_bits(torch, res["median"], res["quantile"][0]), "11(d): Median differs from Quantile(q=0.5)")
+    distinct = int(torch.unique(keys).numel())
+    for p in (12, 18):
+        est = float(res[f"distinct_p{p}"])
+        sigma = 1.04 / math.sqrt(1 << p)
+        check(abs(est - distinct) <= 4 * sigma * distinct, f"11(d): DistinctCount(p={p}) {est} vs {distinct}")
+    true_counts = torch.bincount(tokens, minlength=GPT2_VOCAB).cpu().numpy().astype(np.int64)
+    n = SKETCH_ITEMS
+    cut = math.ceil(HEAVY["threshold"] * n)
+    heavy_keys = set(np.flatnonzero(true_counts >= cut).tolist())
+    sk = eager["heavy"].sketch
+    all_keys, all_counts = sk.heavy_hitters(HEAVY["threshold"], max_hitters=4096)
+    found = {int(k): int(c) for k, c in zip(all_keys, all_counts) if k >= 0}
+    slack = 2 * n / sk.width
+    check(heavy_keys <= set(found), f"11(d): true heavy hitters missed: {sorted(heavy_keys - set(found))[:8]}")
+    check(all(true_counts[k] <= c <= true_counts[k] + slack for k, c in found.items()),
+          "11(d): a heavy-hitter estimate is below its true count or above it by more than 2N/width")
+    top = res["heavy"]
+    check(top["keys"].tolist() == all_keys[: HEAVY["max_hitters"]].tolist(), "11(d): compute() is not the descent's top 64")
+    auroc_exact = exact_auroc(torch, scores, target)
+    auroc_got = float(arun["results"]["auroc"])
+    check(abs(auroc_got - auroc_exact) <= AUROC_SKETCH_ATOL, f"11(d): sketch AUROC {auroc_got} vs exact {auroc_exact}")
+    boundary = sketch_vs_cpu(torch, np, mt, stream, auroc_stream)
+    # the update step and compute, per metric, by events and the profiler
+    timing = {}
+    for name in ("quantile", "distinct_p12", "distinct_p18", "heavy"):
+        make = lambda c, name=name: {name: sketch_metrics(mt, c)[name]}  # noqa: E731
+        timing[name] = timing_summary(timing_pairs(torch, make, feed_sketches, stream[:SKETCH_TIMED_BATCHES]))
+    timing["auroc"] = timing_summary(timing_pairs(  # the full batches twice: the timing needs 15 steps
+        torch, lambda c: {"auroc": mt.AUROC(approx="sketch", **({} if c else dict(compiled_update=False, compiled_compute=False)))},
+        feed_auroc, auroc_stream[:-1] * 2))
+    print(f"phase 11(d) ({smi}): {SKETCH_ITEMS:,} items in {len(stream)} batches of up to {SKETCH_BATCH:,} (made in"
+          f" {made_s:.1f} s); compiled states bitwise equal to eager, steady state with no synchronisation and flat"
+          f" memory_allocated; engines {run['engines']}")
+    print(f"  quantiles {dict(zip(SKETCH_QUANTILES, got_q.tolist()))} within {rel.max():.2e} relative of numpy's"
+          f" float64 nearest rank; DistinctCount p12 {float(res['distinct_p12']):.0f}, p18 {float(res['distinct_p18']):.0f}"
+          f" against {distinct} distinct keys; HeavyHitters: {len(heavy_keys)} true keys at or above {HEAVY['threshold']}"
+          f" of the stream (more than max_hitters={HEAVY['max_hitters']}), all found by the descent among {len(found)},"
+          f" each within [true, true + 2N/width = +{slack:.0f}]; sketch AUROC {auroc_got:.6f} vs exact {auroc_exact:.6f}")
+    print(f"  after {SKETCH_CPU_BATCHES} batches, states bitwise equal to a CPU twin's but for quantile bucket counts"
+          f" of values on a bucket boundary (float64 position within {BOUNDARY_RTOL:.1e} relative of an integer): {boundary}")
+    for name, t in timing.items():
+        print(f"phase 11(d) ({smi}): {name}: update step eager "
+              + ", ".join(f"{r['step_us']:.1f} us (idle {r['idle']}, busy {r['busy_us']:.1f} us)" for r in t["eager"])
+              + "; compiled " + ", ".join(f"{r['step_us']:.1f} us (idle {r['idle']}, busy {r['busy_us']:.1f} us)" for r in t["compiled"])
+              + "; compute eager " + ", ".join(f"{r['compute_ms']:.3f} ms" for r in t["eager"])
+              + ", compiled " + ", ".join(f"{r['compute_ms']:.3f} ms" for r in t["compiled"]))
+    out = {"metrics": {**run["eager"], "auroc": arun["eager"]["auroc"]}, "timing": timing, "boundary": boundary,
+           "quantile_rel_err": float(rel.max()), "distinct": distinct, "auroc": [auroc_got, auroc_exact],
+           "heavy_true": len(heavy_keys)}
+    del values, keys, tokens, scores, target, stream, auroc_stream
+    return out
+
+
+def sketch_buckets(metric) -> int:
+    """The (reduction, dtype) buckets a metric's sketch states fill."""
+    return len({(red, c.dtype) for sk in metric.get_state().values() for (f, red), c in
+                zip(sk.component_reductions(), sk.components().values())})
+
+
+def map_subset(mt, metric, n: int):
+    """A list-route mAP holding the first ``n`` images of ``metric`` (the
+    same tensors): the sync runs one gather round per image and state."""
+    from metrics_tpu_torch.detection.mean_ap import _LIST_STATES
+
+    sub = mt.MeanAveragePrecision(iou_type=metric.iou_type, device_state=False, class_metrics=metric.class_metrics)
+    sub.set_state({name: list(getattr(metric, name)[:n]) for name in _LIST_STATES})
+    sub._update_count = 1
+    return sub
+
+
+def phase_eleven_e(torch, sync, metrics: dict, smi) -> dict:
+    """11(e): each phase-11 metric's synced compute in a world of one NCCL
+    rank, bitwise equal to its unsynced one (``metrics``: label -> (metric,
+    its unsynced result, or None to compute it here)). The list-route mAPs
+    run every gather round: the count exchange, one round per image and
+    list state, and the (H, W) exchange for masks."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    out = {}
+    try:
+        world = dist.group.WORLD
+        for label, (metric, local) in metrics.items():
+            if local is None:
+                metric._computed = None
+                local = metric.compute()
+            metric._computed = None
+            with sync.count_collectives() as box, sync.sync_axes(world):
+                synced = metric.compute()
+            got, want = torch.utils._pytree.tree_leaves(synced), torch.utils._pytree.tree_leaves(local)
+            check(len(got) == len(want) and all(same_bits(torch, g, w) for g, w in zip(got, want)),
+                  f"11(e) {label}: synced compute differs from the unsynced one")
+            if type(metric).__name__ == "MeanAveragePrecision":
+                rounds = 1 + 5 * len(metric.detections) + (metric.iou_type == "segm")
+                expected = {"size_exchange": rounds, "all_gather": rounds}
+            else:
+                expected = {"all_reduce": sketch_buckets(metric)}
+            check(box["by_kind"] == expected, f"11(e) {label}: synced compute ran {box['by_kind']}, expected {expected}")
+            out[label] = box["by_kind"]
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 11(e) ({smi}): synced computes in a world of one NCCL rank bitwise equal to the unsynced ones; collectives {out}"
+          f" (the mAPs on their first {SYNC_MAP_IMAGES} images: the count exchange, one gather round per image and list"
+          " state, the (H, W) exchange for masks; the sketches: one all_reduce per (reduction, dtype) bucket of their"
+          " components, none of their own)")
+    return out
+
+
+def phase_eleven(torch, mt, np, kernels_mod, sync, coco, map_results, smi) -> dict:
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    total = {k: 0 for k in kernels_mod.launch_counts()}
+
+    def tally(part):
+        for k, v in part.items():
+            total[k] += v
+
+    a = phase_eleven_a(torch, mt, np, kernels_mod, coco, map_results, smi)
+    tally(a["launches"])
+    b = phase_eleven_b(torch, mt, kernels_mod, smi)
+    tally(b["launches"])
+    c = phase_eleven_c(torch, mt, np, kernels_mod, smi)
+    tally(c["launches"])
+    kernels_mod.reset_launch_counts()
+    d = phase_eleven_d(torch, mt, np, kernels_mod, smi)
+    check(not any(kernels_mod.launch_counts().values()), "11(d): the sketches launched a kernel of B1-B3")
+    e = phase_eleven_e(torch, sync, {**{label: (map_subset(mt, m, SYNC_MAP_IMAGES), None) for label, m in (
+        ("map_host_list_bbox", a["metric"]), ("map_300_dets", b["metric"]), ("map_segm", c["metric"]))},
+        **{k: (m, None) for k, m in d["metrics"].items()}}, smi)
+    del c["metric"]
+    elapsed = time.perf_counter() - t0
+    print(f"phase 11 ({smi}): {elapsed:.1f} s in all (limit {PHASE11_LIMIT_S:.0f} s); kernel launches {total}"
+          " (11(a)-(c), without the plain runs)")
+    check(elapsed < PHASE11_LIMIT_S, f"phase 11 took {elapsed:.1f} s, over its {PHASE11_LIMIT_S:.0f} s")
+    return {"launches": total, "a": {k: a[k] for k in ("update_s", "split", "chunks")},
+            "c": {k: c[k] for k in ("update_s", "decode_s", "split", "peak_gb", "chunks")},
+            "d": {k: d[k] for k in ("timing", "boundary", "quantile_rel_err", "distinct", "auroc", "heavy_true")},
+            "e": e, "seconds": elapsed}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3779,6 +4433,9 @@ def main() -> None:
     # ---- phase 10: the wrappers and the text metrics other than BERTScore (no kernel of B1-B3 on its path)
     ten = phase_ten(torch, mt, np, kernels_mod, smi)
 
+    # ---- phase 11: the rest of detection (host lists, segm, 300 detections) and the sketches
+    eleven = phase_eleven(torch, mt, np, kernels_mod, sync, coco, map_results, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -3797,6 +4454,7 @@ def main() -> None:
             "phase8_launches": eight["launches"][kname],
             "phase9_launches": nine["launches"][kname],
             "phase10_launches": ten["launches"][kname],
+            "phase11_launches": eleven["launches"][kname],
             **us,
             **extra,
         }
@@ -3823,6 +4481,8 @@ def main() -> None:
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],
+               host_list_map_chunks=eleven["a"]["chunks"], host_list_map_update_s=eleven["a"]["update_s"],
+               host_list_map_compute_split_s=eleven["a"]["split"],
                **{k: det["pairwise_iou"][k] for k in ("shape", "device_us", "count_free_ms", "unfused_step_ms",
                                                       "unfused_step_device_us")}),
         record("greedy_match", {k: v for k, v in det["greedy_match"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
@@ -3832,7 +4492,8 @@ def main() -> None:
                map_compute_eval_s=det["map_compute_eval_s"], map_compute_calc_s=det["map_compute_calc_s"],
                map_compute_idle_share=det["map_compute_idle_share"],
                compiled_map_compute_launches=seven["map"]["launches"]["greedy_match"],
-               compiled_map_update_us=seven["map"]["update_us"], compiled_map_compute_s=seven["map"]["compute_s"]),
+               compiled_map_update_us=seven["map"]["update_us"], compiled_map_compute_s=seven["map"]["compute_s"],
+               segm_map=eleven["c"]),
         record("maxsim_tf32x3", {k: v for k, v in txt["full"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
                library_note="torch.bmm then two amax, TF32 off (three calls; the port never calls them)",
                shape=txt["full"]["shape"], device_us=txt["full"]["device_us"],

@@ -1,5 +1,6 @@
 """Aggregators with a NaN strategy: SumMetric, MeanMetric, MaxMetric,
-MinMetric and CatMetric (counterpart of ``metrics_tpu/aggregation.py``).
+MinMetric and CatMetric, and the sketch aggregators Quantile, Median,
+DistinctCount and HeavyHitters (counterpart of ``metrics_tpu/aggregation.py``).
 
 NaNs are masked, not filtered: a masked entry takes the reduction's identity
 and weight 0, so every update keeps static shapes and is captured. The
@@ -9,12 +10,14 @@ captured step (``utils.checks._capturing``). A captured CatMetric therefore
 keeps a NaN row with the imputed 0.0 where an eager one drops it, as the JAX
 package's compiled and eager updates do.
 
-The sketch aggregators (Quantile, Median, DistinctCount, HeavyHitters) wait
-for the sketches (ROADMAP A16), and a sharded buffer for A17.
+The sketch aggregators keep a fixed-size
+:class:`~metrics_tpu_torch.sketches.MergeableSketch` state under the
+``"sketch"`` reduction tag, whatever the stream's length; their inserts are
+captured like any other update. A sharded buffer waits for A17.
 """
 from __future__ import annotations
 
-from typing import Any, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,6 +25,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.sketches import DyadicCountMinSketch, HyperLogLogSketch, QuantileSketch
 from metrics_tpu_torch.utils.checks import _capturing
 from metrics_tpu_torch.utils.data import append_cat, dim_zero_cat
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -223,3 +227,197 @@ class MeanMetric(BaseAggregator):
 
     def compute(self) -> Tensor:
         return self.value / self.weight
+
+
+# --------------------------------------------------------------------------- #
+# sketch-backed aggregators: bounded-memory approximate metrics over
+# unbounded streams. Each declares its sketch's error bound as the state's
+# sync tolerance, as the JAX package does.
+# --------------------------------------------------------------------------- #
+class Quantile(Metric):
+    """Streaming quantile(s) from a fixed-size mergeable sketch.
+
+    Keeps a :class:`~metrics_tpu_torch.sketches.QuantileSketch` (about 40 KB
+    at the defaults, whatever the stream's length); ranks are exact and the
+    returned values carry a relative error of at most ``relative_accuracy``.
+
+    Args:
+        q: quantile(s) in [0, 1]: a scalar result for a scalar ``q``, a
+            vector for a sequence.
+        num_buckets / relative_accuracy / min_magnitude: the sketch's layout.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Quantile
+        >>> metric = Quantile(q=0.5, device="cpu")
+        >>> metric.update(torch.arange(1, 101, dtype=torch.float32))
+        >>> round(float(metric.compute()), 1)
+        49.9
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+
+    sketch: QuantileSketch
+
+    def __init__(
+        self,
+        q: Union[float, Sequence[float]] = 0.5,
+        num_buckets: int = 2048,
+        relative_accuracy: float = 0.01,
+        min_magnitude: float = 1e-8,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        self._scalar_q = not isinstance(q, (list, tuple))
+        qs = (float(q),) if self._scalar_q else tuple(float(v) for v in q)
+        if not qs or not all(0.0 <= v <= 1.0 for v in qs):
+            raise ValueError(f"Expected argument `q` to be probabilities in [0, 1] but got {q}")
+        self.q = qs
+        self.add_state(
+            "sketch",
+            default=QuantileSketch(num_buckets=num_buckets, relative_accuracy=relative_accuracy,
+                                   min_magnitude=min_magnitude, device=self.device),
+            dist_reduce_fx="sketch",
+            persistent=True,
+            sync_tolerance=float(relative_accuracy),
+        )
+
+    def update(self, value: Union[float, Tensor]) -> None:  # type: ignore[override]
+        self.sketch = self.sketch.insert(value)
+
+    def compute(self) -> Tensor:
+        out = self.sketch.quantile(self.q)
+        return out[0] if self._scalar_q else out
+
+    def error_bound(self) -> Dict[str, Any]:
+        """The sketch's declared accuracy contract."""
+        return self.sketch.error_bound()
+
+
+class Median(Quantile):
+    """Streaming median: :class:`Quantile` pinned at ``q=0.5``.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import Median
+        >>> metric = Median(device="cpu")
+        >>> metric.update(torch.tensor([1.0, 9.0, 2.0]))
+        >>> round(float(metric.compute()), 2)
+        1.99
+    """
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(q=0.5, **kwargs)
+
+
+class DistinctCount(Metric):
+    """Approximate distinct count over a key stream (HyperLogLog).
+
+    State is ``2**precision`` int32 registers merged by elementwise max;
+    relative standard error ``1.04 / sqrt(2**precision)`` (about 1.6% at the
+    default ``precision=12``, 16 KB).
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import DistinctCount
+        >>> metric = DistinctCount(device="cpu")
+        >>> metric.update(torch.tensor([1, 2, 3, 2, 1]))
+        >>> round(float(metric.compute()))
+        3
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+
+    sketch: HyperLogLogSketch
+
+    def __init__(self, precision: int = 12, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        sk = HyperLogLogSketch(precision=precision, device=self.device)
+        self.add_state(
+            "sketch", default=sk, dist_reduce_fx="sketch", persistent=True,
+            sync_tolerance=float(sk.error_bound()["value"]),
+        )
+
+    def update(self, value: Tensor) -> None:  # type: ignore[override]
+        self.sketch = self.sketch.insert(value)
+
+    def compute(self) -> Tensor:
+        return self.sketch.estimate()
+
+    def error_bound(self) -> Dict[str, Any]:
+        """The sketch's declared accuracy contract."""
+        return self.sketch.error_bound()
+
+
+class HeavyHitters(Metric):
+    """Keys above a frequency threshold, from a dyadic count-min hierarchy.
+
+    ``compute()`` walks the dyadic tree on the host (a data-dependent
+    descent), so the metric keeps off the compiled compute
+    (``compiled_compute=False`` by default), as in the JAX package; the
+    update is captured (one ``index_add`` per dyadic level).
+
+    Returns ``{"keys": int32[max_hitters], "counts": int32[max_hitters]}``
+    on the metric's device, sorted by descending estimated count and padded
+    with ``-1`` / ``0`` (int32 as the JAX package returns them with 64-bit
+    types off).
+
+    Args:
+        threshold: report keys with estimated frequency ``>= threshold *
+            total`` (count-min never understates, so no true hitter is lost).
+        max_hitters: fixed result length.
+        domain_bits / width / depth: the sketch's shape.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import HeavyHitters
+        >>> metric = HeavyHitters(threshold=0.4, max_hitters=2, device="cpu")
+        >>> metric.update(torch.tensor([7, 7, 7, 5, 7]))
+        >>> [int(k) for k in metric.compute()["keys"]]
+        [7, -1]
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+
+    sketch: DyadicCountMinSketch
+
+    def __init__(
+        self,
+        threshold: float = 0.01,
+        max_hitters: int = 16,
+        domain_bits: int = 16,
+        width: int = 1024,
+        depth: int = 4,
+        **kwargs: Any,
+    ) -> None:
+        kwargs.setdefault("compiled_compute", False)  # the host descent
+        super().__init__(**kwargs)
+        if not 0.0 < threshold <= 1.0:
+            raise ValueError(f"Expected argument `threshold` in (0, 1] but got {threshold}")
+        if max_hitters < 1:
+            raise ValueError(f"Expected argument `max_hitters` to be >= 1 but got {max_hitters}")
+        self.threshold = float(threshold)
+        self.max_hitters = int(max_hitters)
+        sk = DyadicCountMinSketch(domain_bits=domain_bits, width=width, depth=depth, device=self.device)
+        self.add_state(
+            "sketch", default=sk, dist_reduce_fx="sketch", persistent=True,
+            sync_tolerance=float(sk.error_bound()["value"]),
+        )
+
+    def update(self, value: Tensor, weight: Optional[Tensor] = None) -> None:  # type: ignore[override]
+        self.sketch = self.sketch.insert(value, weight)
+
+    def compute(self) -> Dict[str, Tensor]:
+        keys, counts = self.sketch.heavy_hitters(self.threshold, self.max_hitters)
+        both = torch.from_numpy(np.stack([keys, counts]).astype(np.int32)).to(self.device)
+        return {"keys": both[0], "counts": both[1]}
+
+    def error_bound(self) -> Dict[str, Any]:
+        """The sketch's declared accuracy contract."""
+        return self.sketch.error_bound()

@@ -215,7 +215,9 @@ class EngineStats:
 # (leaves are anything else); the spec is a hashable nested tuple. A buffer
 # is three leaves (data, count, overflowed); its host mirrors are not part
 # of the spec, and a buffer built from leaves has them zero until the
-# dispatch carries them over (_carry_mirrors)
+# dispatch carries them over (_carry_mirrors). A sketch is its components in
+# field order, with its class and static config in the spec (the JAX
+# package's pytree node), so an insert is captured and replayed in place
 # --------------------------------------------------------------------------- #
 def _flatten_into(tree: Any, leaves: list) -> Any:
     kind = type(tree)
@@ -230,6 +232,9 @@ def _flatten_into(tree: Any, leaves: list) -> Any:
         return ("t", tuple(_flatten_into(v, leaves) for v in tree))
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return ("n", kind, tuple(_flatten_into(v, leaves) for v in tree))
+    if getattr(kind, "_is_mergeable_sketch", False) is True:
+        leaves.extend(getattr(tree, f) for f, _ in kind.sketch_fields)
+        return ("s", kind, tree.config())
     leaves.append(tree)
     return None
 
@@ -256,6 +261,8 @@ def _build(node: Any, it: Any) -> Any:
         return tuple(_build(c, it) for c in node[1])
     if node[0] == "c":
         return CatBuffer._from_parts(next(it), next(it), next(it), capacity=node[1])
+    if node[0] == "s":
+        return node[1]._from_parts(node[2], [next(it) for _ in node[1].sketch_fields])
     return node[1](*(_build(c, it) for c in node[2]))
 
 
@@ -272,6 +279,18 @@ def _carry_mirrors(before: Any, after: Any, rows: Tuple[int, ...]) -> None:
     for a, b, n in zip(buffers_in(before), buffers_in(after), rows):
         b._n = a._n + n
         b._over = a._over or b._n > b.capacity
+
+
+def _sketches_in(tree: Any) -> list:
+    """The sketches among a state tree's values (a state dict's, or each
+    member's of a collection's ``{leader: state}``)."""
+    out = []
+    for value in tree.values() if isinstance(tree, dict) else ():
+        if getattr(value, "_is_mergeable_sketch", False) is True:
+            out.append(value)
+        elif isinstance(value, dict):
+            out.extend(_sketches_in(value))
+    return out
 
 
 def _next_pow2(n: int) -> int:
@@ -817,10 +836,11 @@ class _EngineBase:
                     donate_ok = False
                     break
         if donate_ok and self._result_is_state:
-            # a buffer object held elsewhere (a get_state() snapshot) holds
-            # its tensors too: the metric's attribute, the state tree, this
-            # list, the loop variable and getrefcount's argument are all
-            buffers = buffers_in(state)
+            # a buffer or sketch object held elsewhere (a get_state()
+            # snapshot) holds its tensors too: the metric's attribute, the
+            # state tree, this list, the loop variable and getrefcount's
+            # argument are all
+            buffers = buffers_in(state) + _sketches_in(state)
             for buf in buffers:
                 if sys.getrefcount(buf) > _DONATION_MAX_REFS:
                     donate_ok = False

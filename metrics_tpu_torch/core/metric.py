@@ -9,8 +9,10 @@ mean, max, min and cat reduction tags, the pure ``init_state`` /
 ``compute()`` runs in, and the compiled engines (``core/engine.py``): from
 the second call of each input signature, ``update()`` and ``compute()``
 replay a captured CUDA graph (on the CPU, the same step with the value checks
-off). The JAX package's sharding, sketches, incremental sync, tracer and
-resilience guard have no counterpart here.
+off). Sketch states (``dist_reduce_fx="sketch"``, ``metrics_tpu_torch.sketches``)
+are one leaf of their components everywhere: reset, moves, ``state_dict``,
+merges, sync and the engines. The JAX package's sharding, incremental sync,
+tracer and resilience guard have no counterpart here.
 
 State lives on one explicit device. ``device=None`` means CUDA; without a
 card the constructor raises instead of quietly running on the CPU, so CPU
@@ -41,15 +43,17 @@ from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer, in_place_writes
 from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.sketches.base import MergeableSketch
+from metrics_tpu_torch.sketches.base import is_sketch as _is_sketch
 from metrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
 from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
-StateValue = Union[Tensor, List[Tensor], CatBuffer]
+StateValue = Union[Tensor, List[Tensor], CatBuffer, MergeableSketch]
 StateDict = Dict[str, StateValue]
 
 _PROTECTED_PROPERTIES = ("is_differentiable", "higher_is_better", "full_state_update")
-_REDUCTIONS = ("sum", "mean", "cat", "max", "min", None)
+_REDUCTIONS = ("sum", "mean", "cat", "max", "min", "sketch", None)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -71,8 +75,8 @@ def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
 
 
 def _copy_state_value(value: StateValue) -> StateValue:
-    """A fresh leaf: tensors and buffers are cloned (so no caller can write
-    into a default), lists are re-wrapped."""
+    """A fresh leaf: tensors, buffers and sketches are cloned (so no caller
+    can write into a default), lists are re-wrapped."""
     if isinstance(value, list):
         return list(value)
     if isinstance(value, CatBuffer):
@@ -86,6 +90,8 @@ def _tensors_in(value: Any):
         yield value
     elif isinstance(value, CatBuffer):
         yield from (t for t in (value.data, value.count, value.overflowed) if t is not None)
+    elif _is_sketch(value):
+        yield from value.components().values()
     elif isinstance(value, (list, tuple)):
         for item in value:
             yield from _tensors_in(item)
@@ -202,6 +208,7 @@ class Metric:
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Union[str, Callable]]] = {}
+        self._sync_tolerances: Dict[str, float] = {}
         self._update_count = 0
         self._forward_cache: Any = None
         self._computed: Any = None
@@ -224,23 +231,41 @@ class Metric:
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
         bufferable: Optional[bool] = None,
+        sync_tolerance: Optional[float] = None,
     ) -> None:
         """Register a state variable.
 
         ``default`` is a tensor (fixed-shape state, moved to the metric's
-        device), an empty list (a ``cat`` list), or a :class:`CatBuffer`
-        (a ``cat`` buffer of fixed item shape). ``dist_reduce_fx`` is one of
-        ``"sum"|"mean"|"max"|"min"|"cat"``, a callable applied to the
-        stacked values, or None (keep every value). With ``buffer_capacity``
+        device), an empty list (a ``cat`` list), a :class:`CatBuffer` (a
+        ``cat`` buffer of fixed item shape) or a
+        :class:`~metrics_tpu_torch.sketches.MergeableSketch`.
+        ``dist_reduce_fx`` is one of ``"sum"|"mean"|"max"|"min"|"cat"``, a
+        callable applied to the stacked values, None (keep every value), or
+        ``"sketch"``, which a sketch default requires and which requires one
+        (the sketch's own merge is the reduction). With ``buffer_capacity``
         set, an empty-list state that is *bufferable* becomes a buffer of that
         capacity: one consumed as a flat dim-0 concatenation. ``bufferable``
         defaults to ``dist_reduce_fx == "cat"``; flat ``None``-reduce lists
-        (retrieval's) pass ``bufferable=True``.
+        (retrieval's) pass ``bufferable=True``. ``sync_tolerance`` records
+        the state's relative error budget in :attr:`sync_tolerances`, as the
+        JAX package does; the port has no quantized transports yet, so
+        nothing reads it.
         """
-        if not isinstance(default, (Tensor, CatBuffer)) and not (isinstance(default, list) and default == []):
-            raise ValueError("state variable must be a tensor, an empty list or a CatBuffer")
+        if (
+            not isinstance(default, (Tensor, CatBuffer))
+            and not _is_sketch(default)
+            and not (isinstance(default, list) and default == [])
+        ):
+            raise ValueError("state variable must be a tensor, an empty list, a CatBuffer or a MergeableSketch")
         if dist_reduce_fx not in _REDUCTIONS and not callable(dist_reduce_fx):
-            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+            raise ValueError(
+                "`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', 'sketch', None]"
+            )
+        if _is_sketch(default) != (dist_reduce_fx == "sketch"):
+            raise ValueError(
+                f"state {name!r}: MergeableSketch defaults require dist_reduce_fx='sketch' "
+                "and vice versa (the sketch's own merge is the reduction)"
+            )
         if isinstance(default, CatBuffer) and dist_reduce_fx != "cat":
             raise ValueError(f"state {name!r}: a CatBuffer default needs dist_reduce_fx='cat'")
         if isinstance(default, list) and self.buffer_capacity is not None:
@@ -251,8 +276,13 @@ class Metric:
                     "be stored in a fixed-capacity CatBuffer. Remove the `buffer_capacity` argument."
                 )
             default = CatBuffer.empty(self.buffer_capacity)
-        if isinstance(default, (Tensor, CatBuffer)):
+        if isinstance(default, (Tensor, CatBuffer)) or _is_sketch(default):
             default = default.to(self._device)
+        if sync_tolerance is not None:
+            sync_tolerance = float(sync_tolerance)
+            if sync_tolerance < 0.0:
+                raise ValueError(f"state {name!r}: sync_tolerance must be >= 0, got {sync_tolerance}")
+            self._sync_tolerances[name] = sync_tolerance
         if isinstance(default, CatBuffer) and name not in self._buffer_states:
             self._buffer_states = self._buffer_states + (name,)
         self._defaults[name] = _copy_state_value(default)
@@ -269,6 +299,11 @@ class Metric:
     @property
     def device(self) -> torch.device:
         return self._device
+
+    @property
+    def sync_tolerances(self) -> Dict[str, float]:
+        """Declared per-state sync error tolerances (name -> relative budget)."""
+        return dict(self._sync_tolerances)
 
     # ------------------------------------------------------------------ #
     # pure functional protocol
@@ -405,6 +440,8 @@ class Metric:
                 out[attr] = torch.maximum(a, b)
             elif reduce_fn == "min":
                 out[attr] = torch.minimum(a, b)
+            elif reduce_fn == "sketch":
+                out[attr] = a.merge(b)
             elif isinstance(a, CatBuffer):
                 out[attr] = a.merge(b)
             elif reduce_fn == "cat":
@@ -627,11 +664,17 @@ class Metric:
     # ------------------------------------------------------------------ #
     # distributed sync
     # ------------------------------------------------------------------ #
-    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[dist.ProcessGroup] = None) -> None:
-        group = next(
+    def _sync_group(self, process_group: Optional[dist.ProcessGroup] = None) -> Optional[dist.ProcessGroup]:
+        """The group a sync runs over: the argument, the metric's own group,
+        :func:`~metrics_tpu_torch.parallel.sync_axes`' group, else the default
+        group when it has more than one rank."""
+        return next(
             (g for g in (process_group, self.process_group, _sync.current_sync_axes()) if g is not None),
             _sync._default_group(),
         )
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[dist.ProcessGroup] = None) -> None:
+        group = self._sync_group(process_group)
         state = self.get_state()
         if dist_sync_fn is not None:
             self.set_state(dist_sync_fn(state, self._reductions, group))
@@ -768,8 +811,9 @@ class Metric:
     def astype(self, dtype: torch.dtype) -> "Metric":
         """Cast the floating-point states and their defaults to ``dtype``, so
         the cast outlives ``reset()``; integer and bool states keep theirs.
-        The engines are dropped, as by :meth:`to`: their steps were captured
-        for the old dtypes."""
+        Sketch states keep their dtypes, as in the JAX package. The engines
+        are dropped, as by :meth:`to`: their steps were captured for the old
+        dtypes."""
 
         def cast(x: Tensor) -> Tensor:
             return x.to(dtype) if x.is_floating_point() else x
@@ -783,6 +827,8 @@ class Metric:
                 out = CatBuffer._from_parts(cast(val.data), val.count, val.overflowed, len(val), val.overflow_seen)
                 out._device = val.device
                 return out
+            if _is_sketch(val):
+                return val
             return cast(val)
 
         for attr in self._defaults:
@@ -813,6 +859,9 @@ class Metric:
                 current = getattr(self, key)
                 if isinstance(current, list):
                     out[prefix + key] = [v.detach().clone() for v in current]
+                elif _is_sketch(current):
+                    # a dict of components, as the JAX package checkpoints it
+                    out[prefix + key] = {f: v.detach().clone() for f, v in current.components().items()}
                 elif isinstance(current, CatBuffer):
                     # the compact valid prefix, as the JAX package checkpoints it
                     out[prefix + key] = (
@@ -833,6 +882,14 @@ class Metric:
                         val = torch.cat([torch.atleast_1d(torch.as_tensor(v)) for v in val]) if val else torch.zeros(0)
                     arr = torch.as_tensor(val, device=self._device)
                     setattr(self, key, default.copy() if arr.shape[0] == 0 else CatBuffer.from_array(arr, capacity=default.capacity))
+                elif _is_sketch(default):
+                    if not isinstance(val, dict):
+                        raise MetricsUserError(
+                            f"state {key!r}: sketch states load from a dict of components, got {type(val).__name__}"
+                        )
+                    setattr(self, key, default.replace(**{
+                        f: torch.as_tensor(v, device=self._device) for f, v in val.items()
+                    }))
                 elif isinstance(val, list):
                     setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
                 else:

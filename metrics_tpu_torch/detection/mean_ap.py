@@ -1,11 +1,28 @@
-"""MeanAveragePrecision (COCO mAP / mAR), bbox with device-resident state.
+"""MeanAveragePrecision (COCO mAP / mAR), counterpart of
+``metrics_tpu/detection/mean_ap.py``. Three routes:
 
-Counterpart of ``metrics_tpu/detection/mean_ap.py`` on its default path,
-``iou_type="bbox"`` with ``device_state=True``: the per-image detections and
-ground truths live in padded ``CatBuffer`` states on the metric's device, and
-``compute`` feeds them to :func:`~metrics_tpu_torch.ops.kernels.iou_matching.evaluate_matches`
-in chunks of 256 images. Its two hot steps are CUDA kernels: the pairwise IoU
-and the greedy matcher.
+- ``iou_type="bbox"`` with ``device_state=True`` (the default for boxes): the
+  per-image detections and ground truths live in padded ``CatBuffer`` states
+  on the metric's device, and ``compute`` feeds them to
+  :func:`~metrics_tpu_torch.ops.kernels.iou_matching.evaluate_matches` in
+  chunks of 256 images.
+- ``device_state=False`` with boxes, the host-list route: five list states
+  of per-image tensors on the metric's device, every detection kept. At
+  ``compute`` the images with a detection or a ground truth are grouped by
+  their ``(pd, pg)`` bucket (powers of two, at least 8); each bucket goes in
+  chunks of at most 256 images, padded to a power of two of at least 8,
+  through ``evaluate_matches``.
+- ``iou_type="segm"`` (always host-listed): dense ``torch.bool`` masks per
+  image on the metric's device; RLE input is decoded on the host at update.
+  At ``compute`` each image's mask IoUs (``mask_iou``, one matrix product)
+  and pixel areas are padded into its bucket's chunk, which goes through
+  :func:`~metrics_tpu_torch.ops.kernels.iou_matching.evaluate_given_ious`.
+
+Every route's hot steps are CUDA kernels: the pairwise IoU (boxes) and the
+greedy matcher, one launch of each per chunk. The JAX package's segm route
+calls ``match_image`` per image; here the chunk's images share one launch of
+the merged-class matcher, which gives the same matches (see
+``match_given_ious``).
 
 What differs from the JAX package, and why:
 
@@ -18,19 +35,20 @@ What differs from the JAX package, and why:
 - ``compute`` fetches the merged matches ``(A, T, D)`` per image, not their
   class broadcast ``(K, A, T, D)``; ``_calculate`` selects a class's
   detections from them, which gives the same ``(T, n)`` slices bit for bit.
-  Each 256-image chunk is sliced to its true sizes on the device and comes to
-  the host in one copy.
+  Each chunk is sliced to its true sizes on the device and comes to the host
+  in one copy.
+- The list routes sort and flag the detections on the device, in the
+  chunk, where the JAX package does it per image on the host (the same
+  stable sort and the same float32 areas). An image without detections or
+  without ground truths goes through the kernels too, which take zero
+  counts; the JAX package evaluates it on the host.
 - ``_calculate`` is the JAX package's host numpy code, unchanged, in float64.
 - There is no ``use_pallas``: CUDA state always runs the kernels. The check
   hook ``_plain_kernels`` runs their plain versions instead.
-
-Not ported yet: ``iou_type="segm"`` (mask IoU and RLE decoding) and
-``device_state=False`` (the host-list path); both raise
-``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,8 +56,10 @@ from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer
 from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.ops.detection.boxes import box_convert
-from metrics_tpu_torch.ops.kernels.iou_matching import evaluate_matches
+from metrics_tpu_torch.ops.detection.boxes import box_convert, mask_area, mask_iou
+from metrics_tpu_torch.ops.detection.rle import is_rle, masks_from_rle_list
+from metrics_tpu_torch.ops.kernels.iou_matching import evaluate_given_ious, evaluate_matches
+from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _BBOX_AREA_RANGES = {
@@ -49,6 +69,8 @@ _BBOX_AREA_RANGES = {
     "large": (96.0 ** 2, 1e10),
 }
 _CHUNK_IMAGES = 256
+# the list routes' states: per-image geometry (boxes or masks), scores and labels
+_LIST_STATES = ("detections", "detection_scores", "detection_labels", "groundtruths", "groundtruth_labels")
 
 
 def _input_validator(preds: Sequence[Dict], targets: Sequence[Dict], iou_type: str = "bbox") -> None:
@@ -99,6 +121,35 @@ def _unpack_bytes(raw: np.ndarray, like: List[Tensor]) -> List[np.ndarray]:
     return out
 
 
+def _fetch_chunk(out: Dict[str, Tensor], idx: List[int], n_det: List[int], n_gt: List[int], k: int,
+                 evals: List[Optional[Dict[str, np.ndarray]]]) -> None:
+    """One chunk's evaluation sliced to its true sizes on the device and
+    fetched in one copy; image ``idx[b]``'s entry of ``evals`` becomes a dict
+    of numpy views cut to its counts (left None for an empty image)."""
+    nb, n_max, g_max = len(idx), max(n_det), max(n_gt)
+    parts = [  # the float32 part first, so its bytes stay aligned
+        out["scores_sorted"][:nb, :n_max],
+        out["merged"][:nb, :, :, :n_max],
+        out["det_class_valid"][:nb, :k, :n_max],
+        out["det_area_ignore"][:nb, :, :n_max],
+        out["gt_class_valid"][:nb, :k, :g_max],
+        out["gt_area_ignore"][:nb, :, :g_max],
+    ]
+    scores, merged, dcv, dai, gcv, gai = _unpack_bytes(_pack_bytes(parts).cpu().numpy(), parts)
+    for b, i in enumerate(idx):
+        n, g = n_det[b], n_gt[b]
+        if n == 0 and g == 0:
+            continue
+        evals[i] = {
+            "merged": merged[b][:, :, :n],
+            "scores_sorted": scores[b][:n],
+            "det_class_valid": dcv[b][:, :n],
+            "det_area_ignore": dai[b][:, :n],
+            "gt_class_valid": gcv[b][:, :g],
+            "gt_area_ignore": gai[b][:, :g],
+        }
+
+
 class MeanAveragePrecision(Metric):
     """COCO mAP/mAR over 10 IoU x 101 recall thresholds, 4 area ranges and 3
     max-detection thresholds, with per-class values when ``class_metrics``.
@@ -106,11 +157,15 @@ class MeanAveragePrecision(Metric):
     Matching follows the JAX package (and the reference it ports), which
     excludes area-ignored ground truths from matching.
 
-    State: seven ``CatBuffer`` states of ``buffer_capacity`` images (default
-    1024, growing by doubling), with ``detections_capacity`` and
+    State with ``device_state=True`` (the default for ``iou_type="bbox"``):
+    seven ``CatBuffer`` states of ``buffer_capacity`` images (default 1024,
+    growing by doubling), with ``detections_capacity`` and
     ``groundtruths_capacity`` (rounded up to powers of two, default 128) rows
     per image. An image with more detections keeps its top-scoring ones, in
     their original order, with a warning; extra ground truths are truncated.
+    With ``device_state=False``, and always for ``iou_type="segm"`` (dense
+    masks, or COCO RLE dicts decoded on the host), five lists of per-image
+    tensors keep every detection; the update is not captured.
 
     Example:
         >>> import torch
@@ -155,17 +210,17 @@ class MeanAveragePrecision(Metric):
         allowed_iou_types = ("segm", "bbox")
         if iou_type not in allowed_iou_types:
             raise ValueError(f"Expected argument `iou_type` to be one of {allowed_iou_types} but got {iou_type}")
-        if iou_type == "segm":
-            raise NotImplementedError("MeanAveragePrecision(iou_type='segm') is not ported to metrics_tpu_torch yet")
-        if device_state is not None and not device_state:
-            raise NotImplementedError(
-                "MeanAveragePrecision(device_state=False), the host-list path, is not ported to metrics_tpu_torch yet"
-            )
-        # the JAX package's defaults for device state: compute() slices the
-        # buffers to per-image counts on the host, and ragged image batches
-        # reuse log2(N) captured update steps
-        kwargs.setdefault("compiled_compute", False)
-        kwargs.setdefault("batch_buckets", True)
+        if device_state is None:
+            device_state = iou_type == "bbox"
+        elif device_state and iou_type != "bbox":
+            raise ValueError("`device_state=True` requires `iou_type='bbox'` (masks stay host-listed)")
+        self._device_state = bool(device_state)
+        if self._device_state:
+            # the JAX package's defaults for device state: compute() slices
+            # the buffers to per-image counts on the host, and ragged image
+            # batches reuse log2(N) captured update steps
+            kwargs.setdefault("compiled_compute", False)
+            kwargs.setdefault("batch_buckets", True)
         super().__init__(**kwargs)
 
         allowed_box_formats = ("xyxy", "xywh", "cxcywh")
@@ -183,6 +238,10 @@ class MeanAveragePrecision(Metric):
             raise ValueError("Expected argument `class_metrics` to be a boolean")
         self.class_metrics = class_metrics
 
+        if not self._device_state:
+            for name in _LIST_STATES:
+                self.add_state(name, default=[], dist_reduce_fx=None)
+            return
         for name, cap in (("detections_capacity", detections_capacity), ("groundtruths_capacity", groundtruths_capacity)):
             if not isinstance(cap, int) or cap <= 0:
                 raise ValueError(f"Expected argument `{name}` to be a positive int but got {cap}")
@@ -202,8 +261,8 @@ class MeanAveragePrecision(Metric):
 
     @property
     def device_state(self) -> bool:
-        """State lives in padded device buffers (the only path ported)."""
-        return True
+        """Whether state lives in padded device buffers (the bbox default)."""
+        return self._device_state
 
     # ------------------------------------------------------------------ #
     # update
@@ -214,11 +273,14 @@ class MeanAveragePrecision(Metric):
         keywords) is captured. COCO list-of-dicts inputs are declined without
         tripping the engine's permanent fallback; :meth:`update` pads them
         eagerly and hands the dense form back to the engine."""
-        if kwargs or len(args) != 2:
+        if not self._device_state or kwargs or len(args) != 2:
             return False
         return all(isinstance(a, dict) and "boxes" in a and "count" in a for a in args)
 
     def update(self, preds: List[Dict[str, Tensor]], target: List[Dict[str, Tensor]]) -> None:  # type: ignore[override]
+        if not self._device_state:
+            self._append_lists(preds, target)
+            return
         if isinstance(preds, dict) and isinstance(target, dict):
             self._append_dense(preds, target)  # the dense padded form pad_inputs produces
             return
@@ -227,6 +289,32 @@ class MeanAveragePrecision(Metric):
         engine = self._maybe_engine()
         if engine is None or not engine.dispatch((dense_preds, dense_target), {}):
             self._append_dense(dense_preds, dense_target)
+
+    def _get_safe_item_values(self, item: Dict[str, Any]) -> Tensor:
+        """One image's boxes (converted to xyxy) or masks, on the metric's
+        device. Masks are ``torch.bool`` (N, H, W); RLE dicts are decoded on
+        the host."""
+        if self.iou_type == "bbox":
+            return box_convert(self._tensor(item["boxes"], torch.float32, (-1, 4)), in_fmt=self.box_format,
+                               out_fmt="xyxy")
+        raw = item["masks"]
+        if isinstance(raw, (list, tuple)) and raw and is_rle(raw[0]):
+            masks = masks_from_rle_list(raw, device=self.device)
+        else:
+            masks = torch.as_tensor(raw, device=self.device).to(torch.bool)
+        if masks.numel() == 0 and masks.ndim != 3:
+            return masks.reshape(0, 0, 0)
+        return masks
+
+    def _append_lists(self, preds: List[Dict[str, Any]], target: List[Dict[str, Any]]) -> None:
+        """The list routes' update: each image's tensors appended to the five
+        lists (new lists, so a snapshot of the old ones keeps them)."""
+        _input_validator(preds, target, iou_type=self.iou_type)
+        self.detections = self.detections + [self._get_safe_item_values(p) for p in preds]
+        self.detection_labels = self.detection_labels + [self._tensor(p["labels"], torch.int32, (-1,)) for p in preds]
+        self.detection_scores = self.detection_scores + [self._tensor(p["scores"], torch.float32, (-1,)) for p in preds]
+        self.groundtruths = self.groundtruths + [self._get_safe_item_values(t) for t in target]
+        self.groundtruth_labels = self.groundtruth_labels + [self._tensor(t["labels"], torch.int32, (-1,)) for t in target]
 
     def _tensor(self, value: Any, dtype: torch.dtype, shape: Tuple[int, ...]) -> Tensor:
         return torch.as_tensor(value, device=self.device).reshape(shape).to(dtype)
@@ -348,6 +436,9 @@ class MeanAveragePrecision(Metric):
         self.gt_counts.append(target["count"])
 
     def _get_classes(self) -> List[int]:
+        if not self._device_state:
+            labels = self.detection_labels + self.groundtruth_labels
+            return torch.unique(torch.cat(labels)).tolist() if labels else []
         labels = []
         for label_buf, count_buf in ((self.det_labels, self.det_counts), (self.gt_labels, self.gt_counts)):
             if len(count_buf) == 0:
@@ -362,6 +453,21 @@ class MeanAveragePrecision(Metric):
     # ------------------------------------------------------------------ #
     # device evaluation
     # ------------------------------------------------------------------ #
+    def _consts(self, class_ids: List[int]) -> Tuple:
+        """The padded class ids, class mask, area ranges, IoU thresholds and
+        max-det cap that the evaluation takes, on the metric's device."""
+        k = len(class_ids)
+        k_pad = _next_bucket(max(k, 1), minimum=1)
+        cid = torch.zeros(k_pad, dtype=torch.int32)
+        cid[:k] = torch.tensor(class_ids, dtype=torch.int32)
+        return (
+            cid.to(self.device),
+            (torch.arange(k_pad) < k).to(self.device),
+            torch.tensor(list(self.bbox_area_ranges.values()), dtype=torch.float32, device=self.device),
+            torch.tensor(self.iou_thresholds, dtype=torch.float32, device=self.device),
+            self.max_detection_thresholds[-1],
+        )
+
     def _evaluation_inputs(self, class_ids: List[int]) -> Tuple[List[Tensor], Tuple, np.ndarray, np.ndarray]:
         """What :func:`evaluate_matches` takes for all images: the seven
         buffers (trimmed to the power-of-two bucket of the largest true
@@ -379,24 +485,15 @@ class MeanAveragePrecision(Metric):
             self.det_labels.to_array()[:, :d_used], det_counts,
             self.gt_boxes.to_array()[:, :g_used], self.gt_labels.to_array()[:, :g_used], gt_counts,
         ]
-        k = len(class_ids)
-        k_pad = _next_bucket(max(k, 1), minimum=1)
-        cid = torch.zeros(k_pad, dtype=torch.int32)
-        cid[:k] = torch.tensor(class_ids, dtype=torch.int32)
-        consts = (
-            cid.to(self.device),
-            (torch.arange(k_pad) < k).to(self.device),
-            torch.tensor(list(self.bbox_area_ranges.values()), dtype=torch.float32, device=self.device),
-            torch.tensor(self.iou_thresholds, dtype=torch.float32, device=self.device),
-            self.max_detection_thresholds[-1],
-        )
-        return arrays, consts, det_counts_host, gt_counts_host
+        return arrays, self._consts(class_ids), det_counts_host, gt_counts_host
 
     def _evaluate_images(self, class_ids: List[int]) -> List[Optional[Dict[str, np.ndarray]]]:
         """The buffers feed :func:`evaluate_matches` in chunks of 256 images,
         padded to a power of two. Each chunk's outputs are sliced to its true
         sizes on the device and fetched in one copy; each image's entry is a
         dict of numpy views cut to its counts (None for an empty image)."""
+        if not self._device_state:
+            return self._evaluate_lists(class_ids)
         n_images = len(self.det_counts)
         evals: List[Optional[Dict[str, np.ndarray]]] = [None] * n_images
         if n_images == 0:
@@ -416,30 +513,93 @@ class MeanAveragePrecision(Metric):
                 return torch.cat([piece, torch.zeros((b_pad - nb, *x.shape[1:]), dtype=x.dtype, device=x.device)])
 
             out = evaluate_matches(*(chunk(x) for x in arrays), *consts, plain=self._plain_kernels)
-            n_max = int(det_counts[start:stop].max())
-            g_max = int(gt_counts[start:stop].max())
-            parts = [  # the float32 part first, so its bytes stay aligned
-                out["scores_sorted"][:nb, :n_max],
-                out["merged"][:nb, :, :, :n_max],
-                out["det_class_valid"][:nb, :k, :n_max],
-                out["det_area_ignore"][:nb, :, :n_max],
-                out["gt_class_valid"][:nb, :k, :g_max],
-                out["gt_area_ignore"][:nb, :, :g_max],
-            ]
-            scores, merged, dcv, dai, gcv, gai = _unpack_bytes(_pack_bytes(parts).cpu().numpy(), parts)
-            for b, i in enumerate(range(start, stop)):
-                n, g = int(det_counts[i]), int(gt_counts[i])
-                if n == 0 and g == 0:
-                    continue
-                evals[i] = {
-                    "merged": merged[b][:, :, :n],
-                    "scores_sorted": scores[b][:n],
-                    "det_class_valid": dcv[b][:, :n],
-                    "det_area_ignore": dai[b][:, :n],
-                    "gt_class_valid": gcv[b][:, :g],
-                    "gt_area_ignore": gai[b][:, :g],
-                }
+            idx = list(range(start, stop))
+            _fetch_chunk(out, idx, [int(det_counts[i]) for i in idx], [int(gt_counts[i]) for i in idx], k, evals)
         return evals
+
+    # ------------------------------------------------------------------ #
+    # the list routes
+    # ------------------------------------------------------------------ #
+    def _evaluate_lists(self, class_ids: List[int]) -> List[Optional[Dict[str, np.ndarray]]]:
+        """The list routes' evaluation: every image with a detection or a
+        ground truth joins its ``(pd, pg)`` bucket (a count of 0 takes the
+        smallest, 8), each bucket goes through the kernels in chunks of at
+        most 256 images (one launch of each per chunk); an image with
+        neither stays None."""
+        n_images = len(self.groundtruths)
+        evals: List[Optional[Dict[str, np.ndarray]]] = [None] * n_images
+        n_det = [int(x.shape[0]) for x in self.detection_labels]
+        n_gt = [int(x.shape[0]) for x in self.groundtruth_labels]
+        by_bucket: Dict[Tuple[int, int], List[int]] = {}
+        for i in range(n_images):
+            if n_det[i] > 0 or n_gt[i] > 0:
+                by_bucket.setdefault((_next_bucket(n_det[i]), _next_bucket(n_gt[i])), []).append(i)
+        if not by_bucket:
+            return evals
+        consts = self._consts(class_ids)
+        evaluate = self._evaluate_bbox_chunk if self.iou_type == "bbox" else self._evaluate_segm_chunk
+        for (pd, pg), idxs in by_bucket.items():
+            for start in range(0, len(idxs), _CHUNK_IMAGES):
+                chunk = idxs[start : start + _CHUNK_IMAGES]
+                out = evaluate(chunk, pd, pg, _next_bucket(len(chunk)), consts)
+                _fetch_chunk(out, chunk, [n_det[i] for i in chunk], [n_gt[i] for i in chunk], len(class_ids), evals)
+        return evals
+
+    def _padded(self, items: List[Tensor], b_pad: int, width: int, fill: float) -> Tensor:
+        """The chunk's per-image tensors (n_i, *item) padded into one
+        (b_pad, width, *item) tensor: one ``cat`` and one ``index_copy_``,
+        the destination rows built on the host from the shapes."""
+        values = torch.cat(items)
+        item = values.shape[1:]
+        dst = np.concatenate([b * width + np.arange(x.shape[0], dtype=np.int64) for b, x in enumerate(items)])
+        out = torch.full((b_pad * width, *item), fill, dtype=values.dtype, device=self.device)
+        out.index_copy_(0, self._index_tensor(dst), values)
+        return out.reshape(b_pad, width, *item)
+
+    def _chunk_counts(self, chunk: List[int], b_pad: int) -> Tuple[Tensor, Tensor]:
+        counts = np.zeros((2, b_pad), np.int64)
+        counts[0, : len(chunk)] = [self.detection_labels[i].shape[0] for i in chunk]
+        counts[1, : len(chunk)] = [self.groundtruth_labels[i].shape[0] for i in chunk]
+        both = self._index_tensor(counts.reshape(-1)).to(torch.int32)
+        return both[:b_pad], both[b_pad:]
+
+    def _evaluate_bbox_chunk(self, chunk: List[int], pd: int, pg: int, b_pad: int, consts: Tuple) -> Dict[str, Tensor]:
+        """One chunk of the host-list bbox route: B2 on its sorted boxes,
+        then the matcher (``evaluate_matches``)."""
+        det_counts, gt_counts = self._chunk_counts(chunk, b_pad)
+        return evaluate_matches(
+            self._padded([self.detections[i] for i in chunk], b_pad, pd, 0),
+            self._padded([self.detection_scores[i] for i in chunk], b_pad, pd, 0),
+            self._padded([self.detection_labels[i] for i in chunk], b_pad, pd, -1),
+            det_counts,
+            self._padded([self.groundtruths[i] for i in chunk], b_pad, pg, 0),
+            self._padded([self.groundtruth_labels[i] for i in chunk], b_pad, pg, -1),
+            gt_counts,
+            *consts, plain=self._plain_kernels,
+        )
+
+    def _evaluate_segm_chunk(self, chunk: List[int], pd: int, pg: int, b_pad: int, consts: Tuple) -> Dict[str, Tensor]:
+        """One chunk of the segm route: each image's mask IoUs (one matrix
+        product, in float32 for one image at a time) padded into the chunk's
+        (b_pad, pd, pg) tensor with +0.0 outside the valid pairs, its pixel
+        areas likewise, then the matcher (``evaluate_given_ious``)."""
+        ious = torch.zeros((b_pad, pd, pg), dtype=torch.float32, device=self.device)
+        for b, i in enumerate(chunk):
+            det, gt = self.detections[i], self.groundtruths[i]
+            if det.shape[0] and gt.shape[0]:
+                ious[b, : det.shape[0], : gt.shape[0]] = mask_iou(det, gt)
+        det_counts, gt_counts = self._chunk_counts(chunk, b_pad)
+        return evaluate_given_ious(
+            ious,
+            self._padded([mask_area(self.detections[i]) for i in chunk], b_pad, pd, 0),
+            self._padded([self.detection_scores[i] for i in chunk], b_pad, pd, 0),
+            self._padded([self.detection_labels[i] for i in chunk], b_pad, pd, -1),
+            det_counts,
+            self._padded([mask_area(self.groundtruths[i]) for i in chunk], b_pad, pg, 0),
+            self._padded([self.groundtruth_labels[i] for i in chunk], b_pad, pg, -1),
+            gt_counts,
+            *consts, plain=self._plain_kernels,
+        )
 
     # ------------------------------------------------------------------ #
     # host-side curve aggregation (the JAX package's code, unchanged)
@@ -582,3 +742,57 @@ class MeanAveragePrecision(Metric):
         out["map_per_class"] = torch.from_numpy(map_per_class).to(self.device)
         out[f"mar_{self.max_detection_thresholds[-1]}_per_class"] = torch.from_numpy(mar_per_class).to(self.device)
         return out
+
+    # ------------------------------------------------------------------ #
+    # distributed sync of the list routes: per-image tensors keep their
+    # boundaries, so the gather goes image by image
+    # ------------------------------------------------------------------ #
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        """Device state syncs as seven ``cat`` buffers (the generic path).
+        The list routes first agree on the per-rank image counts, then run
+        one gather round per image up to the largest count, a short rank
+        sending empties that are dropped by count (an image with no boxes is
+        an image); masks are padded to the largest (H, W) first. The lists
+        come back in rank-major order. A world of one runs the same rounds,
+        as every other state syncs there too."""
+        if self._device_state or dist_sync_fn is not None:
+            return super()._sync_dist(dist_sync_fn, process_group)
+        group = self._sync_group(process_group)
+        local = torch.tensor([len(self.detections)], dtype=torch.int64, device=self.device)
+        counts = torch.cat(_sync.gather_all_arrays(local, group)).tolist()
+        state = {name: list(getattr(self, name)) for name in _LIST_STATES}
+        if self.iou_type == "segm":
+            hw = [0, 0]
+            for m in state["detections"] + state["groundtruths"]:
+                if m.ndim == 3 and m.shape[0] > 0:
+                    hw = [max(hw[0], m.shape[1]), max(hw[1], m.shape[2])]
+            all_hw = torch.stack(_sync.gather_all_arrays(torch.tensor(hw, dtype=torch.int64, device=self.device), group))
+            h_max, w_max = all_hw.amax(dim=0).tolist()
+
+            def pad(m: Tensor) -> Tensor:
+                m = m.reshape(-1, *(m.shape[1:] if m.ndim == 3 else (0, 0)))
+                out = torch.zeros((m.shape[0], h_max, w_max), dtype=torch.bool, device=m.device)
+                out[:, : m.shape[1], : m.shape[2]] = m
+                return out
+
+            state["detections"] = [pad(m) for m in state["detections"]]
+            state["groundtruths"] = [pad(m) for m in state["groundtruths"]]
+            geom_empty = torch.zeros((0, h_max, w_max), dtype=torch.bool, device=self.device)
+        else:
+            geom_empty = torch.zeros((0, 4), dtype=torch.float32, device=self.device)
+        # dtype- and shape-correct dummies, so every rank's gather round agrees
+        empties = {
+            "detections": geom_empty,
+            "groundtruths": geom_empty,
+            "detection_scores": torch.zeros((0,), dtype=torch.float32, device=self.device),
+            "detection_labels": torch.zeros((0,), dtype=torch.int32, device=self.device),
+            "groundtruth_labels": torch.zeros((0,), dtype=torch.int32, device=self.device),
+        }
+        synced: Dict[str, List[Tensor]] = {}
+        for name in _LIST_STATES:
+            rounds = [
+                _sync.gather_all_arrays(state[name][i] if i < len(state[name]) else empties[name], group)
+                for i in range(max(counts))
+            ]
+            synced[name] = [rounds[i][r] for r in range(len(counts)) for i in range(counts[r])]
+        self.set_state(synced)

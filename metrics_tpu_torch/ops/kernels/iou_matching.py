@@ -25,6 +25,12 @@ Unlike the JAX function, :func:`evaluate_matches` returns the merged matches
 detection matches only within its own class, so the per-class result is
 ``merged[:, None] & det_class_valid[:, :, None, None, :]``, and the caller
 selects a class's detections from ``merged`` directly.
+
+:func:`evaluate_matches` is three steps, each its own function: the score
+sort and per-class and per-area flags (:func:`match_flags`), the IoU (B2 on
+the sorted boxes), and the matcher on a given IoU tensor
+(:func:`match_given_ious`). :func:`evaluate_given_ious` runs the first and
+the last on IoUs and areas computed elsewhere: the ``segm`` route's mask IoUs.
 """
 from __future__ import annotations
 
@@ -36,7 +42,10 @@ from torch import Tensor
 from metrics_tpu_torch.ops.detection.boxes import box_area, box_iou
 from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, current_stream
 
-__all__ = ["evaluate_matches", "greedy_match", "greedy_match_plain", "pairwise_iou", "pairwise_iou_plain"]
+__all__ = [
+    "evaluate_given_ious", "evaluate_matches", "greedy_match", "greedy_match_plain", "match_flags", "match_given_ious",
+    "pairwise_iou", "pairwise_iou_plain",
+]
 
 IOU_KERNEL = KERNELS["pairwise_iou"]
 MATCH_KERNEL = KERNELS["greedy_match"]
@@ -215,31 +224,36 @@ def greedy_match(
 # --------------------------------------------------------------------------- #
 # the batched image evaluation
 # --------------------------------------------------------------------------- #
-def match_inputs(
-    det_boxes: Tensor, det_scores: Tensor, det_labels: Tensor, det_counts: Tensor,
-    gt_boxes: Tensor, gt_labels: Tensor, gt_counts: Tensor,
+def sort_detections(det_scores: Tensor, det_counts: Tensor) -> Tensor:
+    """(B, D) int64 order of the stable score-descending sort with the pads
+    (``d >= det_counts[b]``) forced last: exactly the first ``n_det`` slots
+    are valid after it, in the JAX package's ``argsort(-scores)`` order."""
+    d = det_scores.shape[1]
+    det_valid = torch.arange(d, device=det_scores.device)[None, :] < det_counts[:, None]
+    return torch.argsort(torch.where(det_valid, -det_scores, float("inf")), dim=1, stable=True)
+
+
+def match_flags(
+    order: Tensor, det_scores: Tensor, det_labels: Tensor, det_counts: Tensor, det_areas: Tensor,
+    gt_labels: Tensor, gt_counts: Tensor, gt_areas: Tensor,
     class_ids: Tensor, class_mask: Tensor, area_ranges: Tensor, max_det: int,
 ) -> Dict[str, Tensor]:
-    """Everything ``_image_eval`` computes before the IoU and the matcher,
-    written out over the batch axis: the stable score sort with pads last,
-    sorted boxes, scores and labels, areas, area-ignore flags and the
-    per-class rank cap."""
+    """What the matcher reads besides the IoUs, over the batch axis, from a
+    detection ``order`` (:func:`sort_detections`) and the (B, D) / (B, G)
+    areas in input order: the sorted scores and labels, area-ignore flags
+    and the per-class rank cap at ``max_det``."""
     b, d = det_scores.shape
     g = gt_labels.shape[1]
     device = det_scores.device
-    det_valid = torch.arange(d, device=device)[None, :] < det_counts[:, None]  # (B, D)
     gt_valid = torch.arange(g, device=device)[None, :] < gt_counts[:, None]  # (B, G)
-
-    # score-descending stable sort with pads forced last; exactly the first
-    # n_det slots are valid after it
-    order = torch.argsort(torch.where(det_valid, -det_scores, float("inf")), dim=1, stable=True)
+    # exactly the first n_det slots are valid after the sort
+    det_valid = torch.arange(d, device=device)[None, :] < det_counts[:, None]
     scores_sorted = torch.gather(det_scores, 1, order)
     labels_sorted = torch.gather(det_labels, 1, order)
-    boxes_sorted = torch.gather(det_boxes, 1, order[..., None].expand(b, d, 4))
 
     lo, hi = area_ranges[None, :, 0:1], area_ranges[None, :, 1:2]  # (1, A, 1)
-    det_areas = box_area(boxes_sorted)[:, None, :]  # (B, 1, D)
-    gt_areas = box_area(gt_boxes)[:, None, :]
+    det_areas = torch.gather(det_areas, 1, order)[:, None, :]  # (B, 1, D)
+    gt_areas = gt_areas[:, None, :]
     det_area_ignore = (det_areas < lo) | (det_areas > hi)  # (B, A, D)
     gt_area_ignore = (gt_areas < lo) | (gt_areas > hi)  # (B, A, G)
 
@@ -249,13 +263,61 @@ def match_inputs(
     det_class_valid = det_class & (rank_in_class <= max_det)  # (B, K, D)
     gt_class_valid = (gt_labels[:, None, :] == classes) & gt_valid[:, None, :] & class_mask[None, :, None]
     return {
-        "boxes_sorted": boxes_sorted,
         "scores_sorted": scores_sorted,
         "labels_sorted": labels_sorted,
         "det_class_valid": det_class_valid,
         "det_area_ignore": det_area_ignore,
         "gt_class_valid": gt_class_valid,
         "gt_area_ignore": gt_area_ignore,
+    }
+
+
+def match_inputs(
+    det_boxes: Tensor, det_scores: Tensor, det_labels: Tensor, det_counts: Tensor,
+    gt_boxes: Tensor, gt_labels: Tensor, gt_counts: Tensor,
+    class_ids: Tensor, class_mask: Tensor, area_ranges: Tensor, max_det: int,
+) -> Dict[str, Tensor]:
+    """Everything ``_image_eval`` computes before the IoU and the matcher,
+    written out over the batch axis: :func:`match_flags` with box areas, and
+    the sorted boxes."""
+    b, d = det_scores.shape
+    order = sort_detections(det_scores, det_counts)
+    prep = match_flags(
+        order, det_scores, det_labels, det_counts, box_area(det_boxes), gt_labels, gt_counts, box_area(gt_boxes),
+        class_ids, class_mask, area_ranges, max_det,
+    )
+    prep["boxes_sorted"] = torch.gather(det_boxes, 1, order[..., None].expand(b, d, 4))
+    return prep
+
+
+def match_given_ious(
+    ious: Tensor, flags: Dict[str, Tensor], gt_labels: Tensor, thresholds: Tensor, *, plain: bool = False,
+) -> Dict[str, Tensor]:
+    """The matcher on (B, D, G) IoUs of the sorted detections, +0.0 outside
+    the valid pairs, with :func:`match_flags`' flags: one launch of
+    :func:`greedy_match`. The matcher reads each detection's label and one
+    flag, "valid for its own class after the rank cap", not class masks:
+    every detection has one label, so that flag is ``det_class_valid``'s one
+    entry that can be set, and a ground truth is a candidate only for
+    detections of its own label. Returns ``merged (B, A, T, D)`` with the
+    flags the caller slices."""
+    merged = greedy_match(
+        ious,
+        flags["det_class_valid"].any(dim=1),
+        flags["labels_sorted"].contiguous(),
+        gt_labels.contiguous(),
+        flags["gt_class_valid"].any(dim=1),
+        flags["gt_area_ignore"].contiguous(),
+        thresholds.contiguous(),
+        plain=plain,
+    )
+    return {
+        "merged": merged,
+        "scores_sorted": flags["scores_sorted"],
+        "det_class_valid": flags["det_class_valid"],
+        "det_area_ignore": flags["det_area_ignore"],
+        "gt_class_valid": flags["gt_class_valid"],
+        "gt_area_ignore": flags["gt_area_ignore"],
     }
 
 
@@ -292,21 +354,34 @@ def evaluate_matches(
     # the kernel writes every other pair as 0
     ious = pairwise_iou(prep["boxes_sorted"].contiguous(), gt_boxes.contiguous(), det_counts.contiguous(),
                         gt_counts.contiguous(), plain=plain)
-    merged = greedy_match(
-        ious,
-        prep["det_class_valid"].any(dim=1),
-        prep["labels_sorted"].contiguous(),
-        gt_labels.contiguous(),
-        prep["gt_class_valid"].any(dim=1),
-        prep["gt_area_ignore"].contiguous(),
-        thresholds.contiguous(),
-        plain=plain,
+    return match_given_ious(ious, prep, gt_labels, thresholds, plain=plain)
+
+
+def evaluate_given_ious(
+    ious: Tensor,  # (B, D, G) float32, detections in input order, +0.0 outside the valid pairs
+    det_areas: Tensor,  # (B, D) float32, input order
+    det_scores: Tensor,  # (B, D) float32
+    det_labels: Tensor,  # (B, D) int32
+    det_counts: Tensor,  # (B,) int32
+    gt_areas: Tensor,  # (B, G) float32
+    gt_labels: Tensor,  # (B, G) int32
+    gt_counts: Tensor,  # (B,) int32
+    class_ids: Tensor,
+    class_mask: Tensor,
+    area_ranges: Tensor,
+    thresholds: Tensor,
+    max_det: int,
+    *,
+    plain: bool = False,
+) -> Dict[str, Tensor]:
+    """:func:`evaluate_matches` on IoUs and areas computed elsewhere (mask
+    IoUs and pixel areas): the sort, the flags, the IoU rows gathered into
+    score order, then the matcher. Returns what :func:`evaluate_matches`
+    returns."""
+    order = sort_detections(det_scores, det_counts)
+    flags = match_flags(
+        order, det_scores, det_labels, det_counts, det_areas, gt_labels, gt_counts, gt_areas,
+        class_ids, class_mask, area_ranges, max_det,
     )
-    return {
-        "merged": merged,
-        "scores_sorted": prep["scores_sorted"],
-        "det_class_valid": prep["det_class_valid"],
-        "det_area_ignore": prep["det_area_ignore"],
-        "gt_class_valid": prep["gt_class_valid"],
-        "gt_area_ignore": prep["gt_area_ignore"],
-    }
+    ious = torch.gather(ious, 1, order[..., None].expand(ious.shape))
+    return match_given_ious(ious.contiguous(), flags, gt_labels, thresholds, plain=plain)

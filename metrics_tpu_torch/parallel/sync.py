@@ -16,8 +16,11 @@ By default the leaves of a state are coalesced by ``(reduction, dtype)`` into
 one flat buffer per bucket and one collective each (``_sync_bucketed``), as in
 the JAX package; ``CatBuffer`` states gather their fill counts and overflow
 flags in one ``all_gather`` and their payloads in one per dtype
-(``_sync_bucketed_catbuffers``). Bools cross the wire as int32, since gloo
-reduces no bool.
+(``_sync_bucketed_catbuffers``). A sketch state (``"sketch"``) splits into
+its components, each an elementwise ``sum``, ``max`` or ``min`` leaf that
+joins the ``(reduction, dtype)`` buckets like any other, and is reassembled
+after them: sketches add no collective of their own. Bools cross the wire as
+int32, since gloo reduces no bool.
 
 ``group=None`` is the identity: outside a multi-process run there is
 nothing to sync. Unlike ``shard_map``, where every device runs one trace, the
@@ -28,7 +31,7 @@ unchanged, as in the JAX package, so a rank that never appended to such a
 state must not sync it while others do.
 
 Not ported: transports and codecs, incremental sync, sharded and resharded
-state, sketches and tenant-stacked sync.
+state and tenant-stacked sync.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer
+from metrics_tpu_torch.sketches.base import is_sketch
 
 Group = Optional[dist.ProcessGroup]
 Reduction = Optional[Union[str, Callable]]
@@ -49,6 +53,8 @@ Reduction = Optional[Union[str, Callable]]
 _REDUCTIONS = ("sum", "mean", "max", "min", "cat", None)
 _ELEMENTWISE = ("sum", "mean", "max", "min")
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+# a sketch component's key in the flat entries: state name, separator, field
+_SKETCH_SEP = "\x1e"
 
 _ENV_BUCKETED = "METRICS_TPU_BUCKETED_SYNC"
 _bucketed_enabled: Optional[bool] = None  # None = follow the environment
@@ -328,8 +334,9 @@ def sync_state(
     gather, and come back as a one-element container of the input's type.
     ``bucketed`` (default: :func:`bucketed_sync_enabled`) coalesces the
     leaves by ``(reduction, dtype)``; materialized ``CatBuffer`` states join
-    their own bucket; callables always sync per leaf. ``group=None`` returns
-    the state unchanged.
+    their own bucket; callables always sync per leaf; a sketch syncs as its
+    components (each by its own reduction) and comes back reassembled.
+    ``group=None`` returns the state unchanged.
     """
     if group is None:
         return dict(state)
@@ -339,8 +346,20 @@ def sync_state(
     entries: List[Tuple[str, Tensor, Reduction]] = []
     buf_entries: List[Tuple[str, CatBuffer]] = []
     rewrap: Dict[str, type] = {}
+    sketches: Dict[str, Any] = {}
     for name, val in state.items():
         red = reductions.get(name)
+        if is_sketch(val):
+            if red != "sketch":
+                raise ValueError(f"sketch state {name!r} requires dist_reduce_fx 'sketch', got {red!r}")
+            sketches[name] = val
+            for fname, fred in val.component_reductions():
+                key, comp = f"{name}{_SKETCH_SEP}{fname}", getattr(val, fname)
+                if bucketed:
+                    entries.append((key, comp, fred))
+                else:
+                    out[key] = sync_array(comp, fred, group, key)
+            continue
         if isinstance(val, CatBuffer):
             if red not in ("cat", None):
                 raise ValueError(f"CatBuffer state {name!r} only supports dist_reduce_fx 'cat'/None, got {red!r}")
@@ -374,6 +393,8 @@ def sync_state(
         out.update(_sync_bucketed_catbuffers(buf_entries, group))
     for name, container in rewrap.items():
         out[name] = container((out[name],))
+    for name, sketch in sketches.items():
+        out[name] = sketch.replace(**{f: out[f"{name}{_SKETCH_SEP}{f}"] for f, _ in sketch.component_reductions()})
     return {name: out[name] for name in state}
 
 

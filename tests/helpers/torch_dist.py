@@ -370,3 +370,46 @@ def twin_synced_compute(
     for args, kwargs in calls:
         metric.update(*to_torch(args), **to_torch(kwargs))
     return to_numpy(metric.compute())
+
+
+# --------------------------------------------------------------------------- #
+# sketches (tests/test_torch_sketches.py)
+# --------------------------------------------------------------------------- #
+def sketch_state(values: np.ndarray, keys: np.ndarray) -> Dict[str, Any]:
+    """One of each sketch, this rank's values and keys inserted."""
+    from metrics_tpu_torch import sketches as sk
+
+    x, k = torch.from_numpy(values), torch.from_numpy(keys)
+    return {
+        "q": sk.QuantileSketch(device="cpu").insert(x),
+        "hll": sk.HyperLogLogSketch(precision=8, device="cpu").insert(k),
+        "cm": sk.CountMinSketch(width=64, depth=3, device="cpu").insert(k),
+        "dy": sk.DyadicCountMinSketch(domain_bits=10, width=32, depth=2, device="cpu").insert(k),
+        "plain": torch.tensor([float(len(values))]),  # a dense sum leaf sharing the (sum, float32) bucket
+    }
+
+
+SKETCH_REDUCTIONS = {"q": "sketch", "hll": "sketch", "cm": "sketch", "dy": "sketch", "plain": "sum"}
+
+
+def sketch_sync(values: np.ndarray, keys: np.ndarray) -> Dict[str, Any]:
+    """This rank's sketch state synced bucketed and per leaf: components as
+    numpy, and the collectives each ran."""
+    state = sketch_state(values, keys)
+    out: Dict[str, Any] = {}
+    for bucketed in (True, False):
+        with count_collectives() as box:
+            synced = sync_state(state, SKETCH_REDUCTIONS, dist.group.WORLD, bucketed=bucketed)
+        out[bucketed] = {name: ({f: to_numpy(c) for f, c in v.components().items()} if hasattr(v, "components")
+                                else to_numpy(v)) for name, v in synced.items()}
+        out[f"counts_{bucketed}"] = box
+    return out
+
+
+def auroc_sketch_synced(calls: Sequence[tuple]) -> Any:
+    """AUROC(approx="sketch") fed this rank's calls at the engine defaults;
+    its synced compute."""
+    metric = mt.AUROC(approx="sketch", device="cpu")
+    for args in calls:
+        metric.update(*to_torch(args))
+    return to_numpy(metric.compute())

@@ -32,6 +32,7 @@ import torch
 
 import metrics_tpu as M
 from metrics_tpu.core.buffers import CatBuffer as JaxCatBuffer
+from metrics_tpu.sketches import is_sketch as is_jax_sketch
 from metrics_tpu_torch.core.buffers import CatBuffer
 from tests.helpers.inventory import INVENTORY
 from tests.helpers.torch_dist import to_torch
@@ -83,10 +84,9 @@ SEEDED = {"BootStrapper": 20261017}
 COMPARE_STATES = frozenset(TWINS) - {"BERTScore"}
 
 # where the INVENTORY maker builds what the port has not ported, the
-# reference side builds what the twin builds (torch_twins.py says why)
-REFERENCE_MAKERS = {
-    "MeanAveragePrecision": lambda: M.MeanAveragePrecision(device_state=True),
-}
+# reference side builds what the twin builds (none left: every twin is its
+# INVENTORY maker)
+REFERENCE_MAKERS: Dict[str, Any] = {}
 
 UNTWINNED = frozenset(INVENTORY) - frozenset(TWINS)
 
@@ -194,7 +194,11 @@ def assert_same_states(ref: Any, twin: Any, msg: str = "") -> None:
         if close and isinstance(got, torch.Tensor) and got.is_floating_point():
             _assert_float32_close(got, want, where)
             continue
-        if isinstance(want, JaxCatBuffer):
+        if is_jax_sketch(want):
+            assert type(got).__name__ == type(want).__name__ and got.config_dict() == want.config_dict(), where
+            for comp, value in want.components().items():
+                assert_bitwise(getattr(got, comp), np.asarray(value), f"{where} component {comp!r}")
+        elif isinstance(want, JaxCatBuffer):
             assert isinstance(got, CatBuffer), where
             assert got.capacity == want.capacity, where
             assert_bitwise(got.count, np.asarray(want.count), where + " count")

@@ -9,10 +9,10 @@ against the JAX package.
 ``TWINS[name].make(**kw)`` builds the twin of ``INVENTORY[name].make()`` and
 ``TWINS[name].buffered(**kw)`` that of ``INVENTORY[name].buffered()``; ``kw``
 adds the port's own keywords (the engine switches), and ``device="cpu"`` is
-always passed. mAP builds, on the reference side too, something other than
-its ``INVENTORY`` maker, since the port has not ported the path that maker
-uses (``REFERENCE_MAKERS`` in the harness); BERTScore's twin runs a torch
-copy of the ``INVENTORY``'s sine forward. BootStrapper's maker draws from an
+always passed. mAP's twin is its ``INVENTORY`` maker, the host-list route
+(``device_state=False``); a caller may pass ``device_state=True`` for the
+buffered device route. BERTScore's twin runs a torch copy of the
+``INVENTORY``'s sine forward. BootStrapper's maker draws from an
 unseeded generator, so the harness seeds both sides alike (``SEEDED`` in
 ``tests/helpers/torch_parity.py``).
 """
@@ -125,9 +125,12 @@ TWINS: Dict[str, Twin] = {
         _cpu(lambda **kw: mt.CatMetric(**kw)),
         _cpu(lambda **kw: mt.CatMetric(buffer_capacity=256, **kw)),
     ),
-    # the INVENTORY entry is device_state=False, the host-list path, which the
-    # port has not ported: both sides run the device path
-    "MeanAveragePrecision": Twin(_cpu(lambda **kw: mt.MeanAveragePrecision(device_state=True, **kw))),
+    # the sketch aggregators
+    "Quantile": Twin(_cpu(lambda **kw: mt.Quantile(q=0.5, **kw))),
+    "Median": Twin(_default("Median")),
+    "DistinctCount": Twin(_default("DistinctCount")),
+    "HeavyHitters": Twin(_cpu(lambda **kw: mt.HeavyHitters(threshold=0.05, max_hitters=4, **kw))),
+    "MeanAveragePrecision": Twin(_cpu(lambda **kw: mt.MeanAveragePrecision(**{"device_state": False, **kw}))),
     "BERTScore": Twin(_cpu(lambda **kw: mt.BERTScore(
         model=object(), user_forward_fn=sine_forward, user_tokenizer=WhitespaceTokenizer(), **kw
     ))),

@@ -85,8 +85,11 @@ def test_auc_class(name, buffered):
 
 
 def test_auroc_sketch_route_is_refused_until_the_sketches_are_ported():
-    with pytest.raises(NotImplementedError, match="A16"):
-        mt_torch.AUROC(approx="sketch", device="cpu")
+    # the sketches are ported: the route refuses what the JAX package refuses
+    assert mt_torch.AUROC(approx="sketch", device="cpu").approx == "sketch"
+    for kwargs, match in ((dict(num_classes=3), "binary scores only"), (dict(max_fpr=0.5), "max_fpr")):
+        with pytest.raises(mt_torch.utils.exceptions.MetricsUserError, match=match):
+            mt_torch.AUROC(approx="sketch", device="cpu", **kwargs)
     with pytest.raises(ValueError, match="approx"):
         mt_torch.AUROC(approx="histogram", device="cpu")
 

@@ -266,10 +266,12 @@ def test_inputs_on_another_device_raise_inside_lists_of_dicts():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="segm"):
-        MeanAveragePrecision(device="cpu", iou_type="segm")
-    with pytest.raises(NotImplementedError, match="device_state=False"):
-        MeanAveragePrecision(device="cpu", device_state=False)
+    # every route is ported now: segm is host-listed, as in the JAX package,
+    # and the device route refuses it with the JAX package's error
+    assert not MeanAveragePrecision(device="cpu", iou_type="segm").device_state
+    assert not MeanAveragePrecision(device="cpu", device_state=False).device_state
+    with pytest.raises(ValueError, match="requires `iou_type='bbox'`"):
+        MeanAveragePrecision(device="cpu", iou_type="segm", device_state=True)
     with pytest.raises(ValueError, match="iou_type"):
         MeanAveragePrecision(device="cpu", iou_type="keypoints")
     with pytest.raises(ValueError, match="box_format"):

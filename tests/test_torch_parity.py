@@ -29,9 +29,7 @@ NAMES = sorted(TWINS)
 BUFFERED = [n for n in NAMES if hp.has_buffered(n)]
 WORLD = 4
 
-UNTWINNED_AFTER_SLICE_11 = {
-    # sketch aggregators (A16)
-    "DistinctCount", "HeavyHitters", "Median", "Quantile",
+UNTWINNED_AFTER_SLICE_12 = {
     # image (A14)
     "ErrorRelativeGlobalDimensionlessSynthesis", "FrechetInceptionDistance", "InceptionScore",
     "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity", "MultiScaleStructuralSimilarityIndexMeasure",
@@ -72,9 +70,10 @@ def world(tmp_path_factory):
 # --------------------------------------------------------------------------- #
 def test_untwinned_entries_are_pinned():
     assert len(INVENTORY) == 95
-    assert len(UNTWINNED_AFTER_SLICE_11) == 22
-    assert set(hp.UNTWINNED) == UNTWINNED_AFTER_SLICE_11
-    assert len(TWINS) == 95 - len(UNTWINNED_AFTER_SLICE_11) == 73
+    assert len(UNTWINNED_AFTER_SLICE_12) == 18
+    assert set(hp.UNTWINNED) == UNTWINNED_AFTER_SLICE_12
+    assert len(TWINS) == 95 - len(UNTWINNED_AFTER_SLICE_12) == 77
+    assert not hp.REFERENCE_MAKERS  # every twin is its INVENTORY maker, mAP's host-list route included
 
 
 def test_every_buffered_entry_of_a_twin_has_a_buffered_twin():
@@ -240,8 +239,9 @@ def test_buffered_map_synced_compute_matches_the_rank_major_oracle(world):
             preds, targets = coco_dataset(rng, 4)
             calls.append(((preds, targets), {}))
         per_rank.append(calls)
-    # 16 images hold a rank's 12, so the captured appends stay in bounds
-    kwargs = dict(buffer_capacity=16, class_metrics=True)
+    # 16 images hold a rank's 12, so the captured appends stay in bounds; the
+    # buffers are the device route's (the twin's default is the host lists)
+    kwargs = dict(device_state=True, buffer_capacity=16, class_metrics=True)
     results = world.run(td.twin_synced_compute, [("MeanAveragePrecision", False, calls, kwargs) for calls in per_rank])
     want = _oracle("MeanAveragePrecision", False, per_rank, **{**kwargs, "buffer_capacity": 64})
     for rank, got in enumerate(results):

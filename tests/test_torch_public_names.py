@@ -28,10 +28,8 @@ import metrics_tpu_torch as mt_torch
 pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
-    "A12": "the rest of detection: the host-list route and segm",
     "A14": "image metrics, nets and the feature bucketing",
     "A15": "audio metrics",
-    "A16": "sketches and the sketch aggregators",
     "A17": "sync variants: quantized transports, incremental sync, sharded state",
     "A18": "checkpoint",
     "A19": "tenancy, serve and cluster",
@@ -74,7 +72,6 @@ def _items(item, names):
 MISSING = {
     "": {
         **_items("A14", _IMAGE), **_items("A15", _AUDIO),
-        **_items("A16", ["DistinctCount", "HeavyHitters", "Median", "Quantile", "sketches"]),
         **_items("A17", _SYNC_KNOBS),
         **_items("A18", ["checkpoint", "restore_checkpoint", "save_checkpoint", "verify_checkpoint"]),
         **_items("A19", ["TenantSet", "serve", "tenancy"]),
@@ -99,17 +96,13 @@ MISSING = {
     "ops.regression": {},
     "ops.retrieval": {},
     "ops.pairwise": {},
-    "ops.detection": _items("A12", ["mask_area", "mask_iou", "match_image", "matching", "rle"]),
+    "ops.detection": {},
     "ops.kernels": {
         **_items("A14", ["BucketedFeatureExtractor", "features", "maybe_bucketed", "next_pow2"]),
         **_items("A20", ["KernelSpec", "bump_trace_count", "record_dispatch", "record_fallback", "reset_trace_counts",
                          "resolve_use_pallas", "trace_counts"]),
     },
-    "aggregation": {
-        **_items("A16", ["DistinctCount", "DyadicCountMinSketch", "HeavyHitters", "HyperLogLogSketch", "Median",
-                         "Quantile", "QuantileSketch"]),
-        "ANALYSIS_SPECS": "A21",
-    },
+    "aggregation": {"ANALYSIS_SPECS": "A21"},
     **{sub: {"ANALYSIS_SPECS": "A21"} for sub in ("text", "wrappers", "classification", "regression", "retrieval",
                                                   "detection")},
 }
@@ -167,13 +160,15 @@ def test_missing_names_are_the_unported_items(sub, fresh_names):
 
 
 def test_every_listed_item_is_unported():
-    # the wrappers (A11b) and text (A13) are ported: none of their names may be missing
+    # the wrappers (A11b), text (A13), the rest of detection (A12) and the
+    # sketches (A16) are ported: none of their names may be missing
     for sub, names in MISSING.items():
-        assert not {"A11b", "A13"} & set(names.values()), sub
+        assert not {"A11b", "A12", "A13", "A16"} & set(names.values()), sub
     for name in ("BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
                  "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance",
                  "CharErrorRate", "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",
-                 "ROUGEScore", "SQuAD", "CatBuffer", "functional", "__version__"):
+                 "ROUGEScore", "SQuAD", "CatBuffer", "functional", "__version__",
+                 "Quantile", "Median", "DistinctCount", "HeavyHitters", "sketches"):
         assert hasattr(mt_torch, name), name
 
 

@@ -382,6 +382,8 @@ PORT_MODULES_WITH_EXAMPLES = [
     "metrics_tpu_torch.text.eed",
     "metrics_tpu_torch.text.rouge",
     "metrics_tpu_torch.text.squad",
+    "metrics_tpu_torch.ops.detection.rle",
+    "metrics_tpu_torch.ops.detection.matching",
 ]
 
 
