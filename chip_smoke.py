@@ -235,6 +235,31 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    largest (H, W) first); the sketches add no collective beyond their
    (reduction, dtype) buckets. The phase stays under 240 s.
 
+12. Image, which runs no kernel of B1-B3 (their launch counts stay 0), every
+   net with seeded random weights (no checkpoint is in the repository), TF32
+   off. (a) FID (2048), KID (100 subsets of 1,000) and IS (logits_unbiased,
+   10 splits) at CIFAR-10 size, 10,000 seeded uint8 32 x 32 images a side
+   (FID's protocol takes 50,000) in updates of 100 through the port's
+   InceptionV3: FID's Welford mean within 1e-5 and M2 within 1e-4 of a
+   float64 two-pass, FID within 1e-3 of float64 scipy, KID within rtol 1e-4
+   / atol 1e-5 of float64 on the same subsets, IS's mean within 1e-4 and
+   its std within 1e-3, on the same features; the card's features against a CPU twin of the net on 16
+   images a side and across batch sizes (alone, 100, padded to 128) within
+   rtol 1e-3 / atol 1e-3 x scale; the forward's time, images/s, idle share
+   and operations bound; FID's compute partition (eager on the card: eigh
+   reads cusolver's status). (b) LPIPS alex and squeeze on 5,000 pairs and
+   vgg on 1,000 at 256 x 256 in updates of 50, against a CPU twin on 8 and
+   bfloat16 against float32 (2e-2). (c) PSNR, SSIM, MS-SSIM and UQI at DIV2K
+   validation size (100 RGB images of 1356 x 2040 in updates of 4), eager
+   against ``buffer_capacity=100`` (captured appends) bit for bit, the card
+   against CPU twins on 4 images within 1e-5, image_gradients bitwise
+   against numpy, each compute's time and peak ``memory_allocated``. (d)
+   ERGAS, SAM and D-lambda on 200 tiles of 8 bands at 256 x 256 (ratio 4)
+   the same way. (e) After each part its synced computes in a world of one
+   NCCL rank, bitwise equal to the unsynced ones (FID: a gather of each of
+   its six states). The feature bucketing's forwards and widths are printed
+   as a JSON line. The phase stays under 180 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -4242,6 +4267,494 @@ def phase_eleven(torch, mt, np, kernels_mod, sync, coco, map_results, smi) -> di
             "e": e, "seconds": elapsed}
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: image (no kernel of B1-B3 on its path)
+# --------------------------------------------------------------------------- #
+PHASE12_LIMIT_S = 180.0
+# CIFAR-10: 10,000 test images a side (FID's protocol takes 50,000: cut for the time limit)
+CIFAR_IMAGES, CIFAR_BATCH, CIFAR_SIDE = 10_000, 100, 32
+KID_SUBSETS, KID_SUBSET_SIZE, IS_SPLITS = 100, 1000, 10  # the torchmetrics defaults
+TWIN_IMAGES, ROW_ALONE = 16, 8
+NET_RTOL = 1e-3  # the JAX package's torch-against-flax bound, also atol 1e-3 x the tap's scale
+FID_RTOL, WELFORD_MEAN_RTOL, WELFORD_M2_RTOL = 1e-3, 1e-5, 1e-4
+# IS's std within the JAX package's own bound for it (tests/image/test_generative.py:267)
+KID_RTOL, KID_ATOL, IS_RTOL, IS_STD_RTOL = 1e-4, 1e-5, 1e-4, 1e-3
+# LPIPS image-to-image evaluation at 256 x 256 in updates of 50 (padded to 64)
+LPIPS_PAIRS = {"alex": 5000, "squeeze": 5000, "vgg": 1000}
+LPIPS_SIDE, LPIPS_BATCH, LPIPS_TWIN, LPIPS_BF16_PAIRS, LPIPS_BF16_RTOL = 256, 50, 8, 200, 2e-2
+# DIV2K validation: 100 RGB images, cut to one common size of 1356 x 2040
+DIV2K_IMAGES, DIV2K_H, DIV2K_W, DIV2K_BATCH, DIV2K_NOISE, DIV2K_TWIN = 100, 1356, 2040, 4, 0.05, 4
+# pansharpening at reduced resolution: 200 tiles of 8 bands, 256 x 256, WorldView-3's ratio 4
+MS_TILES, MS_BANDS, MS_SIDE, MS_RATIO, MS_BATCH, MS_TWIN = 200, 8, 256, 4, 8, 4
+QUALITY_ATOL = 1e-5
+
+
+def within(got, want, rtol: float, atol: float) -> float:
+    """The largest |got - want| - (atol + rtol |want|) (<= 0 when within)."""
+    return float(((got - want).abs() - (atol + rtol * want.abs())).max())
+
+
+def inception_macs(torch, extractor, imgs) -> int:
+    """Multiply-adds of the convolutions in one forward of ``extractor``'s
+    module on ``imgs``, counted from the shapes. At the 2048 tap the forward
+    returns before the classifier, so that is all of its multiply-adds."""
+    total = [0]
+
+    def hook(mod, inputs, out):
+        total[0] += out.numel() * (mod.in_channels // mod.groups) * mod.kernel_size[0] * mod.kernel_size[1]
+
+    handles = [m.register_forward_hook(hook) for m in extractor.module.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        extractor(imgs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def cifar_stream(torch):
+    """10,000 'real' and 10,000 'fake' seeded uint8 images a side, on the card:
+    each image a brightness plus a contrast times gaussian noise, drawn per
+    image (real: brightness in [30, 225), contrast in [10, 80); fake: [60,
+    190) and [5, 40)), so the features spread and the two sides differ."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 120)
+    shape = (CIFAR_BATCH, 3, CIFAR_SIDE, CIFAR_SIDE)
+
+    def batch(lo, hi, c_lo, c_hi):
+        level = torch.rand((CIFAR_BATCH, 1, 1, 1), generator=gen, device="cuda") * (hi - lo) + lo
+        contrast = torch.rand((CIFAR_BATCH, 1, 1, 1), generator=gen, device="cuda") * (c_hi - c_lo) + c_lo
+        x = level + contrast * torch.randn(shape, generator=gen, device="cuda")
+        return x.round().clamp(0, 255).to(torch.uint8)
+
+    n = CIFAR_IMAGES // CIFAR_BATCH
+    return [batch(30, 225, 10, 80) for _ in range(n)], [batch(60, 190, 5, 40) for _ in range(n)]
+
+
+def timed_updates(torch, feed, batches) -> dict:
+    """Each ``feed(batch)`` timed by CUDA events: the median of the steady
+    state (the first two calls, warmup and capture, left out) and the total."""
+    times = []
+    t0 = time.perf_counter()
+    for b in batches:
+        _, ms = event_ms(torch, lambda b=b: feed(b))
+        times.append(ms)
+    return {"median_ms": statistics.median(times[2:] or times), "first_ms": times[:2], "total_s": time.perf_counter() - t0}
+
+
+def np_fid64(np, real, fake) -> float:
+    import scipy.linalg
+
+    mu1, mu2 = real.mean(0), fake.mean(0)
+    s1, s2 = np.cov(real, rowvar=False), np.cov(fake, rowvar=False)
+    covmean = scipy.linalg.sqrtm(s1 @ s2)
+    return float((mu1 - mu2) @ (mu1 - mu2) + np.trace(s1) + np.trace(s2) - 2 * np.trace(covmean.real))
+
+
+def kid64(torch, np, real, fake, seed: int):
+    """KID in float64 on the same features and the same subsets (numpy's
+    generator, as the metric draws them); the kernel products in float64 on
+    the card (cuBLAS DGEMM), the host being too slow for 100 subsets of
+    (1000 x 2048)."""
+    rng = np.random.default_rng(seed)
+    n_r, n_f = real.shape[0], fake.shape[0]
+    real_idx = np.stack([rng.permutation(n_r)[:KID_SUBSET_SIZE] for _ in range(KID_SUBSETS)])
+    fake_idx = np.stack([rng.permutation(n_f)[:KID_SUBSET_SIZE] for _ in range(KID_SUBSETS)])
+    r = real.to(torch.float64)[torch.as_tensor(real_idx, device=real.device)]
+    f = fake.to(torch.float64)[torch.as_tensor(fake_idx, device=fake.device)]
+    gamma, m = 1.0 / r.shape[-1], KID_SUBSET_SIZE
+
+    def k(a, b):
+        return (torch.bmm(a, b.transpose(1, 2)) * gamma + 1.0) ** 3
+
+    def off_diagonal_sum(x):
+        return x.sum((1, 2)) - x.diagonal(dim1=1, dim2=2).sum(-1)
+
+    scores = (off_diagonal_sum(k(r, r)) + off_diagonal_sum(k(f, f))) / (m * (m - 1)) - 2 * k(r, f).sum((1, 2)) / m ** 2
+    return float(scores.mean()), float(scores.std(correction=0))
+
+
+def is64(np, logits, seed: int):
+    x = logits[np.random.default_rng(seed).permutation(logits.shape[0])].astype(np.float64)
+    x = x - x.max(1, keepdims=True)
+    log_p = x - np.log(np.exp(x).sum(1, keepdims=True))
+    p = np.exp(log_p)
+    chunk = -(-p.shape[0] // IS_SPLITS)
+    scores = []
+    for i in range(0, p.shape[0], chunk):
+        pc, lpc = p[i: i + chunk], log_p[i: i + chunk]
+        scores.append(np.exp((pc * (lpc - np.log(pc.mean(0, keepdims=True)))).sum(1).mean()))
+    return float(np.mean(scores)), float(np.std(scores, ddof=1))
+
+
+def phase_twelve_a(torch, mt, np, smi) -> dict:
+    """12(a): FID, KID and IS at CIFAR-10 size through the port's InceptionV3
+    (seeded random weights), against float64 oracles on the same features."""
+    from metrics_tpu_torch.nets.inception import InceptionV3, load_inception_torch_state_dict
+
+    real, fake = cifar_stream(torch)
+    fid = mt.FrechetInceptionDistance(feature=2048)
+    kid = mt.KernelInceptionDistance(feature=2048, subsets=KID_SUBSETS, subset_size=KID_SUBSET_SIZE, seed=SEED)
+    inception_score = mt.InceptionScore(splits=IS_SPLITS, seed=SEED)
+    fid_real = timed_updates(torch, lambda b: fid.update(b, real=True), real)
+    fid_fake = timed_updates(torch, lambda b: fid.update(b, real=False), fake)
+    kid_t = timed_updates(torch, lambda b: (kid.update(b[0], real=True), kid.update(b[1], real=False)), list(zip(real, fake)))
+    is_t = timed_updates(torch, lambda b: inception_score.update(b), fake)
+    stats = fid.engine_stats()["update"]
+    check(stats.cache_misses == 2 and stats.cache_hits == 2 * len(real) - 4,
+          f"12(a): FID's update captured {stats.cache_misses}, replayed {stats.cache_hits} (expected 2 and {2 * len(real) - 4})")
+
+    # the features on the side: KID's states (its net has the same seeded weights)
+    real_f = torch.cat(kid.real_features)
+    fake_f = torch.cat(kid.fake_features)
+    logits = torch.cat(inception_score.features)
+    check(real_f.shape == (CIFAR_IMAGES, 2048) and logits.shape == (CIFAR_IMAGES, 1008), "12(a): feature shapes")
+    check(all(bool(torch.isfinite(x).all()) for x in (real_f, fake_f, logits)), "12(a): features are not finite")
+
+    # the streaming Welford triple against a float64 two-pass mean and M2
+    worst = {}
+    for side, feats in (("real", real_f), ("fake", fake_f)):
+        x64 = feats.to(torch.float64)
+        mean64 = x64.mean(0)
+        m2_64 = (x64 - mean64).T @ (x64 - mean64)
+        n = getattr(fid, f"{side}_n")
+        mean_err = float((getattr(fid, f"{side}_mean").to(torch.float64) - mean64).norm() / mean64.norm())
+        m2_err = float((getattr(fid, f"{side}_m2").to(torch.float64) - m2_64).norm() / m2_64.norm())
+        check(n.dtype == torch.float32 and float(n) == CIFAR_IMAGES, f"12(a): FID {side}_n is {n}")
+        check(mean_err <= WELFORD_MEAN_RTOL, f"12(a): FID {side} mean {mean_err:.2e} from the float64 two-pass mean")
+        check(m2_err <= WELFORD_M2_RTOL, f"12(a): FID {side} M2 {m2_err:.2e} from float64")
+        worst[side] = {"mean_rel": mean_err, "m2_rel": m2_err}
+
+    # computes: FID twice (the second at the engine's decision), eigh split out
+    fid_value, fid_ms = event_ms(torch, fid.compute)
+    fid._computed = None
+    fid_value2, fid_ms2 = event_ms(torch, fid.compute)
+    check(same_bits(torch, fid_value, fid_value2), "12(a): FID's two computes differ")
+    partition = fid.engine_stats()["partition"]["compute"]
+    reasons = fid.engine_stats()["fallback_reasons"]
+    # eigh reads cusolver's status on the host: the probe reverts the compute to eager
+    check(any("solver's status" in why for why in reasons.values()), f"12(a): FID's compute did not revert at its probe: {reasons}")
+    cov = (fid.real_m2 / (fid.real_n - 1)).to(torch.float64)  # the compute's dtype (ops/image/fid._compute_fid)
+    _, eigh_ms = event_ms(torch, lambda: torch.linalg.eigh(cov))
+    _, eigvalsh_ms = event_ms(torch, lambda: torch.linalg.eigvalsh(cov))
+    t_oracle = time.perf_counter()
+    want_fid = np_fid64(np, real_f.double().cpu().numpy(), fake_f.double().cpu().numpy())
+    fid_rel = abs(float(fid_value) - want_fid) / abs(want_fid)
+    check(fid_rel <= FID_RTOL, f"12(a): FID {float(fid_value)} is {fid_rel:.2e} from float64 scipy {want_fid}")
+
+    (kid_mean, kid_std), kid_ms = event_ms(torch, kid.compute)
+    want_kid = kid64(torch, np, real_f, fake_f, SEED)
+    for got, want, what in ((kid_mean, want_kid[0], "mean"), (kid_std, want_kid[1], "std")):
+        check(abs(float(got) - want) <= KID_ATOL + KID_RTOL * abs(want), f"12(a): KID {what} {float(got)} against float64 {want}")
+    (is_mean, is_std), is_ms = event_ms(torch, inception_score.compute)
+    want_is = is64(np, logits.cpu().numpy(), SEED)
+    check(abs(float(is_mean) - want_is[0]) <= IS_RTOL * abs(want_is[0]), f"12(a): IS mean {float(is_mean)} against {want_is[0]}")
+    is_std_rel = abs(float(is_std) - want_is[1]) / abs(want_is[1])
+    check(is_std_rel <= IS_STD_RTOL, f"12(a): IS std {float(is_std)} is {is_std_rel:.2e} from float64 {want_is[1]}")
+    oracle_s = time.perf_counter() - t_oracle
+    t_twin = time.perf_counter()
+
+    # the card against a CPU twin of the net on the first images of each side
+    ext = fid.inception.__wrapped__
+    cpu_net = InceptionV3(features_list=("2048", "logits_unbiased"))
+    cpu_net.load_state_dict(load_inception_torch_state_dict({k: v.cpu() for k, v in ext.module.state_dict().items()}))
+    cpu_net.eval()
+    imgs = torch.cat([real[0][:TWIN_IMAGES], fake[0][:TWIN_IMAGES]])
+    from metrics_tpu_torch.nets.inception import resize_bilinear_tf1
+
+    with torch.no_grad():
+        cpu_out = cpu_net((resize_bilinear_tf1(imgs.cpu().to(torch.float32), 299, 299) - 128.0) / 128.0)
+    twin_err = {}
+    for tap, card in (("2048", ext(imgs)), ("logits_unbiased", inception_score.inception.__wrapped__(imgs))):
+        want = cpu_out[tap]
+        excess = within(card.cpu(), want, NET_RTOL, NET_RTOL * float(want.abs().max()))
+        twin_err[tap] = float((card.cpu() - want).abs().max() / want.abs().max())
+        check(excess <= 0, f"12(a): the card's {tap} features differ from the CPU twin's beyond the net bound")
+
+    twin_s = time.perf_counter() - t_twin
+
+    # row independence: the same images alone, in their batch of 100, padded to 128
+    batch = real[0]
+    with torch.no_grad():
+        f100 = ext(batch)
+        f128 = ext(torch.cat([batch, batch.new_zeros((28, *batch.shape[1:]))]))[:CIFAR_BATCH]
+        alone = torch.cat([ext(batch[i: i + 1]) for i in range(ROW_ALONE)])
+    scale = float(f100.abs().max())
+    row = {"pad128_max_abs": float((f128 - f100).abs().max()), "alone_max_abs": float((alone - f100[:ROW_ALONE]).abs().max()),
+           "pad128_bitwise": same_bits(torch, f128, f100), "alone_bitwise": same_bits(torch, alone, f100[:ROW_ALONE]),
+           "scale": scale}
+    check(within(f128, f100, NET_RTOL, NET_RTOL * scale) <= 0 and within(alone, f100[:ROW_ALONE], NET_RTOL, NET_RTOL * scale) <= 0,
+          "12(a): zero-padding or batching changed features beyond the net bound")
+
+    # the forward: images/s, device busy and idle, against its operations bound
+    macs = inception_macs(torch, ext, batch)
+    fwd_ms = time_ms(torch, lambda: ext(batch), warmup=2, reps=10)
+    prof = profile_window(torch, lambda: ext(batch), reps=3)
+    busy_us = sum(prof["device_us"].values())
+    idle = max(0.0, 1.0 - busy_us / prof["wall_us"]) if prof["device_us"] else None
+    fwd_bound_ms = 2 * macs / H100_SXM_FP32 * 1e3
+    print(f"phase 12(a) ({smi}): FID/KID/IS at CIFAR-10 size, {CIFAR_IMAGES} images a side in updates of {CIFAR_BATCH},"
+          f" seeded random InceptionV3 weights, TF32 off: FID {float(fid_value):.6f} (float64 scipy {want_fid:.6f},"
+          f" rel {fid_rel:.2e}); KID {float(kid_mean):.6e} +- {float(kid_std):.6e} (float64 {want_kid[0]:.6e} +- {want_kid[1]:.6e});"
+          f" IS {float(is_mean):.6f} +- {float(is_std):.6e} (float64 {want_is[0]:.6f} +- {want_is[1]:.6e}, std rel {is_std_rel:.2e})")
+    print(f"  Welford against float64 two-pass: {worst}; the card against the CPU twin (max |diff| / tap scale): {twin_err}")
+    print(f"  row independence ({ROW_ALONE} images alone, the batch of 100, padded to 128): {row}")
+    print(f"  Inception forward at 100 images: {fwd_ms:.2f} ms ({CIFAR_BATCH / fwd_ms * 1e3:.0f} images/s), device busy"
+          f" {busy_us / 1e3:.2f} ms, idle share {idle if idle is None else round(idle, 3)}; {macs / CIFAR_BATCH / 1e9:.3f} GMAC an"
+          f" image, operations bound {fwd_bound_ms:.2f} ms at {H100_SXM_FP32 / 1e12:.0f} TFLOP/s float32")
+    print(f"  update per 100 images (median by events): FID real {fid_real['median_ms']:.2f} ms, fake {fid_fake['median_ms']:.2f} ms"
+          f" (captured; first two {fid_real['first_ms']}), KID {kid_t['median_ms'] / 2:.2f} ms, IS {is_t['median_ms']:.2f} ms (eager,"
+          f" lists); compute: FID {fid_ms:.1f}, {fid_ms2:.1f} ms (float64 eigh of a 2048 x 2048 covariance {eigh_ms:.1f} ms, eigvalsh"
+          f" {eigvalsh_ms:.1f} ms), KID {kid_ms:.1f} ms, IS {is_ms:.1f} ms")
+    print(f"  FID compute partition {partition}; fallback reasons {reasons}; host time: the float64 oracles"
+          f" {oracle_s:.1f} s (compute times included), the CPU twin's forward of {2 * TWIN_IMAGES} images {twin_s:.1f} s;"
+          f" updates FID {fid_real['total_s'] + fid_fake['total_s']:.1f} s (captures {fid_real['first_ms'][1] / 1e3:.1f},"
+          f" {fid_fake['first_ms'][1] / 1e3:.1f} s), KID {kid_t['total_s']:.1f} s, IS {is_t['total_s']:.1f} s")
+    return {"fid": [float(fid_value), want_fid], "kid": [float(kid_mean), float(kid_std), *want_kid],
+            "is": [float(is_mean), float(is_std), *want_is], "welford": worst, "twin": twin_err, "rows": row,
+            "forward_ms": fwd_ms, "forward_busy_ms": busy_us / 1e3, "forward_idle": idle, "forward_bound_ms": fwd_bound_ms,
+            "gmac_per_image": macs / CIFAR_BATCH / 1e9,
+            "update_ms": {"fid_real": fid_real["median_ms"], "fid_fake": fid_fake["median_ms"], "kid": kid_t["median_ms"] / 2,
+                          "is": is_t["median_ms"]},
+            "compute_ms": {"fid": [fid_ms, fid_ms2], "eigh": eigh_ms, "eigvalsh": eigvalsh_ms, "kid": kid_ms, "is": is_ms},
+            "partition": partition, "reasons": reasons, "metrics": {"fid": fid, "kid": kid, "is": inception_score}}
+
+
+def lpips_pairs(torch, gen, n: int):
+    a = torch.rand((n, 3, LPIPS_SIDE, LPIPS_SIDE), generator=gen, device="cuda") * 2 - 1
+    b = (a + 0.2 * torch.randn(a.shape, generator=gen, device="cuda")).clamp(-1, 1)
+    return a, b
+
+
+def phase_twelve_b(torch, mt, smi) -> dict:
+    """12(b): LPIPS image-to-image evaluation at 256 x 256 for the three
+    trunks (seeded random weights), updates of 50 padded to 64 at eager calls."""
+    from metrics_tpu_torch.nets import LPIPSNet
+
+    out = {}
+    for k, (net_type, pairs) in enumerate(LPIPS_PAIRS.items()):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 130 + k)
+        metric = mt.LearnedPerceptualImagePatchSimilarity(net_type=net_type)
+        first = lpips_pairs(torch, gen, LPIPS_BATCH)
+        # pairs made on the card just before each update (outside its timing)
+        stream = (first if i == 0 else lpips_pairs(torch, gen, LPIPS_BATCH) for i in range(pairs // LPIPS_BATCH))
+        t = timed_updates(torch, lambda b, metric=metric: metric.update(*b), stream)
+        value = metric.compute()
+        check(bool(torch.isfinite(value)) and float(metric.total) == pairs, f"12(b) {net_type}: {value}, total {metric.total}")
+        prof = profile_window(torch, lambda: metric.update(*first), reps=3)
+        busy = sum(prof["device_us"].values())
+        idle = max(0.0, 1.0 - busy / prof["wall_us"]) if prof["device_us"] else None
+        # the card against a CPU twin on the first pairs; bfloat16 against float32
+        net = metric.net.__wrapped__
+        a, c = first[0][:LPIPS_TWIN], first[1][:LPIPS_TWIN]
+        card = net(a, c)
+        cpu = LPIPSNet(net_type, device="cpu")(a.cpu(), c.cpu())
+        twin_err = float((card.cpu() - cpu).abs().max() / cpu.abs().max())
+        check(within(card.cpu(), cpu, NET_RTOL, NET_RTOL * float(cpu.abs().max())) <= 0, f"12(b) {net_type}: card against CPU twin")
+        half = LPIPSNet(net_type, compute_dtype=torch.bfloat16, device="cuda")
+        rel = 0.0
+        for i in range(LPIPS_BF16_PAIRS // LPIPS_BATCH):
+            a, c = first if i == 0 else lpips_pairs(torch, gen, LPIPS_BATCH)
+            d32, d16 = net(a, c), half(a, c)
+            rel = max(rel, float(((d16 - d32).abs() / d32.abs()).max()))
+        check(rel <= LPIPS_BF16_RTOL, f"12(b) {net_type}: bfloat16 {rel:.2e} from float32")
+        stats = metric.engine_stats()["update"]
+        out[net_type] = {"value": float(value), "ms_per_update": t["median_ms"], "ms_per_pair": t["median_ms"] / LPIPS_BATCH,
+                         "total_s": t["total_s"], "idle_share": idle, "device_busy_ms": busy / 1e3, "twin_rel": twin_err,
+                         "bf16_rel": rel, "captures": stats.cache_misses, "replays": stats.cache_hits, "metric": metric}
+        print(f"phase 12(b) ({smi}): LPIPS {net_type}, {pairs} pairs at {LPIPS_SIDE} x {LPIPS_SIDE}: {float(value):.6f};"
+              f" {t['median_ms']:.2f} ms an update of {LPIPS_BATCH} ({t['median_ms'] / LPIPS_BATCH:.3f} ms a pair), idle share"
+              f" {idle if idle is None else round(idle, 3)}; captured {stats.cache_misses}, replayed {stats.cache_hits};"
+              f" the card within {twin_err:.1e} of a CPU twin (max |diff| / scale), bfloat16 within {rel:.1e} of float32")
+    return out
+
+
+def quality_stream(torch, n: int, batch: int, shape, noise: float, seed: int):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(n // batch):
+        target = torch.rand((batch, *shape), generator=gen, device="cuda")
+        preds = (target + noise * torch.randn(target.shape, generator=gen, device="cuda")).clamp(0.0, 1.0)
+        out.append((preds, target))
+    return out
+
+
+def eager_against_buffered(torch, label: str, make, stream, capacity: int, smi) -> dict:
+    """One metric eager (lists, engines off), then buffered at the engine
+    defaults (captured appends) on the same stream: results bitwise equal;
+    each compute timed by events with its peak ``memory_allocated``."""
+    out = {}
+    results = {}
+    for mode in ("eager", "buffered"):
+        kw = dict(compiled_update=False, compiled_compute=False) if mode == "eager" else dict(buffer_capacity=capacity)
+        metric = make(**kw)
+        for p, t in stream:
+            metric.update(p, t)
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        value, ms = event_ms(torch, metric.compute)
+        peak = torch.cuda.max_memory_allocated()
+        results[mode] = value
+        stats = metric.engine_stats()["update"]
+        out[mode] = {"compute_ms": ms, "peak_gb": peak / 1e9, "above_state_gb": (peak - base) / 1e9,
+                     "captures": None if stats is None else stats.cache_misses,
+                     "replays": None if stats is None else stats.cache_hits}
+        del metric
+        gc.collect()
+    check(all(bool(torch.isfinite(v).all()) for v in torch.utils._pytree.tree_leaves(results["eager"])), f"{label}: not finite")
+    got, want = torch.utils._pytree.tree_leaves(results["buffered"]), torch.utils._pytree.tree_leaves(results["eager"])
+    check(all(same_bits(torch, g, w) for g, w in zip(got, want)), f"{label}: buffered result differs from eager")
+    out["value"] = [float(v) for v in want]
+    print(f"  {label}: {out['value']}; buffered bitwise equal to eager; compute eager {out['eager']['compute_ms']:.1f} ms"
+          f" (peak {out['eager']['peak_gb']:.2f} GB, {out['eager']['above_state_gb']:.2f} GB above what it held),"
+          f" buffered {out['buffered']['compute_ms']:.1f} ms (peak {out['buffered']['peak_gb']:.2f} GB); buffered update"
+          f" captured {out['buffered']['captures']}, replayed {out['buffered']['replays']}")
+    return out
+
+
+def card_against_cpu_quality(torch, label: str, make, batch, relative: bool) -> float:
+    card, cpu = make(None), make("cpu")
+    card.update(*batch)
+    cpu.update(*(x.cpu() for x in batch))
+    got, want = card.compute().cpu(), cpu.compute()
+    err = float(((got - want).abs() / (want.abs() if relative else 1.0)).max())
+    check(err <= QUALITY_ATOL, f"{label}: the card {err:.2e} from the CPU twin")
+    return err
+
+
+def phase_twelve_c(torch, mt, np, smi) -> dict:
+    """12(c): PSNR, SSIM, MS-SSIM and UQI at DIV2K validation size, eager
+    and buffered; image gradients bitwise against numpy."""
+    stream = quality_stream(torch, DIV2K_IMAGES, DIV2K_BATCH, (3, DIV2K_H, DIV2K_W), DIV2K_NOISE, SEED + 140)
+    print(f"phase 12(c) ({smi}): DIV2K validation size, {DIV2K_IMAGES} RGB images of {DIV2K_H} x {DIV2K_W} in updates of"
+          f" {DIV2K_BATCH} (predictions: the target plus N(0, {DIV2K_NOISE}) clipped to [0, 1])")
+    makers = {
+        "PSNR": lambda **kw: mt.PeakSignalNoiseRatio(**kw),  # data_range=None: min/max states on the card
+        "SSIM": lambda **kw: mt.StructuralSimilarityIndexMeasure(**kw),  # data_range=None: a device max - min
+        "MS-SSIM": lambda **kw: mt.MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, **kw),
+        "UQI": lambda **kw: mt.UniversalImageQualityIndex(**kw),
+    }
+    out = {}
+    for label, make in makers.items():
+        if label == "PSNR":  # no list state: the compiled path at the defaults against eager
+            eager, compiled = make(compiled_update=False, compiled_compute=False), make()
+            for p, t in stream:
+                eager.update(p, t)
+                compiled.update(p, t)
+            (value, ms), got = event_ms(torch, eager.compute), compiled.compute()
+            check(same_bits(torch, got, value), "12(c) PSNR: compiled differs from eager")
+            out[label] = {"value": [float(value)], "eager": {"compute_ms": ms}}
+            print(f"  PSNR: {float(value):.6f} dB; compiled (captured update) bitwise equal to eager; compute {ms:.2f} ms")
+            continue
+        out[label] = eager_against_buffered(torch, f"12(c) {label}", make, stream, DIV2K_IMAGES, smi)
+    twin = {label: card_against_cpu_quality(torch, f"12(c) {label}", lambda device, make=make: make(device=device),
+                                            (stream[0][0][:DIV2K_TWIN], stream[0][1][:DIV2K_TWIN]), label == "PSNR")
+            for label, make in makers.items()}
+    imgs = stream[0][1][:DIV2K_TWIN]
+    dy, dx = mt.functional.image_gradients(imgs)
+    host = imgs.cpu().numpy()
+    want_dy, want_dx = np.zeros_like(host), np.zeros_like(host)
+    want_dy[..., :-1, :] = host[..., 1:, :] - host[..., :-1, :]
+    want_dx[..., :, :-1] = host[..., :, 1:] - host[..., :, :-1]
+    check(np.array_equal(dy.cpu().numpy().view(np.int32), want_dy.view(np.int32))
+          and np.array_equal(dx.cpu().numpy().view(np.int32), want_dx.view(np.int32)), "12(c): image gradients differ from numpy")
+    print(f"  the card against CPU twins on {DIV2K_TWIN} images: {twin} (relative for PSNR); image_gradients on"
+          f" {DIV2K_TWIN} images bitwise equal to numpy")
+    small = {"PSNR": makers["PSNR"](), "SSIM": makers["SSIM"]()}
+    for metric in small.values():
+        metric.update(stream[0][0][:DIV2K_TWIN], stream[0][1][:DIV2K_TWIN])
+    del stream
+    return {**out, "twin": twin, "sync_metrics": small}
+
+
+def phase_twelve_d(torch, mt, smi) -> dict:
+    """12(d): ERGAS, SAM and D-lambda (p = 1) on multispectral tiles, eager
+    and buffered, and the card against a CPU twin."""
+    stream = quality_stream(torch, MS_TILES, MS_BATCH, (MS_BANDS, MS_SIDE, MS_SIDE), DIV2K_NOISE, SEED + 150)
+    print(f"phase 12(d) ({smi}): {MS_TILES} tiles of {MS_BANDS} bands at {MS_SIDE} x {MS_SIDE}, ratio {MS_RATIO}, updates of"
+          f" {MS_BATCH}")
+    makers = {
+        "ERGAS": lambda **kw: mt.ErrorRelativeGlobalDimensionlessSynthesis(ratio=MS_RATIO, **kw),
+        "SAM": lambda **kw: mt.SpectralAngleMapper(**kw),
+        "D-lambda": lambda **kw: mt.SpectralDistortionIndex(p=1, **kw),
+    }
+    out = {label: eager_against_buffered(torch, f"12(d) {label}", make, stream, MS_TILES, smi) for label, make in makers.items()}
+    twin = {label: card_against_cpu_quality(torch, f"12(d) {label}", lambda device, make=make: make(device=device),
+                                            (stream[0][0][:MS_TWIN], stream[0][1][:MS_TWIN]), label == "ERGAS")
+            for label, make in makers.items()}
+    print(f"  the card against CPU twins on {MS_TWIN} tiles: {twin} (relative for ERGAS)")
+    return {**out, "twin": twin}
+
+
+def synced_equals_unsynced(torch, sync, world, label: str, metrics: dict) -> dict:
+    """12(e): each metric's synced compute in ``world`` (one NCCL rank),
+    bitwise equal to its unsynced one; the collectives each ran."""
+    out = {}
+    for name, metric in metrics.items():
+        metric._computed = None
+        local = metric.compute()
+        metric._computed = None
+        with sync.count_collectives() as box, sync.sync_axes(world):
+            synced = metric.compute()
+        got, want = torch.utils._pytree.tree_leaves(synced), torch.utils._pytree.tree_leaves(local)
+        check(len(got) == len(want) and all(same_bits(torch, g, w) for g, w in zip(got, want)),
+              f"12(e) {name}: synced compute differs from the unsynced one")
+        out[name] = box["by_kind"]
+    if "FID" in out:  # a gather of each of the 6 states, folded by Chan's combine in rank order
+        check(out["FID"] == {"size_exchange": 6, "all_gather": 6}, f"12(e): FID's sync ran {out['FID']}")
+    print(f"phase 12(e) after {label}: synced computes in a world of one NCCL rank bitwise equal to the unsynced ones;"
+          f" collectives {out}")
+    return out
+
+
+def release(torch, *objects) -> None:
+    """Drop a part's metrics (their captured graphs hold private memory
+    pools) before the next part allocates."""
+    for obj in objects:
+        obj.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_twelve(torch, mt, np, kernels_mod, sync, smi) -> dict:
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.ops.kernels import features as feats
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    feats.reset_feature_extract_counts()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        world = dist.group.WORLD
+        a = phase_twelve_a(torch, mt, np, smi)
+        forwards = {"a": feats.feature_extract_counts()}
+        feats.reset_feature_extract_counts()
+        e = {"a": synced_equals_unsynced(torch, sync, world, "12(a)", {
+            "FID": a["metrics"]["fid"], "KID": a["metrics"]["kid"], "IS": a["metrics"]["is"]})}
+        release(torch, a.pop("metrics"))
+        b = phase_twelve_b(torch, mt, smi)
+        forwards["b"] = feats.feature_extract_counts()
+        e["b"] = synced_equals_unsynced(torch, sync, world, "12(b)", {"LPIPS": b["alex"]["metric"]})
+        release(torch, [v.pop("metric") for v in b.values()])
+        c = phase_twelve_c(torch, mt, np, smi)
+        e["c"] = synced_equals_unsynced(torch, sync, world, "12(c)", c["sync_metrics"])
+        release(torch, c.pop("sync_metrics"))
+        d = phase_twelve_d(torch, mt, smi)
+    finally:
+        dist.destroy_process_group()
+    launches = kernels_mod.launch_counts()
+    check(not any(launches.values()), f"phase 12 launched a kernel of B1-B3: {launches}")
+    elapsed = time.perf_counter() - t0
+    print(json.dumps({"feature_extract": forwards}))
+    print(f"phase 12 ({smi}): {elapsed:.1f} s in all (limit {PHASE12_LIMIT_S:.0f} s); kernel launches {launches};"
+          f" feature_extract forwards (bucketed eager dispatches and their widths) {forwards}")
+    check(elapsed < PHASE12_LIMIT_S, f"phase 12 took {elapsed:.1f} s, over its {PHASE12_LIMIT_S:.0f} s")
+    return {"launches": launches, "forwards": forwards, "a": a, "b": b, "c": c, "d": d, "e": e, "seconds": elapsed}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4436,6 +4949,9 @@ def main() -> None:
     # ---- phase 11: the rest of detection (host lists, segm, 300 detections) and the sketches
     eleven = phase_eleven(torch, mt, np, kernels_mod, sync, coco, map_results, smi)
 
+    # ---- phase 12: image (no kernel of B1-B3 on its path)
+    twelve = phase_twelve(torch, mt, np, kernels_mod, sync, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -4455,6 +4971,7 @@ def main() -> None:
             "phase9_launches": nine["launches"][kname],
             "phase10_launches": ten["launches"][kname],
             "phase11_launches": eleven["launches"][kname],
+            "phase12_launches": twelve["launches"][kname],
             **us,
             **extra,
         }

@@ -122,3 +122,78 @@ def state_to_numpy(metric: Union[Metric, MetricCollection]) -> Dict:
         else:
             out[name] = (value.to_array() if isinstance(value, CatBuffer) else value).detach().cpu().numpy()
     return out
+
+
+# --------------------------------------------------------------------------- #
+# network weights: the JAX package's flax variables as the port's state dicts
+# --------------------------------------------------------------------------- #
+def _flat_paths(tree: Mapping, prefix: tuple = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _flat_paths(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def inception_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's InceptionV3 state dict from the JAX package's variables
+    (``{"params": ..., "batch_stats": ...}`` with numpy leaves: pass
+    ``jax.tree.map(np.asarray, variables)``); the inverse of
+    ``metrics_tpu.nets.inception.load_inception_torch_state_dict``. A kernel
+    ``(kh, kw, I, O)`` becomes a weight ``(O, I, kh, kw)``; ``scale``,
+    ``bias``, ``mean`` and ``var`` become ``weight``, ``bias``,
+    ``running_mean`` and ``running_var``; ``fc_kernel`` becomes ``fc.weight``
+    transposed. The result is checked by the port's loader, so it loads with
+    ``load_state_dict`` as it is."""
+    from metrics_tpu_torch.nets.inception import load_inception_torch_state_dict
+
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _flat_paths(variables.get(collection, {})):
+            arr = np.asarray(value, dtype=np.float32)
+            if path == ("fc_kernel",):
+                out["fc.weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
+            elif path == ("fc_bias",):
+                out["fc.bias"] = torch.from_numpy(arr.copy())
+            else:
+                if path[-1] == "kernel":
+                    arr = np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+                out[".".join(path[:-1] + (names[path[-1]],))] = torch.from_numpy(np.array(arr, copy=True))
+    return load_inception_torch_state_dict(out)
+
+
+def lpips_state_dict_from_jax(variables: Mapping, net_type: str = "alex") -> Dict[str, torch.Tensor]:
+    """The port's LPIPS state dict from the JAX package's variables (numpy
+    leaves); the inverse of ``metrics_tpu.nets.lpips.load_lpips_torch_state_dict``:
+    the trunk's named convolutions go to torchvision's ``features.N`` slots,
+    each head ``lin<k>`` (C,) to ``lin<k>.model.1.weight`` (1, C, 1, 1)."""
+    from metrics_tpu_torch.nets import lpips as lp
+
+    params = variables["params"]
+    trunk = params["net"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key: str, conv: Mapping) -> None:
+        out[f"net.features.{key}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(conv["kernel"], dtype=np.float32).transpose(3, 2, 0, 1)))
+        out[f"net.features.{key}.bias"] = torch.from_numpy(np.array(conv["bias"], dtype=np.float32, copy=True))
+
+    if net_type == "squeeze":
+        put("0", trunk["conv1"]["conv"])
+        for idx, fire in zip(lp.SQUEEZE_FIRE_IDX, (f"fire{i}" for i in range(2, 10))):
+            for sub in ("squeeze", "expand1x1", "expand3x3"):
+                put(f"{idx}.{sub}", trunk[fire][sub]["conv"])
+    else:
+        conv_names = {
+            "alex": [f"conv{i}" for i in range(1, 6)],
+            "vgg": ["conv1_1", "conv1_2", "conv2_1", "conv2_2", "conv3_1", "conv3_2", "conv3_3",
+                    "conv4_1", "conv4_2", "conv4_3", "conv5_1", "conv5_2", "conv5_3"],
+        }[net_type]
+        indices = lp.ALEX_CONV_IDX if net_type == "alex" else lp.VGG16_CONV_IDX
+        for idx, name in zip(indices, conv_names):
+            put(str(idx), trunk[name]["conv"])
+    for k in range(len(lp.NET_CHANNELS[net_type])):
+        w = np.asarray(params[f"lin{k}"], dtype=np.float32)
+        out[f"lin{k}.model.1.weight"] = torch.from_numpy(w.reshape(1, -1, 1, 1).copy())
+    return lp._check_state_dict(lp.LPIPS(net_type), out)

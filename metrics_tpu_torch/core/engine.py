@@ -15,12 +15,14 @@ The dispatch follows the JAX engine call for call:
   ``TorchDispatchMode`` that raises :class:`Uncapturable` on every operation a
   stream capture refuses: a read of a value to the host
   (``aten._local_scalar_dense``, which ``bool()``, ``.item()`` and ``int()``
-  reach; ``tolist``, ``numpy`` and copies to the host) and operations whose
-  output shape depends on values (``nonzero``, ``unique``, ``masked_select``,
-  indexing with a bool tensor). A probe that raises leaves the state as it
-  was and reverts the metric, or the collection member, to eager for good,
-  with the reason recorded. A probe that passes commits its result: that is
-  the call's update. On the card the step is then captured into a graph on
+  reach; ``tolist``, ``numpy`` and copies to the host; on CUDA,
+  ``torch.linalg.eigh``, which reads cusolver's status inside its kernel) and
+  operations whose output shape depends on values (``nonzero``, ``unique``,
+  ``masked_select``, indexing with a bool tensor). A probe that raises
+  leaves the state as it was and reverts the metric, or the collection
+  member, to eager for good, with the reason recorded. A probe that passes
+  commits its result: that is the call's update. On the card the step is
+  then captured into a graph on
   the engine's capture stream (the probe ran there too, so what a kernel
   wrapper keeps per stream, such as B1's large-T workspace, exists before the
   capture starts). Capture executes nothing.
@@ -426,6 +428,13 @@ _VALUE_SHAPED = frozenset({
 })
 _INDEXING = frozenset({_aten.index, _aten.index_put, _aten.index_put_, _aten._index_put_impl_})
 _COPIES = frozenset({_aten._to_copy, _aten.copy_})
+# operations that read their solver's status back to the host on CUDA inside
+# the kernel (below the dispatch mode, so the probe sees no
+# `_local_scalar_dense`): torch.linalg.eigh checks cusolver's `info`. A
+# capture of one fails and leaves the solver's handle unusable, so the probe
+# refuses them on CUDA; on the CPU they capture (FID's compute, as the JAX
+# engine compiles it)
+_DEVICE_CHECKED = frozenset({_aten._linalg_eigh})
 
 
 def _is_bool_index(index: Any) -> bool:
@@ -440,6 +449,8 @@ class _ProbeMode(TorchDispatchMode):
         packet = func._overloadpacket
         if packet in _HOST_READS:
             raise Uncapturable(f"{func} reads a value back to the host")
+        if packet in _DEVICE_CHECKED and any(isinstance(a, Tensor) and a.is_cuda for a in args):
+            raise Uncapturable(f"{func} reads its solver's status back to the host on CUDA")
         if packet in _VALUE_SHAPED:
             raise Uncapturable(f"{func} makes a tensor whose shape depends on values")
         if packet is _aten.repeat_interleave and kwargs.get("output_size") is None:
@@ -1036,6 +1047,14 @@ def classify_update_member(metric: Any) -> Tuple[str, str]:
         return PATH_EAGER, "has child metrics"
     if not metric.supports_compiled_update:
         return PATH_EAGER, "state unsupported by compiled update (unbounded list state)"
+    statics = tuple(getattr(metric, "_static_update_kwargs", ()) or ())
+    if statics:
+        # routing flags (FID's and KID's `real`): the metric's own engine keys
+        # their values into its signatures, one captured step per value
+        return PATH_BUCKETED, (
+            f"static update kwargs ({', '.join(statics)}) close over per-value "
+            "jit variants in the per-metric engine"
+        )
     if getattr(metric, "_batch_buckets", False):
         return PATH_BUCKETED, "batch_buckets=True (pow2-bucketed per-metric engine)"
     return PATH_FUSED, "compilable"

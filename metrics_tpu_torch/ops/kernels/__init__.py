@@ -185,6 +185,12 @@ def build_all() -> None:
             future.result()
 
 
+def next_pow2(n: int) -> int:
+    """Smallest power of two >= max(n, 1)."""
+    n = max(int(n), 1)
+    return 1 << (n - 1).bit_length()
+
+
 def reset_launch_counts() -> None:
     for kernel in KERNELS.values():
         kernel.launches = 0
@@ -203,3 +209,6 @@ def add_launches(delta: Dict[str, int]) -> None:
 # the kernels' public wrappers, as the JAX package's ``ops.kernels`` exports them
 from metrics_tpu_torch.ops.kernels.cosine_matching import pairwise_cosine_pr  # noqa: E402,F401
 from metrics_tpu_torch.ops.kernels.iou_matching import evaluate_matches  # noqa: E402,F401
+# the pow2 feature bucketing of the image metrics: torch code, no kernel
+from metrics_tpu_torch.ops.kernels import features  # noqa: E402,F401
+from metrics_tpu_torch.ops.kernels.features import BucketedFeatureExtractor, maybe_bucketed  # noqa: E402,F401

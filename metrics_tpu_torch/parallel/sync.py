@@ -46,6 +46,7 @@ from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer
 from metrics_tpu_torch.sketches.base import is_sketch
+from metrics_tpu_torch.utils.compute import class_reduce, reduce  # noqa: F401  (the JAX package's home of both)
 
 Group = Optional[dist.ProcessGroup]
 Reduction = Optional[Union[str, Callable]]
@@ -408,31 +409,3 @@ def gather_all_arrays(x: Tensor, group: Group = None) -> List[Tensor]:
     shapes = [s.tolist() for s in _all_gather(torch.tensor(x.shape, dtype=torch.int64, device=x.device), group, "size_exchange")]
     rows = max(s[0] for s in shapes)
     return [g[: s[0]] for g, s in zip(_all_gather(_pad_rows(x, rows), group), shapes)]
-
-
-def reduce(x: Tensor, reduction: Optional[str]) -> Tensor:
-    """Elementwise reduce: ``"elementwise_mean"``, ``"sum"`` or ``"none"``/None."""
-    if reduction == "elementwise_mean":
-        return torch.mean(x)
-    if reduction == "none" or reduction is None:
-        return x
-    if reduction == "sum":
-        return torch.sum(x)
-    raise ValueError("Reduction parameter unknown.")
-
-
-def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: Optional[str] = "none") -> Tensor:
-    """Per-class fractions ``num / denom`` (NaN to 0) reduced ``micro``,
-    ``macro``, ``weighted`` or ``none``."""
-    valid_reduction = ("micro", "macro", "weighted", "none", None)
-    fraction = torch.sum(num) / torch.sum(denom) if class_reduction == "micro" else num / denom
-    fraction = torch.where(torch.isnan(fraction), torch.zeros((), dtype=fraction.dtype, device=fraction.device), fraction)
-    if class_reduction == "micro":
-        return fraction
-    if class_reduction == "macro":
-        return torch.mean(fraction)
-    if class_reduction == "weighted":
-        return torch.sum(fraction * (weights / torch.sum(weights)))
-    if class_reduction == "none" or class_reduction is None:
-        return fraction
-    raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")

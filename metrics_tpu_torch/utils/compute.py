@@ -1,6 +1,8 @@
 """Numerically safe helpers (counterpart of ``metrics_tpu/utils/compute.py``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import Tensor
 
@@ -29,3 +31,31 @@ def safe_divide(num: Tensor, denom: Tensor) -> Tensor:
     denom_safe = torch.where(zero, torch.ones_like(denom), denom)
     quotient = num / denom_safe
     return torch.where(zero, torch.zeros_like(quotient), quotient)
+
+
+def reduce(x: Tensor, reduction: Optional[str]) -> Tensor:
+    """Elementwise reduce: ``"elementwise_mean"``, ``"sum"`` or ``"none"``/None."""
+    if reduction == "elementwise_mean":
+        return torch.mean(x)
+    if reduction == "none" or reduction is None:
+        return x
+    if reduction == "sum":
+        return torch.sum(x)
+    raise ValueError("Reduction parameter unknown.")
+
+
+def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: Optional[str] = "none") -> Tensor:
+    """Per-class fractions ``num / denom`` (NaN to 0) reduced ``micro``,
+    ``macro``, ``weighted`` or ``none``."""
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    fraction = torch.sum(num) / torch.sum(denom) if class_reduction == "micro" else num / denom
+    fraction = torch.where(torch.isnan(fraction), torch.zeros((), dtype=fraction.dtype, device=fraction.device), fraction)
+    if class_reduction == "micro":
+        return fraction
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        return torch.sum(fraction * (weights / torch.sum(weights)))
+    if class_reduction == "none" or class_reduction is None:
+        return fraction
+    raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")

@@ -413,3 +413,20 @@ def auroc_sketch_synced(calls: Sequence[tuple]) -> Any:
     for args in calls:
         metric.update(*to_torch(args))
     return to_numpy(metric.compute())
+
+
+# --------------------------------------------------------------------------- #
+# FID (tests/test_torch_image_metrics.py)
+# --------------------------------------------------------------------------- #
+def fid_synced(calls: Sequence[tuple]) -> Dict[str, Any]:
+    """FID over identity features, fed this rank's ``(features, real)``
+    calls: its local state, its synced state, the synced compute and the
+    collectives of the sync."""
+    metric = mt.FrechetInceptionDistance(feature=lambda x: x, feature_size=calls[0][0].shape[1], device="cpu")
+    for x, real in calls:
+        metric.update(torch.from_numpy(x), real=real)
+    local = metric.get_state()
+    with count_collectives() as box:
+        synced = metric.sync_states(local, dist.group.WORLD)
+    value = metric.compute()
+    return {"local": to_numpy(local), "synced": to_numpy(synced), "counts": dict(box["by_kind"]), "fid": float(value)}

@@ -5,10 +5,11 @@ Inputs are made with numpy from a seed and handed to both packages: to
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Iterator
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -16,6 +17,19 @@ def strict_float32() -> None:
     """Full-precision float32 everywhere: no TF32 in matmuls or convolutions."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread() -> Iterator[None]:
+    """One intra-op thread for torch while a module's tests run, restored
+    after. The suite runs one worker process a core (``-n 6``); a torch
+    convolution or eigendecomposition that spreads over every core then
+    waits on the other workers, and a forward that takes 1 s alone took 28 s.
+    A test module takes it with ``pytestmark = pytest.mark.usefixtures(...)``."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def as_numpy(x: Any) -> np.ndarray:

@@ -14,7 +14,9 @@ always passed. mAP's twin is its ``INVENTORY`` maker, the host-list route
 buffered device route. BERTScore's twin runs a torch copy of the
 ``INVENTORY``'s sine forward. BootStrapper's maker draws from an
 unseeded generator, so the harness seeds both sides alike (``SEEDED`` in
-``tests/helpers/torch_parity.py``).
+``tests/helpers/torch_parity.py``). FID, KID and IS take a torch copy of the
+INVENTORY's stub extractor with the same ``w`` (replayed from its seed),
+LPIPS a torch copy of its stub distance.
 """
 from __future__ import annotations
 
@@ -55,6 +57,51 @@ def sine_forward(model: Any, batch: Dict[str, Any]) -> torch.Tensor:
                                      else batch["input_ids"]))
     rows = [torch.sin(torch.arange(8, dtype=torch.float32) * (1.0 + float(i))) for i in ids.reshape(-1).tolist()]
     return torch.stack(rows).reshape(*ids.shape, 8)
+
+
+def _inventory_stub_w() -> np.ndarray:
+    """The ``w`` of the INVENTORY's ``_STUB_FEATURES``: its module-level
+    generator (seed 1234) replayed through every draw that precedes the stub
+    (``tests/helpers/inventory.py:40-84``), without importing JAX."""
+    rng = np.random.default_rng(1234)
+    n, c = 24, C
+    rng.dirichlet(np.ones(c), size=n)
+    rng.integers(0, c, n)
+    rng.random(n)
+    rng.integers(0, 2, n)
+    rng.random((n, c))
+    rng.integers(0, 2, (n, c))
+    rng.normal(size=(n, c))
+    for shape in (n, n, (n, 2), (n, 2), (8, 3, 16, 16), (8, 3, 16, 16), (8, 1, 192, 192), (8, 1, 192, 192)):
+        rng.random(shape)
+    for shape in ((8, 2000), (8, 2000), (8, 2, 1200), (8, 2, 1200), (8, 8000), (8, 8000)):
+        rng.normal(size=shape)
+    rng.random(n)
+    rng.integers(0, 2, n)
+    rng.integers(0, 4, n)
+    in_dim = 3 * 16 * 16
+    return (rng.normal(size=(in_dim, 6)).astype(np.float32) / np.sqrt(in_dim)).astype(np.float32)
+
+
+class StubFeatures:
+    """The port side of the INVENTORY's ``_StubFeatures``: the same
+    ``imgs -> (N, 6)`` projection with the same ``w``."""
+
+    num_features = 6
+
+    def __init__(self) -> None:
+        self.w = torch.from_numpy(_inventory_stub_w())
+
+    def __call__(self, imgs: torch.Tensor) -> torch.Tensor:
+        return imgs.reshape(imgs.shape[0], -1) @ self.w.to(imgs.device)
+
+
+def stub_lpips(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The INVENTORY's ``_StubLPIPSNet``: the per-pair mean squared difference."""
+    return torch.mean((a - b) ** 2, dim=(1, 2, 3))
+
+
+STUB_FEATURES = StubFeatures()
 
 
 def _cpu(factory: Callable[..., Any]) -> Callable[..., Any]:
@@ -162,6 +209,28 @@ TWINS: Dict[str, Twin] = {
         "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance", "CharErrorRate",
         "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved", "ROUGEScore", "SQuAD",
     )},
+    # image: the quality metrics at the INVENTORY's arguments; FID, KID, IS
+    # and LPIPS over torch copies of its stubs
+    "PeakSignalNoiseRatio": Twin(_default("PeakSignalNoiseRatio", data_range=1.0)),
+    **{name: Twin(_default(name), _default(name, buffer_capacity=64)) for name in (
+        "ErrorRelativeGlobalDimensionlessSynthesis", "SpectralAngleMapper", "SpectralDistortionIndex",
+    )},
+    "UniversalImageQualityIndex": Twin(
+        _default("UniversalImageQualityIndex"), _default("UniversalImageQualityIndex", buffer_capacity=16)
+    ),
+    **{name: Twin(_default(name, data_range=1.0), _default(name, data_range=1.0, buffer_capacity=16)) for name in (
+        "StructuralSimilarityIndexMeasure", "MultiScaleStructuralSimilarityIndexMeasure",
+    )},
+    "FrechetInceptionDistance": Twin(_default("FrechetInceptionDistance", feature=STUB_FEATURES, feature_size=6)),
+    "InceptionScore": Twin(
+        _default("InceptionScore", feature=STUB_FEATURES),
+        _default("InceptionScore", feature=STUB_FEATURES, buffer_capacity=64),
+    ),
+    "KernelInceptionDistance": Twin(
+        _default("KernelInceptionDistance", feature=STUB_FEATURES, subset_size=8, subsets=2),
+        _default("KernelInceptionDistance", feature=STUB_FEATURES, subset_size=8, subsets=2, buffer_capacity=64),
+    ),
+    "LearnedPerceptualImagePatchSimilarity": Twin(_default("LearnedPerceptualImagePatchSimilarity", net=stub_lpips)),
     "RetrievalPrecisionRecallCurve": Twin(
         _default("RetrievalPrecisionRecallCurve", max_k=4),
         _default("RetrievalPrecisionRecallCurve", max_k=4, buffer_capacity=256),

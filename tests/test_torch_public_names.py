@@ -28,7 +28,6 @@ import metrics_tpu_torch as mt_torch
 pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
-    "A14": "image metrics, nets and the feature bucketing",
     "A15": "audio metrics",
     "A17": "sync variants: quantized transports, incremental sync, sharded state",
     "A18": "checkpoint",
@@ -38,12 +37,6 @@ ITEMS = {
     "B1": "the Pallas module of B1, whose port is ops/classification/binned_counts.py",
 }
 
-_IMAGE = [
-    "ErrorRelativeGlobalDimensionlessSynthesis", "FrechetInceptionDistance", "InceptionScore",
-    "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity", "MultiScaleStructuralSimilarityIndexMeasure",
-    "PeakSignalNoiseRatio", "SpectralAngleMapper", "SpectralDistortionIndex", "StructuralSimilarityIndexMeasure",
-    "UniversalImageQualityIndex", "image", "nets",
-]
 _AUDIO = [
     "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio",
     "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio",
@@ -52,11 +45,6 @@ _AUDIO = [
 _SYNC_KNOBS = [
     "set_sync_cadence", "set_sync_mode", "set_sync_transport", "sync_cadence_default", "sync_mode_default",
     "sync_transport_default", "transport_error_bound",
-]
-_IMAGE_FUNCTIONALS = [
-    "error_relative_global_dimensionless_synthesis", "image", "image_gradients",
-    "multiscale_structural_similarity_index_measure", "peak_signal_noise_ratio", "spectral_angle_mapper",
-    "spectral_distortion_index", "structural_similarity_index_measure", "universal_image_quality_index",
 ]
 _AUDIO_FUNCTIONALS = [
     "audio", "perceptual_evaluation_speech_quality", "permutation_invariant_training", "pit_permutate",
@@ -71,7 +59,7 @@ def _items(item, names):
 
 MISSING = {
     "": {
-        **_items("A14", _IMAGE), **_items("A15", _AUDIO),
+        **_items("A15", _AUDIO),
         **_items("A17", _SYNC_KNOBS),
         **_items("A18", ["checkpoint", "restore_checkpoint", "save_checkpoint", "verify_checkpoint"]),
         **_items("A19", ["TenantSet", "serve", "tenancy"]),
@@ -89,8 +77,8 @@ MISSING = {
         ]),
         "ANALYSIS_MODULE_SPECS": "A21",
     },
-    "functional": {**_items("A14", _IMAGE_FUNCTIONALS), **_items("A15", _AUDIO_FUNCTIONALS)},
-    "ops": {**_items("A14", _IMAGE_FUNCTIONALS), **_items("A15", _AUDIO_FUNCTIONALS)},
+    "functional": _items("A15", _AUDIO_FUNCTIONALS),
+    "ops": _items("A15", _AUDIO_FUNCTIONALS),
     "ops.text": {},
     "ops.classification": {"binned_pallas": "B1"},
     "ops.regression": {},
@@ -98,7 +86,6 @@ MISSING = {
     "ops.pairwise": {},
     "ops.detection": {},
     "ops.kernels": {
-        **_items("A14", ["BucketedFeatureExtractor", "features", "maybe_bucketed", "next_pow2"]),
         **_items("A20", ["KernelSpec", "bump_trace_count", "record_dispatch", "record_fallback", "reset_trace_counts",
                          "resolve_use_pallas", "trace_counts"]),
     },
@@ -160,15 +147,16 @@ def test_missing_names_are_the_unported_items(sub, fresh_names):
 
 
 def test_every_listed_item_is_unported():
-    # the wrappers (A11b), text (A13), the rest of detection (A12) and the
-    # sketches (A16) are ported: none of their names may be missing
+    # the wrappers (A11b), text (A13), the rest of detection (A12), image
+    # (A14) and the sketches (A16) are ported: none of their names may be missing
     for sub, names in MISSING.items():
-        assert not {"A11b", "A12", "A13", "A16"} & set(names.values()), sub
+        assert not {"A11b", "A12", "A13", "A14", "A16"} & set(names.values()), sub
     for name in ("BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
                  "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance",
                  "CharErrorRate", "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",
                  "ROUGEScore", "SQuAD", "CatBuffer", "functional", "__version__",
-                 "Quantile", "Median", "DistinctCount", "HeavyHitters", "sketches"):
+                 "Quantile", "Median", "DistinctCount", "HeavyHitters", "sketches",
+                 "FrechetInceptionDistance", "PeakSignalNoiseRatio", "image", "nets"):
         assert hasattr(mt_torch, name), name
 
 
