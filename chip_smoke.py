@@ -260,6 +260,30 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    its six states). The feature bucketing's forwards and widths are printed
    as a JSON line. The phase stays under 180 s.
 
+13. Audio, which runs no kernel of B1-B3 (their launch counts stay 0),
+   on seeded speech-like signals (the JAX test's generator with its pitch,
+   formants and syllable rate drawn per source; no corpus is in the
+   repository), TF32 off. (a) Separation at WSJ0-2mix test size (3,000
+   two-speaker mixtures at 8 kHz, 3-10 s each, updates of 8): PIT over
+   SI-SNR, then SI-SDR, SNR and SDR (filter 512, direct solve) on the
+   estimates in PIT's order; every permutation equal to the data's and, on
+   the first 256 mixtures, to scipy's ``linear_sum_assignment`` of the
+   float64 matrix; PIT, SI-SDR and SNR within rtol 1e-4 and SDR within rtol
+   1e-2 / atol 5e-3 of float64 (scipy's Toeplitz solver); a CPU twin on 64;
+   the four compiled (engine defaults) against eager on 4 s crops of 1,000,
+   bitwise, with each engine's partition. (b) Enhancement at
+   VoiceBank-DEMAND test size (824 utterances at 16 kHz, 1.5-5 s, noisy at
+   2.5-17.5 dB): STOI and ESTOI (host resample to 10 kHz), native PESQ wb
+   and nb (on an 8 kHz copy), SI-SDR, per SNR group: every group mean
+   rises with SNR, STOI/ESTOI within 2e-3 of a float64 oracle on 64, the
+   card against the CPU port on 16 (PESQ's delays and active frames equal),
+   the pinned PESQ goldens within 2e-2. (c) PIT with 3 speakers (500
+   mixtures) and 8 (64, eager: scipy's Hungarian route; the 8! table on
+   the card chooses the same) against an exhaustive float64 search. Update
+   steps eager and compiled with device busy and idle share, SDR's FFTs and
+   solve apart, STOI's host resample apart, computes, the peak
+   ``memory_allocated``. The phase stays under 120 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -4755,6 +4779,642 @@ def phase_twelve(torch, mt, np, kernels_mod, sync, smi) -> dict:
     return {"launches": launches, "forwards": forwards, "a": a, "b": b, "c": c, "d": d, "e": e, "seconds": elapsed}
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: audio (no kernel of B1-B3 on its path)
+# --------------------------------------------------------------------------- #
+PHASE13_LIMIT_S = 120.0
+# WSJ0-2mix's test set (tt): 3,000 two-speaker mixtures at 8 kHz, 3-10 s each
+WSJ_MIXTURES, WSJ_BATCH, WSJ_FS, WSJ_SECONDS = 3000, 8, 8000, (3.0, 10.0)
+WSJ_ORACLE, WSJ_TWIN = 256, 64  # mixtures checked against float64 (host time) and against a CPU twin
+WSJ_CROP, WSJ_COMPILED = 32_000, 1000  # the compiled path: 4 s crops of the first 1,000 mixtures
+WSJ3_MIXTURES, WSJ3_SPEAKERS, WSJ3_SAMPLES = 500, 3, 32_000  # WSJ0-3mix: cut from 3,000 for time
+MANY_MIXTURES, MANY_SPEAKERS, MANY_SAMPLES = 64, 8, 16_000  # the eager Hungarian route
+# VoiceBank-DEMAND's test set: 824 utterances at 16 kHz, noisy at four SNRs
+VB_UTTERANCES, VB_BATCH, VB_FS, VB_SECONDS, VB_SNRS = 824, 8, 16000, (1.5, 5.0), (2.5, 7.5, 12.5, 17.5)
+VB_ORACLE, VB_TWIN = 64, 16
+# bounds: the JAX tests' own against float64 (tests/audio/test_audio.py:145-163, 242;
+# tests/audio/test_pesq_native.py:173-178); an atol of 1e-5 dB beside SNR's rtol
+# for values near 0 dB, where the float32 sums' 1e-7 relative error is 4e-7 dB
+AUDIO_RTOL, AUDIO_DB_ATOL, SDR_RTOL, SDR_ATOL, STOI_ORACLE_ATOL, GOLDEN_ATOL = 1e-4, 1e-5, 1e-2, 5e-3, 2e-3, 2e-2
+# the card against a CPU twin of the port: dB values relative, STOI and MOS absolute
+# (cuFFT against pocketfft, cuSOLVER against LAPACK, sums in another order)
+TWIN_DB_RTOL, TWIN_SDR_RTOL, TWIN_STOI_ATOL, TWIN_MOS_ATOL = 1e-5, 1e-3, 1e-5, 1e-4
+PIT_RTOL = 1e-6  # the best mean against numpy's float64 search over the same matrix
+PIT_TIE_DB = 1e-3  # permutations are compared where the two best differ by more than this
+# the pinned MOS of tests/audio/test_pesq_native.py:153-158 on its golden degradations
+GOLDEN_SNRS = (30, 20, 15, 10, 5, 0)
+GOLDEN_MOS = {
+    (8000, "nb"): [4.500000, 4.494661, 4.449308, 4.305016, 3.921289, 3.275458, 2.588635],
+    (16000, "wb"): [4.640000, 4.640000, 4.640000, 4.640000, 4.625756, 4.538018, 4.195332],
+}
+
+
+def golden_speech(np, n: int, fs: int):
+    """The JAX test's speech-like signal (tests/audio/test_pesq_native.py:28-40):
+    a pitch train, three formants and a syllabic envelope, in float64 numpy."""
+    t = np.arange(n) / fs
+    f0 = 120 + 20 * np.sin(2 * np.pi * 2.1 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / fs
+    sig = np.zeros(n)
+    for k, amp in ((1, 1.0), (2, 0.6), (3, 0.4), (4, 0.25)):
+        sig += amp * np.sin(k * phase)
+    for fc, bw, amp in ((500, 80, 0.8), (1500, 120, 0.5), (2500, 160, 0.3)):
+        sig += amp * np.sin(2 * np.pi * fc * t) * np.exp(-((np.sin(2 * np.pi * 1.3 * t)) ** 2) * bw / 100)
+    envelope = 0.2 + 0.8 * (np.sin(2 * np.pi * 3.7 * t) > -0.3)
+    return (sig * envelope).astype(np.float32)
+
+
+def golden_degradations(np, fs: int):
+    """The JAX test's golden fixtures: the reference, then it plus noise at
+    each of GOLDEN_SNRS from its own seed (tests/audio/test_pesq_native.py:161-170)."""
+    ref = golden_speech(np, 4 * fs, fs)
+    degs = [ref]
+    for i, snr_db in enumerate(GOLDEN_SNRS):
+        noise = np.random.default_rng(1000 + i).normal(size=ref.shape).astype(np.float32)
+        noise *= np.linalg.norm(ref) / np.linalg.norm(noise) * 10 ** (-snr_db / 20)
+        degs.append(ref + noise)
+    return ref, degs
+
+
+def speech_sources(torch, gen, k: int, n: int, fs: int):
+    """k speech-like sources of n samples on the card: the JAX test's
+    generator with its pitch (90-220 Hz, vibrato), formant centres and
+    syllable rate drawn per source, plus an aspiration floor 30 dB down
+    (real speech has one; without it a 512-lag autocorrelation of a few
+    spectral lines is singular). Float64, returned as float32."""
+    f64 = dict(device="cuda", dtype=torch.float64)
+
+    def u(lo, hi):
+        return torch.rand((k, 1), generator=gen, **f64) * (hi - lo) + lo
+
+    two_pi = 2 * math.pi
+    t = torch.arange(n, **f64)[None] / fs
+    f0 = u(90.0, 220.0) + u(10.0, 30.0) * torch.sin(two_pi * u(1.5, 3.0) * t)
+    phase = two_pi * torch.cumsum(f0, dim=1) / fs
+    sig = sum(amp * torch.sin(h * phase) for h, amp in ((1, 1.0), (2, 0.6), (3, 0.4), (4, 0.25)))
+    for lo, hi, bw, amp in ((300.0, 800.0, 80, 0.8), (900.0, 2000.0, 120, 0.5), (2000.0, 3000.0, 160, 0.3)):
+        sig = sig + amp * torch.sin(two_pi * u(lo, hi) * t) * torch.exp(-torch.sin(two_pi * u(0.8, 1.8) * t) ** 2 * bw / 100)
+    sig = sig + 0.03 * torch.randn((k, n), generator=gen, **f64)
+    envelope = 0.2 + 0.8 * (torch.sin(two_pi * u(2.5, 5.0) * t + u(0.0, two_pi)) > -0.3).to(torch.float64)
+    return (sig * envelope).to(torch.float32)
+
+
+def at_snr(torch, gen, clean, snr_db):
+    """White noise scaled to ``snr_db`` (per row, a tensor or a float) against each row of ``clean``."""
+    noise = torch.randn(clean.shape, generator=gen, device="cuda")
+    scale = clean.norm(dim=-1, keepdim=True) / noise.norm(dim=-1, keepdim=True)
+    return noise * scale * 10 ** (-torch.as_tensor(snr_db, device="cuda") / 20)
+
+
+def separation_batch(torch, gen, b: int, s: int, n: int, fs: int):
+    """b mixtures of s seeded sources (relative levels 0-5 dB, as WSJ0-2mix
+    mixes) and their estimates: each a per-mixture permutation of the
+    sources plus a 0.1-0.3 leak of the others plus white noise at 0-20 dB.
+    Returns (target (b, s, n), estimate (b, s, n), the permutation (b, s))."""
+    src = speech_sources(torch, gen, b * s, n, fs).reshape(b, s, n)
+    src = src / src.norm(dim=-1, keepdim=True) * 10 ** (torch.rand((b, s, 1), generator=gen, device="cuda") * 5 / 20)
+    leak = torch.rand((b, s, 1), generator=gen, device="cuda") * 0.2 + 0.1
+    others = (src.sum(dim=1, keepdim=True) - src) / max(s - 1, 1)
+    snr = torch.rand((b, s, 1), generator=gen, device="cuda") * 20
+    est = src + leak * others + at_snr(torch, gen, src, snr)
+    perm = torch.argsort(torch.rand((b, s), generator=gen, device="cuda"), dim=1)
+    shuffled = torch.empty_like(est).scatter_(1, perm[..., None].expand(-1, -1, n), est)
+    return src, shuffled, perm.to(torch.int32)
+
+
+def draw_lengths(torch, gen, updates: int, fs: int, seconds):
+    lo, hi = int(seconds[0] * fs), int(seconds[1] * fs)
+    return torch.randint(lo, hi + 1, (updates,), generator=gen, device="cpu").tolist()
+
+
+def np_snr64(np, preds, target, zero_mean=False):
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    if zero_mean:
+        p = p - p.mean(-1, keepdims=True)
+        t = t - t.mean(-1, keepdims=True)
+    return 10 * np.log10(np.sum(t ** 2, -1) / np.sum((t - p) ** 2, -1))
+
+
+def np_si_sdr64(np, preds, target, zero_mean=False):
+    p, t = preds.astype(np.float64), target.astype(np.float64)
+    if zero_mean:
+        p = p - p.mean(-1, keepdims=True)
+        t = t - t.mean(-1, keepdims=True)
+    alpha = np.sum(p * t, -1, keepdims=True) / np.sum(t ** 2, -1, keepdims=True)
+    ts = alpha * t
+    return 10 * np.log10(np.sum(ts ** 2, -1) / np.sum((ts - p) ** 2, -1))
+
+
+def np_sdr64(np, preds, target, filter_length=512):
+    """Projection SDR in float64 with scipy's Levinson solver (an independent solver)."""
+    from scipy.linalg import solve_toeplitz
+
+    out = []
+    for p, t in zip(preds.reshape(-1, preds.shape[-1]).astype(np.float64), target.reshape(-1, target.shape[-1]).astype(np.float64)):
+        t = t / max(np.linalg.norm(t), 1e-6)
+        p = p / max(np.linalg.norm(p), 1e-6)
+        n_fft = 2 ** int(np.ceil(np.log2(2 * p.shape[-1] - 1)))
+        t_fft = np.fft.rfft(t, n=n_fft)
+        r = np.fft.irfft(np.abs(t_fft) ** 2, n=n_fft)[:filter_length]
+        b = np.fft.irfft(np.conj(t_fft) * np.fft.rfft(p, n=n_fft), n=n_fft)[:filter_length]
+        coh = b @ solve_toeplitz(r, b)
+        out.append(10 * np.log10(coh / (1 - coh)))
+    return np.asarray(out).reshape(preds.shape[:-1])
+
+
+def np_stoi64(np, x, y, extended=False):
+    """Dynamic-shape float64 STOI (the published algorithm with pystoi's
+    constants; tests/audio/test_audio.py:81-140) of clean x against y at 10 kHz."""
+    fs, nf, nfft, j, min_f, n_seg, beta, dyn = 10000, 256, 512, 15, 150, 30, -15.0, 40.0
+    eps = np.finfo(np.float64).eps
+    x, y = x.astype(np.float64), y.astype(np.float64)
+    w = np.hanning(nf + 2)[1:-1]
+    hop = nf // 2
+    starts = range(0, len(x) - nf, hop)
+    x_frames = np.array([w * x[i: i + nf] for i in starts])
+    y_frames = np.array([w * y[i: i + nf] for i in starts])
+    energies = 20 * np.log10(np.linalg.norm(x_frames, axis=1) + eps)
+    mask = (np.max(energies) - dyn - energies) < 0
+    x_frames, y_frames = x_frames[mask], y_frames[mask]
+
+    def ola(frames):
+        buf = np.zeros((len(frames) - 1) * hop + nf)
+        for i, f in enumerate(frames):
+            buf[i * hop: i * hop + nf] += f
+        return buf
+
+    f = np.linspace(0, fs / 2, nfft // 2 + 1)
+    k = np.arange(j)
+    obm = np.zeros((j, len(f)))
+    for i in range(j):
+        obm[i, np.argmin((f - min_f * 2.0 ** ((2 * k[i] - 1) / 6.0)) ** 2): np.argmin((f - min_f * 2.0 ** ((2 * k[i] + 1) / 6.0)) ** 2)] = 1
+
+    def bands(sig):
+        frames = np.array([w * sig[i: i + nf] for i in range(0, len(sig) - nf, hop)])
+        return np.sqrt((np.abs(np.fft.rfft(frames, n=nfft, axis=-1)) ** 2) @ obm.T).T
+
+    xb, yb = bands(ola(x_frames)), bands(ola(y_frames))
+    xs = np.lib.stride_tricks.sliding_window_view(xb, n_seg, axis=1)  # (J, S, N)
+    ys = np.lib.stride_tricks.sliding_window_view(yb, n_seg, axis=1)
+    if extended:
+        def rcnorm(a):
+            a = a - a.mean(-1, keepdims=True)
+            a = a / (np.linalg.norm(a, axis=-1, keepdims=True) + eps)
+            a = a - a.mean(0, keepdims=True)
+            return a / (np.linalg.norm(a, axis=0, keepdims=True) + eps)
+        return float(np.mean(np.sum(rcnorm(xs) * rcnorm(ys), axis=(0, 2)) / n_seg))
+    alpha = np.linalg.norm(xs, axis=-1, keepdims=True) / (np.linalg.norm(ys, axis=-1, keepdims=True) + eps)
+    yp = np.minimum(alpha * ys, xs * (1 + 10 ** (-beta / 20)))
+    xn = xs - xs.mean(-1, keepdims=True)
+    yn = yp - yp.mean(-1, keepdims=True)
+    corr = np.sum(xn * yn, -1) / (np.linalg.norm(xn, axis=-1) * np.linalg.norm(yn, axis=-1) + eps)
+    return float(np.mean(corr.mean(axis=0)))
+
+
+def np_best_perms(np, mtx, eval_max: bool = True):
+    """Exhaustive float64 search: per row of mtx (B, S, S), the best mean of
+    mtx[b, t, perm[t]] over every permutation, that permutation, and the gap
+    to the second best (in the metric's unit)."""
+    import itertools
+
+    s = mtx.shape[-1]
+    table = np.asarray(list(itertools.permutations(range(s))))
+    vals = mtx.astype(np.float64)[:, np.arange(s)[None, :], table].mean(-1)  # (B, P)
+    order = np.argsort(-vals if eval_max else vals, axis=1, kind="stable")
+    best = np.take_along_axis(vals, order[:, :1], 1)[:, 0]
+    second = np.take_along_axis(vals, order[:, 1:2], 1)[:, 0] if vals.shape[1] > 1 else np.full_like(best, np.inf)
+    return best, table[order[:, 0]], np.abs(best - second)
+
+
+def rel_gap(np, got, want, rtol: float, atol: float = 0.0) -> float:
+    """The largest |got - want| / (atol + rtol |want|): at most 1 when within the bound."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want))))
+
+
+def audio_engines(metrics: dict) -> dict:
+    out = {}
+    for name, metric in metrics.items():
+        stats = metric.engine_stats()
+        out[name] = {"partition": stats["partition"], "reasons": stats["fallback_reasons"],
+                     "update": None if stats["update"] is None else [stats["update"].cache_misses, stats["update"].cache_hits]}
+    return out
+
+
+def separation_metrics(mt, compiled: bool, device=None) -> dict:
+    flags = {"device": device} if compiled else dict(device=device, compiled_update=False, compiled_compute=False)
+    return {
+        "PIT": mt.PermutationInvariantTraining(mt.functional.scale_invariant_signal_noise_ratio, eval_func="max", **flags),
+        "SI-SDR": mt.ScaleInvariantSignalDistortionRatio(**flags),
+        "SNR": mt.SignalNoiseRatio(**flags),
+        "SDR": mt.SignalDistortionRatio(**flags),
+    }
+
+
+def feed_separation(mt, metrics: dict, src, est):
+    """PIT on the estimates, then the other three on the estimates put in
+    PIT's order (``pit_permutate``); returns the permutation."""
+    metrics["PIT"].update(est, src)
+    _, perm = mt.functional.permutation_invariant_training(est, src, mt.functional.scale_invariant_signal_noise_ratio)
+    ordered = mt.functional.pit_permutate(est, perm)
+    for name in ("SI-SDR", "SNR", "SDR"):
+        metrics[name].update(ordered, src)
+    return perm, ordered
+
+
+def metric_states(metric) -> list:
+    return [metric.sum_metric, metric.total]
+
+
+def phase_thirteen_a(torch, mt, np, smi) -> dict:
+    """13(a): separation at WSJ0-2mix test size: PIT (SI-SNR), then SI-SDR,
+    SNR and SDR (filter 512, direct solve) on PIT's order; float64 oracles
+    on the first mixtures, a CPU twin, and the compiled path on 4 s crops."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    lengths = draw_lengths(torch, torch.Generator().manual_seed(SEED + 161), WSJ_MIXTURES // WSJ_BATCH, WSJ_FS, WSJ_SECONDS)
+    metrics = separation_metrics(mt, compiled=False)
+    twins = separation_metrics(mt, compiled=False, device="cpu")
+    oracle = {"PIT": [], "SI-SDR": [], "SNR": [], "SDR": [], "perm_ok": 0, "perm_checked": 0}
+    card_vals = {"PIT": [], "SI-SDR": [], "SNR": [], "SDR": []}
+    wrong_perms, seen, host_s, gen_s, crops = 0, 0, 0.0, 0.0, []
+    upd_times = []
+    t0 = time.perf_counter()
+    for i, n in enumerate(lengths):
+        tg = time.perf_counter()
+        src, est, true_perm = separation_batch(torch, gen, WSJ_BATCH, 2, n, WSJ_FS)
+        torch.cuda.synchronize()
+        gen_s += time.perf_counter() - tg
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        perm, ordered = feed_separation(mt, metrics, src, est)
+        end.record()
+        wrong_perms += int((perm != true_perm).any(dim=1).sum())
+        seen += WSJ_BATCH
+        if seen <= WSJ_COMPILED:
+            crops.append((src[..., :WSJ_CROP].clone(), est[..., :WSJ_CROP].clone()))
+        if seen <= WSJ_ORACLE:
+            # the card's per-mixture values, then float64 numpy on the host
+            best, _ = mt.functional.permutation_invariant_training(est, src, mt.functional.scale_invariant_signal_noise_ratio)
+            card_vals["PIT"].append(best.cpu().numpy())
+            card_vals["SI-SDR"].append(mt.functional.scale_invariant_signal_distortion_ratio(ordered, src).cpu().numpy())
+            card_vals["SNR"].append(mt.functional.signal_noise_ratio(ordered, src).cpu().numpy())
+            card_vals["SDR"].append(mt.functional.signal_distortion_ratio(ordered, src).cpu().numpy())
+            th = time.perf_counter()
+            s64, e64 = src.cpu().numpy(), est.cpu().numpy()
+            mtx = np.stack([np_si_sdr64(np, e64[:, p], s64[:, t], zero_mean=True) for t in range(2) for p in range(2)],
+                           axis=1).reshape(WSJ_BATCH, 2, 2)
+            from scipy.optimize import linear_sum_assignment
+
+            gap = np.abs(mtx[:, 0, 0] + mtx[:, 1, 1] - mtx[:, 0, 1] - mtx[:, 1, 0]) / 2
+            for b in range(WSJ_BATCH):
+                rows, cols = linear_sum_assignment(mtx[b], maximize=True)
+                oracle["PIT"].append(mtx[b][rows, cols].mean())
+                if gap[b] > PIT_TIE_DB:
+                    oracle["perm_checked"] += 1
+                    oracle["perm_ok"] += int(np.array_equal(cols, perm[b].cpu().numpy()))
+            o64 = ordered.cpu().numpy()
+            oracle["SI-SDR"].append(np_si_sdr64(np, o64, s64))
+            oracle["SNR"].append(np_snr64(np, o64, s64))
+            oracle["SDR"].append(np_sdr64(np, o64, s64))
+            host_s += time.perf_counter() - th
+        if seen <= WSJ_TWIN:
+            feed_separation(mt, twins, src.cpu(), est.cpu())
+            if seen == WSJ_TWIN:
+                twin_cmp = {name: (metrics[name].compute().cpu(), twins[name].compute()) for name in metrics}
+        end.synchronize()
+        upd_times.append(start.elapsed_time(end))
+    stream_s = time.perf_counter() - t0
+    results = {name: m.compute() for name, m in metrics.items()}
+    check(all(bool(torch.isfinite(v)) for v in results.values()), f"13(a): results not finite: {results}")
+    check(all(int(m.total) == WSJ_MIXTURES * (1 if name == "PIT" else 2) for name, m in metrics.items()), "13(a): totals")
+    check(wrong_perms == 0, f"13(a): PIT chose another permutation than the data's for {wrong_perms} mixtures")
+    check(oracle["perm_ok"] == oracle["perm_checked"], f"13(a): {oracle['perm_checked'] - oracle['perm_ok']} permutations"
+          " differ from scipy's linear_sum_assignment on the float64 matrix")
+    gaps = {}
+    for name in ("PIT", "SI-SDR", "SNR", "SDR"):
+        got = np.concatenate([np.asarray(v).reshape(-1) for v in card_vals[name]])
+        want = np.concatenate([np.asarray(v).reshape(-1) for v in oracle[name]])
+        check(got.shape == want.shape and np.isfinite(got).all(), f"13(a): {name} values")
+        if name == "SDR":
+            gaps[name] = rel_gap(np, got, want, SDR_RTOL, SDR_ATOL)
+            gaps["SDR_max_abs_db"] = float(np.max(np.abs(got - want)))
+        else:
+            gaps[name] = rel_gap(np, got, want, AUDIO_RTOL, AUDIO_DB_ATOL)
+        check(gaps[name] <= 1.0, f"13(a): {name} {gaps[name]:.3f} of its bound from float64")
+    twin_err = {}
+    for name, (card, cpu) in twin_cmp.items():
+        bound = TWIN_SDR_RTOL if name == "SDR" else TWIN_DB_RTOL
+        twin_err[name] = float((card - cpu).abs() / cpu.abs())
+        check(twin_err[name] <= bound, f"13(a): {name} on the card {twin_err[name]:.2e} (relative) from the CPU twin")
+    print(f"phase 13(a) ({smi}): WSJ0-2mix test size, {WSJ_MIXTURES} two-speaker mixtures at 8 kHz in updates of"
+          f" {WSJ_BATCH}, 3-10 s each ({sum(lengths) * WSJ_BATCH / WSJ_FS / 3600:.2f} h): "
+          + ", ".join(f"{k} {float(v):.6f} dB" for k, v in results.items()))
+    print(f"  every permutation equal to the data's; {oracle['perm_checked']} of the first {WSJ_ORACLE} equal to scipy's"
+          f" linear_sum_assignment on the float64 matrix; against float64 on the first {WSJ_ORACLE} (share of each bound):"
+          f" {gaps} (SDR bound rtol {SDR_RTOL} / atol {SDR_ATOL}); the card against a CPU twin after {WSJ_TWIN} mixtures"
+          f" (relative): {twin_err}")
+    print(f"  update of the four (median by events) {statistics.median(upd_times):.2f} ms per 8 mixtures; stream"
+          f" {stream_s:.1f} s (data on the card {gen_s:.1f} s, float64 oracles {host_s:.1f} s of host time)")
+
+    # the compiled path on 4 s crops: engines at their defaults against eager, bitwise
+    eager, compiled = separation_metrics(mt, compiled=False), separation_metrics(mt, compiled=True)
+    for src, est in crops:
+        feed_separation(mt, eager, src, est)
+        feed_separation(mt, compiled, src, est)
+    engines = audio_engines(compiled)
+    for name, engine in engines.items():
+        update = engine["partition"]["update"]
+        if name == "SDR":  # the probe refuses the batched LU solve on CUDA
+            check(update["path"] == "eager" and "_linalg_solve_ex" in update["reason"],
+                  f"13(a): SDR's compiled update did not revert at the solve: {update}")
+        else:
+            check(update == {"path": "fused", "reason": "compilable"}, f"13(a): {name}'s update is not captured: {update}")
+    for name in eager:
+        for a, b in zip(metric_states(eager[name]), metric_states(compiled[name])):
+            check(same_bits(torch, a, b), f"13(a): {name}'s compiled state differs from eager")
+        check(same_bits(torch, eager[name].compute(), compiled[name].compute()), f"13(a): {name}'s compiled result differs")
+    print(f"  compiled path on {len(crops) * WSJ_BATCH} crops of {WSJ_CROP} samples: states and results bitwise equal to"
+          f" eager; engines (partition, fallback reasons, [captures, replays]): {engines}")
+    return {"results": {k: float(v) for k, v in results.items()}, "gaps": gaps, "twin": twin_err, "engines": engines,
+            "update_ms": statistics.median(upd_times), "stream_s": stream_s, "host_s": host_s, "crops": crops[:1]}
+
+
+def enhancement_metrics(mt) -> dict:
+    flags = dict(compiled_update=False, compiled_compute=False)
+    return {
+        "STOI": mt.ShortTimeObjectiveIntelligibility(VB_FS, **flags),
+        "ESTOI": mt.ShortTimeObjectiveIntelligibility(VB_FS, extended=True, **flags),
+        "PESQ-wb": mt.PerceptualEvaluationSpeechQuality(VB_FS, "wb", implementation="native", **flags),
+        "PESQ-nb": mt.PerceptualEvaluationSpeechQuality(8000, "nb", implementation="native", **flags),
+        "SI-SDR": mt.ScaleInvariantSignalDistortionRatio(**flags),
+    }
+
+
+def to_8k(torch, np, x):
+    """A 16 kHz batch resampled to 8 kHz on the host (scipy, float64), back on x's device."""
+    from scipy.signal import resample_poly
+
+    return torch.from_numpy(resample_poly(x.double().cpu().numpy(), 1, 2, axis=-1).astype(np.float32)).to(x.device)
+
+
+def feed_enhancement(torch, np, metrics: dict, noisy, clean):
+    noisy8, clean8 = to_8k(torch, np, noisy), to_8k(torch, np, clean)
+    for name, metric in metrics.items():
+        if name == "PESQ-nb":
+            metric.update(noisy8, clean8)
+        else:
+            metric.update(noisy, clean)
+    return noisy8, clean8
+
+
+def phase_thirteen_b(torch, mt, np, smi) -> dict:
+    """13(b): enhancement at VoiceBank-DEMAND test size: STOI, ESTOI, PESQ
+    (wb, and nb on an 8 kHz copy) and SI-SDR per SNR group."""
+    from scipy.signal import resample_poly
+
+    from metrics_tpu_torch.ops.audio import pesq_native
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    lengths = draw_lengths(torch, torch.Generator().manual_seed(SEED + 171), VB_UTTERANCES // VB_BATCH, VB_FS, VB_SECONDS)
+    groups = [enhancement_metrics(mt) for _ in VB_SNRS]
+    stoi_oracle, stoi_card, twin_err, delays_equal = [], [], {}, True
+    host_s, upd_times = 0.0, []
+    t0 = time.perf_counter()
+    for i, n in enumerate(lengths):
+        g = i % len(VB_SNRS)
+        clean = speech_sources(torch, gen, VB_BATCH, n, VB_FS)
+        noisy = clean + at_snr(torch, gen, clean, VB_SNRS[g])
+        start = time.perf_counter()
+        noisy8, clean8 = feed_enhancement(torch, np, groups[g], noisy, clean)
+        torch.cuda.synchronize()
+        upd_times.append((time.perf_counter() - start) * 1e3)
+        first = i * VB_BATCH
+        if first < VB_ORACLE:
+            th = time.perf_counter()
+            p10 = resample_poly(noisy.double().cpu().numpy(), 10000, VB_FS, axis=-1)
+            c10 = resample_poly(clean.double().cpu().numpy(), 10000, VB_FS, axis=-1)
+            for ext in (False, True):
+                card = mt.functional.short_time_objective_intelligibility(noisy, clean, VB_FS, extended=ext).cpu().numpy()
+                stoi_card.append(card)
+                stoi_oracle.append(np.asarray([np_stoi64(np, c10[b], p10[b], extended=ext) for b in range(VB_BATCH)]))
+            host_s += time.perf_counter() - th
+        if first < VB_TWIN:
+            # the card against the CPU port on the same utterances
+            for ext in (False, True):
+                a = mt.functional.short_time_objective_intelligibility(noisy, clean, VB_FS, extended=ext).cpu()
+                b = mt.functional.short_time_objective_intelligibility(noisy.cpu(), clean.cpu(), VB_FS, extended=ext)
+                key = "ESTOI" if ext else "STOI"
+                twin_err[key] = max(twin_err.get(key, 0.0), float((a - b).abs().max()))
+            for key, (p, t, fs, mode) in {"PESQ-wb": (noisy, clean, VB_FS, "wb"), "PESQ-nb": (noisy8, clean8, 8000, "nb")}.items():
+                card = pesq_native._pesq_parts(t, p, fs, mode)
+                cpu = pesq_native._pesq_parts(t.cpu(), p.cpu(), fs, mode)
+                twin_err[key] = max(twin_err.get(key, 0.0), float((card[0].cpu() - cpu[0]).abs().max()))
+                delays_equal &= all(torch.equal(x.cpu(), y) for x, y in zip(card[1:], cpu[1:]))
+            a = mt.functional.scale_invariant_signal_distortion_ratio(noisy, clean).cpu()
+            b = mt.functional.scale_invariant_signal_distortion_ratio(noisy.cpu(), clean.cpu())
+            twin_err["SI-SDR"] = max(twin_err.get("SI-SDR", 0.0), float(((a - b).abs() / b.abs()).max()))
+    stream_s = time.perf_counter() - t0
+    # the groups' means, and the whole set's from their (sum, total) states
+    means = {name: [float(grp[name].compute()) for grp in groups] for name in groups[0]}
+    overall = {name: float(sum(grp[name].sum_metric for grp in groups) / sum(int(grp[name].total) for grp in groups))
+               for name in groups[0]}
+    check(all(math.isfinite(v) for v in overall.values()), f"13(b): results not finite: {overall}")
+    check(sum(int(grp["STOI"].total) for grp in groups) == VB_UTTERANCES, "13(b): STOI's total")
+    for name in ("STOI", "ESTOI", "PESQ-wb", "PESQ-nb", "SI-SDR"):
+        check(all(a < b for a, b in zip(means[name], means[name][1:])), f"13(b): {name}'s group means do not rise with SNR: {means[name]}")
+    got, want = np.concatenate(stoi_card), np.concatenate(stoi_oracle)
+    stoi_gap = float(np.max(np.abs(got - want)))
+    check(stoi_gap <= STOI_ORACLE_ATOL, f"13(b): STOI/ESTOI {stoi_gap:.2e} from the float64 oracle")
+    bounds = {"STOI": TWIN_STOI_ATOL, "ESTOI": TWIN_STOI_ATOL, "PESQ-wb": TWIN_MOS_ATOL, "PESQ-nb": TWIN_MOS_ATOL,
+              "SI-SDR": TWIN_DB_RTOL}
+    for key, err in twin_err.items():
+        check(err <= bounds[key], f"13(b): {key} on the card {err:.2e} from the CPU port")
+    check(delays_equal, "13(b): PESQ's chosen delays or active-frame counts differ between the card and the CPU")
+
+    # the pinned goldens of both modes
+    golden = {}
+    for fs, mode in ((8000, "nb"), (16000, "wb")):
+        ref, degs = golden_degradations(np, fs)
+        refs = torch.from_numpy(np.stack([ref] * len(degs))).cuda()
+        scores = mt.functional.perceptual_evaluation_speech_quality(torch.from_numpy(np.stack(degs)).cuda(), refs, fs, mode,
+                                                                    implementation="native").cpu().numpy()
+        golden[mode] = float(np.max(np.abs(scores - np.asarray(GOLDEN_MOS[(fs, mode)]))))
+        check(golden[mode] <= GOLDEN_ATOL, f"13(b): PESQ {mode} goldens {golden[mode]:.2e} from the pinned MOS: {scores}")
+    print(f"phase 13(b) ({smi}): VoiceBank-DEMAND test size, {VB_UTTERANCES} utterances at 16 kHz in updates of {VB_BATCH},"
+          f" 1.5-5 s each, noisy at {VB_SNRS} dB in turn: overall {overall}; by SNR group {means} (each rises with SNR)")
+    print(f"  STOI/ESTOI on the first {VB_ORACLE} within {stoi_gap:.2e} of the float64 oracle (bound {STOI_ORACLE_ATOL});"
+          f" the card against the CPU port on the first {VB_TWIN}: {twin_err}, PESQ's delays and active frames equal;"
+          f" PESQ goldens within {golden} of the pinned MOS (bound {GOLDEN_ATOL})")
+    print(f"  update of the five (host clock, resamples included) {statistics.median(upd_times):.2f} ms per 8 utterances;"
+          f" stream {stream_s:.1f} s (float64 STOI oracle {host_s:.1f} s of host time)")
+    return {"overall": overall, "means": means, "stoi_gap": stoi_gap, "twin": twin_err, "golden": golden,
+            "update_ms": statistics.median(upd_times), "stream_s": stream_s, "host_s": host_s}
+
+
+def phase_thirteen_c(torch, mt, np, smi) -> dict:
+    """13(c): more speakers: WSJ0-3mix-like mixtures (exhaustive table of 3!)
+    and 8 speakers (eager: scipy's Hungarian route), each against an
+    exhaustive float64 search in numpy over the card's own metric matrix."""
+    from metrics_tpu_torch.ops.audio import pit as pit_ops
+    from metrics_tpu_torch.utils.checks import _checks_off
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 180)
+    si_snr = mt.functional.scale_invariant_signal_noise_ratio
+    out = {}
+    for label, n_mix, s, n in (("3 speakers", WSJ3_MIXTURES, WSJ3_SPEAKERS, WSJ3_SAMPLES),
+                               ("8 speakers", MANY_MIXTURES, MANY_SPEAKERS, MANY_SAMPLES)):
+        metric = mt.PermutationInvariantTraining(si_snr, compiled_update=False, compiled_compute=False)
+        worst, wrong, table_same, t0 = 0.0, 0, True, time.perf_counter()
+        for _ in range(math.ceil(n_mix / WSJ_BATCH)):
+            src, est, true_perm = separation_batch(torch, gen, WSJ_BATCH, s, n, WSJ_FS)
+            metric.update(est, src)
+            best, perm = mt.functional.permutation_invariant_training(est, src, si_snr)
+            mtx = pit_ops._metric_matrix(est, src, si_snr).cpu().numpy()
+            want_best, want_perm, _ = np_best_perms(np, mtx)
+            wrong += int((perm.cpu().numpy() != want_perm).any(axis=1).sum()) + int((perm != true_perm).any(dim=1).sum())
+            worst = max(worst, float(np.max(np.abs(best.cpu().numpy() - want_best) / np.abs(want_best))))
+            if s > pit_ops._HUNGARIAN_CUTOVER:
+                with _checks_off():  # the route a captured step takes: the exhaustive table on the card
+                    _, table_perm = mt.functional.permutation_invariant_training(est, src, si_snr)
+                table_same &= torch.equal(table_perm, perm)
+        elapsed = time.perf_counter() - t0
+        check(wrong == 0, f"13(c) {label}: {wrong} permutations differ from the exhaustive float64 search or the data's")
+        check(worst <= PIT_RTOL, f"13(c) {label}: best metric {worst:.2e} (relative) from the float64 search")
+        check(table_same, f"13(c) {label}: the exhaustive table on the card chose other permutations than the Hungarian route")
+        out[label] = {"value": float(metric.compute()), "best_rel": worst, "seconds": elapsed}
+    print(f"phase 13(c) ({smi}): {WSJ3_MIXTURES} mixtures of {WSJ3_SPEAKERS} speakers at {WSJ3_SAMPLES} samples and"
+          f" {MANY_MIXTURES} of {MANY_SPEAKERS} at {MANY_SAMPLES} (eager: scipy's Hungarian route; the 8! table on the card"
+          f" chose the same): every permutation equal to the exhaustive float64 search and to the data's; {out}")
+    return out
+
+
+def audio_bytes_bound(name: str, rows: int, n: int, fs_rate: int) -> float:
+    """Bytes the FFT-bound metrics must move: the float32 samples read once
+    (preds and target) and the complex64 spectra written once."""
+    samples = 2 * rows * n * 4
+    if name == "SDR":
+        n_fft = 2 ** math.ceil(math.log2(2 * n - 1))
+        return samples + 2 * rows * (n_fft // 2 + 1) * 8
+    if name in ("STOI", "ESTOI"):
+        n10 = n * 10000 // fs_rate
+        frames = max((n10 - 257) // 128 + 1, 0)
+        return 2 * rows * n10 * 4 + 2 * rows * frames * 257 * 8
+    frame = {8000: 256, 16000: 512}[fs_rate]
+    frames = (n - frame) // (frame // 2) + 1
+    return samples + 2 * rows * frames * (frame // 2 + 1) * 8
+
+
+def phase_thirteen_timing(torch, mt, np, crop, smi) -> dict:
+    """Update step of every audio metric, eager and compiled, on one batch
+    each: events (median), device busy and idle share (profile); SDR's FFTs
+    and solve apart; STOI's host resample apart from its device time; each
+    compute; beside the bytes bound of the FFT-bound metrics."""
+    from metrics_tpu_torch.ops.audio import sdr as sdr_ops, stoi as stoi_ops
+
+    name = torch.cuda.get_device_name(0)
+    src, est = crop
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 190)
+    clean = speech_sources(torch, gen, VB_BATCH, 3 * VB_FS, VB_FS)
+    noisy = clean + at_snr(torch, gen, clean, 7.5)
+    clean8, noisy8 = to_8k(torch, np, clean), to_8k(torch, np, noisy)
+    si_snr = mt.functional.scale_invariant_signal_noise_ratio
+    cases = {
+        "PIT": (lambda **kw: mt.PermutationInvariantTraining(si_snr, **kw), (est, src), WSJ_BATCH * 4, WSJ_CROP, WSJ_FS),
+        "SI-SDR": (lambda **kw: mt.ScaleInvariantSignalDistortionRatio(**kw), (est, src), WSJ_BATCH * 2, WSJ_CROP, WSJ_FS),
+        "SNR": (lambda **kw: mt.SignalNoiseRatio(**kw), (est, src), WSJ_BATCH * 2, WSJ_CROP, WSJ_FS),
+        "SDR": (lambda **kw: mt.SignalDistortionRatio(**kw), (est, src), WSJ_BATCH * 2, WSJ_CROP, WSJ_FS),
+        "STOI": (lambda **kw: mt.ShortTimeObjectiveIntelligibility(VB_FS, **kw), (noisy, clean), VB_BATCH, 3 * VB_FS, VB_FS),
+        "ESTOI": (lambda **kw: mt.ShortTimeObjectiveIntelligibility(VB_FS, extended=True, **kw), (noisy, clean), VB_BATCH,
+                  3 * VB_FS, VB_FS),
+        "PESQ-wb": (lambda **kw: mt.PerceptualEvaluationSpeechQuality(VB_FS, "wb", implementation="native", **kw),
+                    (noisy, clean), VB_BATCH, 3 * VB_FS, VB_FS),
+        "PESQ-nb": (lambda **kw: mt.PerceptualEvaluationSpeechQuality(8000, "nb", implementation="native", **kw),
+                    (noisy8, clean8), VB_BATCH, 3 * 8000, 8000),
+    }
+    hbm = card_rate(HBM_BYTES_PER_S, H100_SXM_HBM, name)
+    out = {}
+    for label, (make, args, rows, n, fs_rate) in cases.items():
+        row = {}
+        for mode in ("eager", "compiled"):
+            metric = make() if mode == "compiled" else make(compiled_update=False, compiled_compute=False)
+            ms = time_ms(torch, lambda: metric.update(*args), warmup=3, reps=15)
+            prof = profile_window(torch, lambda: metric.update(*args), reps=5)
+            _, compute_ms = event_ms(torch, metric.compute)
+            stats = metric.engine_stats()
+            row[mode] = {"update_ms": ms, "busy_ms": sum(prof["device_us"].values()) / 1e3, "idle": idle_share(prof),
+                         "compute_ms": compute_ms, "partition": stats["partition"]["update"]}
+        if label in ("SDR", "STOI", "ESTOI", "PESQ-wb", "PESQ-nb"):
+            row["bytes_bound_ms"] = audio_bytes_bound(label, rows, n, fs_rate) / hbm * 1e3
+        out[label] = row
+        print(f"phase 13 timing ({smi}): {label}, {rows} rows of {n} samples: update eager {row['eager']['update_ms']:.3f} ms"
+              f" (busy {row['eager']['busy_ms']:.3f} ms, idle {row['eager']['idle']}), compiled {row['compiled']['update_ms']:.3f}"
+              f" ms (busy {row['compiled']['busy_ms']:.3f} ms, idle {row['compiled']['idle']}, {row['compiled']['partition']});"
+              f" compute {row['eager']['compute_ms']:.3f} / {row['compiled']['compute_ms']:.3f} ms"
+              + (f"; bytes bound {row['bytes_bound_ms']:.4f} ms" if "bytes_bound_ms" in row else ""))
+
+    # SDR's FFTs and solve apart, on the crop batch's (16, 32000) rows
+    p = est.reshape(-1, WSJ_CROP)
+    t = src.reshape(-1, WSJ_CROP)
+    tn, pn = t / t.norm(dim=-1, keepdim=True), p / p.norm(dim=-1, keepdim=True)
+    r0, b = sdr_ops._compute_autocorr_crosscorr(tn, pn, 512)
+    toeplitz = sdr_ops._symmetric_toeplitz(r0)
+    fft_ms = time_ms(torch, lambda: sdr_ops._compute_autocorr_crosscorr(tn, pn, 512), warmup=3, reps=20)
+    toeplitz_ms = time_ms(torch, lambda: sdr_ops._symmetric_toeplitz(r0), warmup=3, reps=20)
+    solve_ms = time_ms(torch, lambda: torch.linalg.solve_ex(toeplitz, b[..., None], check_errors=False), warmup=3, reps=20)
+    # does the solve wait for the card? (the sync debug mode sees torch's own synchronisations)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.linalg.solve_ex(toeplitz, b[..., None], check_errors=False)
+        solve_sync = "none seen"
+    except RuntimeError as err:
+        solve_sync = str(err).splitlines()[0][:160]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    # STOI: the host resample against the device work on the resampled rows
+    resample_ms = host_ms(lambda: to_10k(torch, np, noisy), reps=5)
+    n10, c10 = to_10k(torch, np, noisy), to_10k(torch, np, clean)
+    device_ms = time_ms(torch, lambda: stoi_ops._stoi_batch(c10, n10, False), warmup=3, reps=15)
+    out["split"] = {"sdr_fft_ms": fft_ms, "sdr_toeplitz_ms": toeplitz_ms, "sdr_solve_ms": solve_ms, "sdr_solve_sync": solve_sync,
+                    "stoi_resample_ms_per_signal_batch": resample_ms, "stoi_device_ms": device_ms}
+    print(f"phase 13 timing ({smi}): SDR on {tuple(p.shape)}: FFT correlations {fft_ms:.3f} ms, Toeplitz gather"
+          f" {toeplitz_ms:.3f} ms, solve_ex of 16 (512, 512) systems {solve_ms:.3f} ms (synchronisation under the sync"
+          f" debug mode: {solve_sync}); STOI on (8, 48000) at 16 kHz:"
+          f" host resample {resample_ms:.3f} ms a batch (two per update), device {device_ms:.3f} ms")
+    return out
+
+
+def to_10k(torch, np, x):
+    """A 16 kHz batch resampled to 10 kHz on the host, as STOI's update does."""
+    from scipy.signal import resample_poly
+
+    return torch.from_numpy(resample_poly(x.double().cpu().numpy(), 10000, VB_FS, axis=-1).astype(np.float32)).to(x.device)
+
+
+def phase_thirteen(torch, mt, np, kernels_mod, smi) -> dict:
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernels_mod.reset_launch_counts()
+    a = phase_thirteen_a(torch, mt, np, smi)
+    b = phase_thirteen_b(torch, mt, np, smi)
+    c = phase_thirteen_c(torch, mt, np, smi)
+    timing = phase_thirteen_timing(torch, mt, np, a.pop("crops")[0], smi)
+    launches = kernels_mod.launch_counts()
+    check(not any(launches.values()), f"phase 13 launched a kernel of B1-B3: {launches}")
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    elapsed = time.perf_counter() - t0
+    print(f"phase 13 ({smi}): {elapsed:.1f} s in all (limit {PHASE13_LIMIT_S:.0f} s); kernel launches {launches};"
+          f" peak memory_allocated {peak_gb:.2f} GB above what earlier phases held")
+    check(elapsed < PHASE13_LIMIT_S, f"phase 13 took {elapsed:.1f} s, over its {PHASE13_LIMIT_S:.0f} s")
+    return {"launches": launches, "a": a, "b": b, "c": c, "timing": timing, "peak_gb": peak_gb, "seconds": elapsed}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -4952,6 +5612,9 @@ def main() -> None:
     # ---- phase 12: image (no kernel of B1-B3 on its path)
     twelve = phase_twelve(torch, mt, np, kernels_mod, sync, smi)
 
+    # ---- phase 13: audio (no kernel of B1-B3 on its path)
+    thirteen = phase_thirteen(torch, mt, np, kernels_mod, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -4972,6 +5635,7 @@ def main() -> None:
             "phase10_launches": ten["launches"][kname],
             "phase11_launches": eleven["launches"][kname],
             "phase12_launches": twelve["launches"][kname],
+            "phase13_launches": thirteen["launches"][kname],
             **us,
             **extra,
         }

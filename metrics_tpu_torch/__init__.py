@@ -22,6 +22,16 @@ from metrics_tpu_torch.aggregation import (
     SumMetric,
 )
 from metrics_tpu_torch import sketches
+from metrics_tpu_torch import audio
+from metrics_tpu_torch.audio import (
+    PerceptualEvaluationSpeechQuality,
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    ShortTimeObjectiveIntelligibility,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+)
 from metrics_tpu_torch.classification import (
     AUC,
     AUROC,
@@ -200,6 +210,10 @@ __all__ = [
     # text
     "BLEUScore", "CHRFScore", "CharErrorRate", "ExtendedEditDistance", "MatchErrorRate", "ROUGEScore",
     "SQuAD", "SacreBLEUScore", "TranslationEditRate", "WordErrorRate", "WordInfoLost", "WordInfoPreserved",
+    # audio
+    "audio", "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining",
+    "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility",
+    "SignalDistortionRatio", "SignalNoiseRatio",
     # image
     "image", "nets", "ErrorRelativeGlobalDimensionlessSynthesis", "FrechetInceptionDistance", "InceptionScore",
     "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity", "MultiScaleStructuralSimilarityIndexMeasure",

@@ -16,7 +16,8 @@ The dispatch follows the JAX engine call for call:
   stream capture refuses: a read of a value to the host
   (``aten._local_scalar_dense``, which ``bool()``, ``.item()`` and ``int()``
   reach; ``tolist``, ``numpy`` and copies to the host; on CUDA,
-  ``torch.linalg.eigh``, which reads cusolver's status inside its kernel) and
+  ``torch.linalg.eigh``, which reads cusolver's status inside its kernel, and
+  ``torch.linalg.solve_ex``, whose batched LU solve a capture refuses) and
   operations whose output shape depends on values (``nonzero``, ``unique``,
   ``masked_select``, indexing with a bool tensor). A probe that raises
   leaves the state as it was and reverts the metric, or the collection
@@ -428,13 +429,17 @@ _VALUE_SHAPED = frozenset({
 })
 _INDEXING = frozenset({_aten.index, _aten.index_put, _aten.index_put_, _aten._index_put_impl_})
 _COPIES = frozenset({_aten._to_copy, _aten.copy_})
-# operations that read their solver's status back to the host on CUDA inside
-# the kernel (below the dispatch mode, so the probe sees no
-# `_local_scalar_dense`): torch.linalg.eigh checks cusolver's `info`. A
-# capture of one fails and leaves the solver's handle unusable, so the probe
-# refuses them on CUDA; on the CPU they capture (FID's compute, as the JAX
-# engine compiles it)
-_DEVICE_CHECKED = frozenset({_aten._linalg_eigh})
+# operations that a capture on CUDA refuses below the dispatch mode (the probe
+# sees no `_local_scalar_dense`): torch.linalg.eigh checks cusolver's `info`,
+# and a capture of one fails and leaves the solver's handle unusable; a
+# capture of torch.linalg.solve_ex's batched LU solve (SDR's, 16 systems of
+# 512 x 512) failed on the H100 with "operation failed due to a previous
+# error during capture". The probe refuses them on CUDA; on the CPU they
+# capture (FID's compute and SDR's update, as the JAX engine compiles them)
+_DEVICE_CHECKED = {
+    _aten._linalg_eigh: "reads its solver's status back to the host on CUDA",
+    _aten._linalg_solve_ex: "cannot be captured on CUDA (a capture of its batched LU solve fails)",
+}
 
 
 def _is_bool_index(index: Any) -> bool:
@@ -450,7 +455,7 @@ class _ProbeMode(TorchDispatchMode):
         if packet in _HOST_READS:
             raise Uncapturable(f"{func} reads a value back to the host")
         if packet in _DEVICE_CHECKED and any(isinstance(a, Tensor) and a.is_cuda for a in args):
-            raise Uncapturable(f"{func} reads its solver's status back to the host on CUDA")
+            raise Uncapturable(f"{func} {_DEVICE_CHECKED[packet]}")
         if packet in _VALUE_SHAPED:
             raise Uncapturable(f"{func} makes a tensor whose shape depends on values")
         if packet is _aten.repeat_interleave and kwargs.get("output_size") is None:

@@ -76,6 +76,12 @@ FLOAT_SUM_STATES = frozenset({
     # the stub features of KID and IS (a matmul, summed in another order)
     "PeakSignalNoiseRatio", "FrechetInceptionDistance", "LearnedPerceptualImagePatchSimilarity",
     "KernelInceptionDistance", "InceptionScore",
+    # audio: the per-sample values are float32 sums over time (STOI's over
+    # bands and segments, SDR's through its FFTs and solve), summed in
+    # another order than XLA's; ``total`` stays bitwise. SI-SNR's and PESQ's
+    # sums come out bit for bit on the INVENTORY's inputs and stay bitwise
+    "SignalNoiseRatio", "ScaleInvariantSignalDistortionRatio", "SignalDistortionRatio",
+    "PermutationInvariantTraining", "ShortTimeObjectiveIntelligibility",
 })
 
 # entries held to a wider bound than RTOL/ATOL, each with its reason: FID's

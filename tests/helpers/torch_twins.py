@@ -231,6 +231,18 @@ TWINS: Dict[str, Twin] = {
         _default("KernelInceptionDistance", feature=STUB_FEATURES, subset_size=8, subsets=2, buffer_capacity=64),
     ),
     "LearnedPerceptualImagePatchSimilarity": Twin(_default("LearnedPerceptualImagePatchSimilarity", net=stub_lpips)),
+    # audio: the INVENTORY's arguments; PESQ through the native model
+    **{name: Twin(_default(name)) for name in (
+        "SignalNoiseRatio", "ScaleInvariantSignalNoiseRatio", "ScaleInvariantSignalDistortionRatio",
+    )},
+    "SignalDistortionRatio": Twin(_default("SignalDistortionRatio", filter_length=64)),
+    "PermutationInvariantTraining": Twin(_cpu(lambda **kw: mt.PermutationInvariantTraining(
+        mt.ops.scale_invariant_signal_noise_ratio, eval_func="max", **kw
+    ))),
+    "ShortTimeObjectiveIntelligibility": Twin(_default("ShortTimeObjectiveIntelligibility", fs=10000)),
+    "PerceptualEvaluationSpeechQuality": Twin(
+        _default("PerceptualEvaluationSpeechQuality", fs=8000, mode="nb", implementation="native")
+    ),
     "RetrievalPrecisionRecallCurve": Twin(
         _default("RetrievalPrecisionRecallCurve", max_k=4),
         _default("RetrievalPrecisionRecallCurve", max_k=4, buffer_capacity=256),

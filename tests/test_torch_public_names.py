@@ -28,7 +28,6 @@ import metrics_tpu_torch as mt_torch
 pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
-    "A15": "audio metrics",
     "A17": "sync variants: quantized transports, incremental sync, sharded state",
     "A18": "checkpoint",
     "A19": "tenancy, serve and cluster",
@@ -37,19 +36,9 @@ ITEMS = {
     "B1": "the Pallas module of B1, whose port is ops/classification/binned_counts.py",
 }
 
-_AUDIO = [
-    "PerceptualEvaluationSpeechQuality", "PermutationInvariantTraining", "ScaleInvariantSignalDistortionRatio",
-    "ScaleInvariantSignalNoiseRatio", "ShortTimeObjectiveIntelligibility", "SignalDistortionRatio", "SignalNoiseRatio",
-    "audio",
-]
 _SYNC_KNOBS = [
     "set_sync_cadence", "set_sync_mode", "set_sync_transport", "sync_cadence_default", "sync_mode_default",
     "sync_transport_default", "transport_error_bound",
-]
-_AUDIO_FUNCTIONALS = [
-    "audio", "perceptual_evaluation_speech_quality", "permutation_invariant_training", "pit_permutate",
-    "scale_invariant_signal_distortion_ratio", "scale_invariant_signal_noise_ratio",
-    "short_time_objective_intelligibility", "signal_distortion_ratio", "signal_noise_ratio",
 ]
 
 
@@ -59,7 +48,6 @@ def _items(item, names):
 
 MISSING = {
     "": {
-        **_items("A15", _AUDIO),
         **_items("A17", _SYNC_KNOBS),
         **_items("A18", ["checkpoint", "restore_checkpoint", "save_checkpoint", "verify_checkpoint"]),
         **_items("A19", ["TenantSet", "serve", "tenancy"]),
@@ -77,8 +65,9 @@ MISSING = {
         ]),
         "ANALYSIS_MODULE_SPECS": "A21",
     },
-    "functional": _items("A15", _AUDIO_FUNCTIONALS),
-    "ops": _items("A15", _AUDIO_FUNCTIONALS),
+    "functional": {},
+    "ops": {},
+    "ops.audio": {},
     "ops.text": {},
     "ops.classification": {"binned_pallas": "B1"},
     "ops.regression": {},
@@ -90,7 +79,7 @@ MISSING = {
                          "resolve_use_pallas", "trace_counts"]),
     },
     "aggregation": {"ANALYSIS_SPECS": "A21"},
-    **{sub: {"ANALYSIS_SPECS": "A21"} for sub in ("text", "wrappers", "classification", "regression", "retrieval",
+    **{sub: {"ANALYSIS_SPECS": "A21"} for sub in ("audio", "text", "wrappers", "classification", "regression", "retrieval",
                                                   "detection")},
 }
 
@@ -148,15 +137,17 @@ def test_missing_names_are_the_unported_items(sub, fresh_names):
 
 def test_every_listed_item_is_unported():
     # the wrappers (A11b), text (A13), the rest of detection (A12), image
-    # (A14) and the sketches (A16) are ported: none of their names may be missing
+    # (A14), audio (A15) and the sketches (A16) are ported: none of their
+    # names may be missing
     for sub, names in MISSING.items():
-        assert not {"A11b", "A12", "A13", "A14", "A16"} & set(names.values()), sub
+        assert not {"A11b", "A12", "A13", "A14", "A15", "A16"} & set(names.values()), sub
     for name in ("BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
                  "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance",
                  "CharErrorRate", "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",
                  "ROUGEScore", "SQuAD", "CatBuffer", "functional", "__version__",
                  "Quantile", "Median", "DistinctCount", "HeavyHitters", "sketches",
-                 "FrechetInceptionDistance", "PeakSignalNoiseRatio", "image", "nets"):
+                 "FrechetInceptionDistance", "PeakSignalNoiseRatio", "image", "nets",
+                 "SignalNoiseRatio", "PermutationInvariantTraining", "PerceptualEvaluationSpeechQuality", "audio"):
         assert hasattr(mt_torch, name), name
 
 
