@@ -147,8 +147,9 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
 
 9. Regression, pairwise and retrieval, which run no kernel of B1-B3 (their
    launch counts stay 0 through the phase). (a) Retrieval at MS MARCO
-   passage-ranking dev (small) size: 6,980 queries x 1,000 re-ranked
-   candidates (6,980,000 rows) fed query-major, 64 queries an update, about
+   passage-ranking dev (small) width: 1,745 queries (a quarter of its 6,980,
+   cut for time) x 1,000 re-ranked candidates (1,745,000 rows) fed
+   query-major, 64 queries an update, about
    1.07 relevant passages a query and none for 14.3% of them, seeded scores
    rounded through float16 (ties), through MRR, MAP, nDCG@10, P@10, R@100,
    HitRate@10, R-precision, FallOut@10, the precision-recall curve and recall
@@ -283,6 +284,31 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    steps eager and compiled with device busy and idle share, SDR's FFTs and
    solve apart, STOI's host resample apart, computes, the peak
    ``memory_allocated``. The phase stays under 120 s.
+
+14. Sync variants in a world of one NCCL rank (several ranks are tested on
+   the CPU with gloo), B1 inside the captured incremental step. (a) Phase
+   3's stream through config2 and the binned AP, synced under each of exact,
+   bf16, int8 and sparse_count (set globally; the gate routes what a
+   transport cannot carry to exact): exact bit for bit the unsynced state,
+   every transport bit for bit a ``device="cpu"`` twin's sync through a
+   gloo group of one and within ``transport_error_bound(t, 1)`` of exact,
+   relative to the bucket's largest value; collectives, wire and logical
+   bytes and the sync's time by events. (b) A 4,096-class ConfusionMatrix
+   (64 MiB int32) the same way, once on 2**20 samples whose nonzeros fit
+   sparse_count's slots (the gather branch) and once on 16 x 2**20 uniform
+   pairs that do not (the dense branch), with the peak
+   ``max_memory_allocated``. (c) An incremental streak of config2 and the
+   binned AP over phase 3's stream at K = 1 and 4 through
+   ``CompiledIncrementalStep`` (the update, B1 and the emission's
+   all_reduces in one graph) and eagerly: each finalize bit for bit the
+   ``sync_states`` of the final states, one emission every K steps and the
+   tail paid at finalize, B1 once a step with replays counted, one graph per
+   emitting and quiet signature; step times captured and eager. (d) Synced
+   computes through the compiled compute engine, eager, captured and
+   replayed, bitwise equal, the EngineStats collective fields printed; then
+   under sparse_count, whose nonzero count is a host read that the probe
+   refuses: the int32 groups eager with that reason, the binned AP captured,
+   the results unchanged. The phase stays under 90 s.
 
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
@@ -562,12 +588,13 @@ def batches(torch):
         yield logits, torch.softmax(logits, dim=1), target
 
 
-def build_slice(mt, plain_counts: bool = False, compiled: bool = False, buckets: bool = False):
+def build_slice(mt, plain_counts: bool = False, compiled: bool = False, buckets: bool = False, device=None):
     """The slice's collection and binned metric: eager (``compiled=False``,
     phases 3-5) or with the compiled engines at their defaults (phase 6),
-    optionally with ``batch_buckets=True`` on every metric."""
+    optionally with ``batch_buckets=True`` on every metric; on the card
+    unless ``device`` names another (phase 14's CPU twins)."""
     flags = {} if compiled else {"compiled_update": False, "compiled_compute": False}
-    kw = dict(flags, batch_buckets=buckets)
+    kw = dict(flags, batch_buckets=buckets, device=device)
     coll = mt.MetricCollection(
         {
             "acc": mt.Accuracy(num_classes=N_CLASSES, average="micro", **kw),
@@ -2640,8 +2667,11 @@ def phase_eight(torch, mt, np, kernels_mod, sync, smi) -> dict:
 # phase 9: regression, pairwise and retrieval (no kernel of B1-B3 on its path)
 # --------------------------------------------------------------------------- #
 # MS MARCO passage ranking, dev (small): 6,980 queries, 1,000 BM25 candidates
-# each, about 1.07 relevant passages a query, BM25's recall@1000 0.857
-MSMARCO_QUERIES, MSMARCO_CANDIDATES, MSMARCO_QUERIES_PER_UPDATE = 6_980, 1_000, 64
+# each, about 1.07 relevant passages a query, BM25's recall@1000 0.857; the
+# stream takes 1,745 of the queries (a quarter: route (i)'s per-query host
+# loop over 6,980 took 19.9-33.5 s, cut so that phase 14 fits the script's
+# limit)
+MSMARCO_QUERIES, MSMARCO_CANDIDATES, MSMARCO_QUERIES_PER_UPDATE = 1_745, 1_000, 64
 MSMARCO_RELEVANT, MSMARCO_RECALL_AT_1000, MSMARCO_RELEVANT_SCORE_SHIFT = 1.07, 0.857, 3.5
 MSMARCO_MAX_QUERIES, MSMARCO_MAX_DOCS, MSMARCO_CAPACITY = 8_192, 1_024, 7_000_000
 # NYU Depth v2 test split: 654 images of 480 x 640 depths, 0.5-10 m, stored in mm
@@ -5415,6 +5445,319 @@ def phase_thirteen(torch, mt, np, kernels_mod, smi) -> dict:
     return {"launches": launches, "a": a, "b": b, "c": c, "timing": timing, "peak_gb": peak_gb, "seconds": elapsed}
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: sync variants (quantized transports, incremental sync, collectives
+# inside captured steps), in a world of one NCCL rank
+# --------------------------------------------------------------------------- #
+PHASE14_LIMIT_S = 90.0
+CONFMAT_CLASSES = 4096  # the headline case of docs/quantized_sync.md: a 64 MiB int32 sum state
+CONFMAT_BATCH = 1 << 20
+CONFMAT_SPARSE_SKILL = 0.9  # share of correct predictions in the stream whose nonzeros fit the density
+CONFMAT_DENSE_BATCHES = 16  # 16 x 2**20 uniform pairs: about 63% of the 16.8M cells nonzero, past the density
+INCR_CADENCES = (1, 4)
+
+
+def sum_buckets(torch, metric, state: dict) -> dict:
+    """A metric's sum states grouped by dtype, each flattened into one
+    tensor: the buckets a transport quantizes and its bound speaks of."""
+    out = {}
+    for name, value in state.items():
+        if metric._reductions.get(name) == "sum":
+            out.setdefault(str(value.dtype), []).append(value.reshape(-1))
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def bucket_error(torch, metric, got: dict, want: dict) -> float:
+    """The largest error of a synced state against the exact one, relative
+    to its bucket's largest exact magnitude (transport_error_bound's frame)."""
+    worst = 0.0
+    g, w = sum_buckets(torch, metric, got), sum_buckets(torch, metric, want)
+    for key, exact in w.items():
+        exact64, got64 = exact.double(), g[key].double()
+        scale = float(exact64.abs().max())
+        if scale > 0:
+            worst = max(worst, float((got64 - exact64).abs().max()) / scale)
+    return worst
+
+
+def sync_units(torch, units: dict, group) -> dict:
+    """Each unit's ``sync_states`` over ``group``: ``{label: synced state}``."""
+    return {label: metric.sync_states(state, group) for label, (metric, state) in units.items()}
+
+
+def transports_check(torch, sync, label: str, units: dict, twins: dict, world, gloo, smi, reps: int = 10) -> dict:
+    """14(a)/(b): ``units`` (``{label: (metric, state)}`` on the card) synced
+    under each transport, set globally (the gate routes a transport that
+    cannot carry a bucket to exact): exact equal to the unsynced state bit for
+    bit; every transport bit for bit equal to the CPU twins' sync through a
+    gloo group of one; within ``transport_error_bound(t, 1)`` of exact. The
+    collectives' kinds and bytes, and the sync's time by CUDA events."""
+    out = {}
+    exact = None
+    for transport in sync.TRANSPORTS:
+        sync.set_sync_transport(transport)
+        try:
+            with sync.count_collectives() as box:
+                synced = sync_units(torch, units, world)
+            with sync.count_collectives() as twin_box:
+                twin_synced = sync_units(torch, twins, gloo)
+            ms = time_ms(torch, lambda: sync_units(torch, units, world), warmup=2, reps=reps)
+        finally:
+            sync.set_sync_transport(None)
+        if transport == "exact":
+            exact = synced
+            for unit, (metric, state) in units.items():
+                for name, value in state.items():
+                    check(same_bits(torch, synced[unit][name], value), f"14 {label}: exact sync of {unit}.{name} differs from the unsynced state")
+        worst = 0.0
+        for unit, (metric, state) in units.items():
+            for name, value in synced[unit].items():
+                check(same_bits(torch, value, twin_synced[unit][name]),
+                      f"14 {label}: {transport} sync of {unit}.{name} differs from the CPU twin's through gloo")
+            worst = max(worst, bucket_error(torch, metric, synced[unit], exact[unit]))
+        bound_rel = sync.transport_error_bound(transport, 1)
+        check(worst <= bound_rel, f"14 {label}: {transport} error {worst:.3e} past its bound {bound_rel:.3e}")
+        check(box["by_kind"] == twin_box["by_kind"] and box["bytes_by_transport"] == twin_box["bytes_by_transport"],
+              f"14 {label}: {transport}: the card ran {box['by_kind']}, the CPU twin {twin_box['by_kind']}")
+        out[transport] = {"ms": ms, "by_kind": dict(box["by_kind"]), "bytes": box["bytes"],
+                          "bytes_by_transport": {k: dict(v) for k, v in box["bytes_by_transport"].items()},
+                          "refusals": len(box["refusals"]), "max_rel_err": worst, "bound": bound_rel}
+        print(f"phase 14{label} ({smi}): {transport}: sync {ms:.3f} ms (median of {reps}, CUDA events); {dict(box['by_kind'])};"
+              f" bytes {out[transport]['bytes_by_transport']}; refusals {len(box['refusals'])}; error {worst:.3e}"
+              f" (bound {bound_rel:.3e}); bitwise equal to the CPU twin through gloo")
+    return out
+
+
+def phase_fourteen_a(torch, mt, sync, world, gloo, smi) -> dict:
+    """14(a): config2 at 1,000 classes and the binned AP, phase 3's stream."""
+    coll, binned = build_slice(mt)
+    cpu_coll, cpu_binned = build_slice(mt, device="cpu")
+    for logits, probs, target in batches(torch):
+        coll.update(logits, target)
+        binned.update(probs, target)
+    leaders = [group[0] for group in coll.compute_groups.values()]
+    units = {**{k: (coll[k], coll[k].get_state()) for k in leaders}, "binned": (binned, binned.get_state())}
+    twins = {k: ((cpu_coll[k] if k != "binned" else cpu_binned), {s: v.cpu() for s, v in st.items()})
+             for k, (_, st) in units.items()}
+    return transports_check(torch, sync, "(a) config2 + binned AP", units, twins, world, gloo, smi)
+
+
+def confmat_stream(torch, dense: bool):
+    """2**20 samples, 90% correct (nonzeros fit sparse_count's slots), or 16
+    batches of 2**20 uniform pairs (they do not)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 140 + int(dense))
+    for _ in range(CONFMAT_DENSE_BATCHES if dense else 1):
+        target = torch.randint(0, CONFMAT_CLASSES, (CONFMAT_BATCH,), generator=gen, device="cuda")
+        if dense:
+            preds = torch.randint(0, CONFMAT_CLASSES, (CONFMAT_BATCH,), generator=gen, device="cuda")
+        else:
+            wrong = torch.rand((CONFMAT_BATCH,), generator=gen, device="cuda") >= CONFMAT_SPARSE_SKILL
+            preds = torch.where(wrong, torch.randint(0, CONFMAT_CLASSES, (CONFMAT_BATCH,), generator=gen, device="cuda"), target)
+        yield preds, target
+
+
+def phase_fourteen_b(torch, mt, sync, world, gloo, smi) -> dict:
+    """14(b): a 4,096-class ConfusionMatrix (64 MiB int32) in both regimes."""
+    out = {}
+    for regime, dense in (("sparse", False), ("dense", True)):
+        metric = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES, compiled_update=False, compiled_compute=False)
+        for preds, target in confmat_stream(torch, dense):
+            metric.update(preds, target)
+        state = metric.get_state()
+        nnz = int((state["confmat"] != 0).sum())
+        slots = sync._sparse_slots(CONFMAT_CLASSES ** 2)
+        check((nnz > slots) == dense, f"14(b) {regime}: {nnz} nonzeros against {slots} slots")
+        twin = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES, device="cpu")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        res = transports_check(torch, sync, f"(b) ConfusionMatrix {CONFMAT_CLASSES} {regime} ({nnz} nonzeros, {slots} slots)",
+                               {"confmat": (metric, state)}, {"confmat": (twin, {"confmat": state["confmat"].cpu()})},
+                               world, gloo, smi, reps=5)
+        branch = res["sparse_count"]["by_kind"]
+        check(branch == ({"all_reduce": 2} if dense else {"all_reduce": 1, "all_gather": 1}),
+              f"14(b) {regime}: sparse_count ran {branch}")
+        peak = torch.cuda.max_memory_allocated() - held
+        print(f"phase 14(b) ({smi}): {regime}: torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB above the"
+              f" {held / 2**20:.1f} MiB held before the four syncs (state {CONFMAT_CLASSES ** 2 * 4 / 2**20:.0f} MiB)")
+        out[regime] = {"nnz": nnz, "slots": slots, "peak_mib": peak / 2**20, **res}
+        del metric, state
+    return out
+
+
+def incremental_slice(mt, compiled: bool):
+    """config2 and the binned AP in one collection, fed probabilities (the
+    argmax of which is the logits'), every state incremental."""
+    coll, binned = build_slice(mt, compiled=compiled)
+    coll.add_metrics({"binned": binned})
+    return coll
+
+
+def phase_fourteen_c(torch, mt, kernels_mod, sync, engine, world, smi) -> dict:
+    """14(c): the incremental streak over phase 3's stream at K = 1 and 4,
+    captured (``CompiledIncrementalStep``: B1 and the emission's all_reduces
+    in one graph) and eager, each finalize against ``sync_state`` of the
+    final state."""
+    out = {}
+    stream = [(probs, target) for _, probs, target in batches(torch)]
+    sync.set_sync_mode("incremental")
+    try:
+        for k in INCR_CADENCES:
+            coll = incremental_slice(mt, compiled=False)
+            paths = {name: engine.classify_incremental_member(m) for name, m in coll.items(keep_base=True)}
+            check(all(p == "incremental" for p, _ in paths.values()), f"14(c): incremental paths {paths}")
+            step = engine.CompiledIncrementalStep(coll, world)
+            runs = {}
+            for mode in ("eager", "captured"):
+                carries = coll.init_incremental(coll.init_state(), sync_every=k)
+                kernels_mod.reset_launch_counts()
+                times, emitting = [], 0
+                for probs, target in stream:
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    if mode == "captured":
+                        carries = step(carries, probs, target)
+                    else:
+                        carries = coll.update_state_incremental(carries, probs, target, group=world)
+                    end.record()
+                    end.synchronize()
+                    times.append(start.elapsed_time(end))
+                    emitting += next(iter(carries.values())).pending == 0
+                launches = kernels_mod.launch_counts()["binned_counts"]
+                with sync.count_collectives() as fin:
+                    final = coll.finalize_incremental(carries, world)
+                deferred = coll.sync_states({name: c.state for name, c in carries.items()}, world)
+                for leader, states in deferred.items():
+                    for name, value in states.items():
+                        check(same_bits(torch, final[leader][name], value),
+                              f"14(c) K={k} {mode}: finalize of {leader}.{name} differs from sync_state of the final state")
+                check(emitting == len(stream) // k, f"14(c) K={k} {mode}: {emitting} emissions for {len(stream)} steps")
+                tail = len(stream) % k
+                check((fin["count"] > 0) == (tail > 0), f"14(c) K={k} {mode}: finalize ran {fin['by_kind']} with a tail of {tail}")
+                check(launches == len(stream), f"14(c) K={k} {mode}: B1 launched {launches} times for {len(stream)} steps")
+                runs[mode] = {"final": final, "step_ms": statistics.median(times[3:]), "emissions": emitting, "tail": tail,
+                              "finalize": dict(fin["by_kind"]), "launches": launches}
+            for leader, states in runs["eager"]["final"].items():
+                for name, value in states.items():
+                    check(same_bits(torch, runs["captured"]["final"][leader][name], value),
+                          f"14(c) K={k}: captured finalize of {leader}.{name} differs from the eager one")
+            stats = step.stats
+            check(step.broken is None, f"14(c) K={k}: the captured step fell back to eager: {step.broken}")
+            graphs = [s for s in step._steps.values() if s.graph is not None]
+            check(len(graphs) == len(step._steps) == (1 if k == 1 else 2), f"14(c) K={k}: {len(graphs)} graphs")
+            print(f"phase 14(c) ({smi}): K={k}: {len(stream)} steps, {runs['captured']['emissions']} emissions and a tail of"
+                  f" {runs['captured']['tail']} (finalize ran {runs['captured']['finalize']}); step median"
+                  f" {runs['captured']['step_ms']:.3f} ms captured, {runs['eager']['step_ms']:.3f} ms eager (CUDA events);"
+                  f" B1 launched {runs['captured']['launches']} times captured ({stats.cache_hits} replays of {len(graphs)}"
+                  f" graphs, {stats.eager_calls} eager calls); collectives at capture {stats.collective_counts}; members"
+                  f" {{{', '.join(f'{n}: {p}' for n, (p, _) in paths.items())}}}; finalize bitwise equal to sync_state")
+            out[k] = {key: v for key, v in runs["captured"].items() if key != "final"}
+            out[k].update(eager_step_ms=runs["eager"]["step_ms"], replays=stats.cache_hits, graphs=len(graphs),
+                          collective_counts=dict(stats.collective_counts))
+            del step, coll
+    finally:
+        sync.set_sync_mode(None)
+    return out
+
+
+def same_tree(torch, a, b) -> bool:
+    got, want = torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)
+    return len(got) == len(want) and all(same_bits(torch, g, w) for g, w in zip(got, want))
+
+
+def synced_computes(torch, sync, coll, world, calls: int = 3):
+    results, boxes, times = [], [], []
+    with sync.sync_axes(world):
+        for _ in range(calls):
+            for m in coll.values():
+                m._computed = None
+            with sync.count_collectives() as box:
+                res, ms = event_ms(torch, coll.compute)
+            results.append(res)
+            boxes.append(dict(box["by_kind"]))
+            times.append(ms)
+    return results, boxes, times
+
+
+def phase_fourteen_d(torch, mt, sync, world, smi) -> dict:
+    """14(d): synced computes through the compiled compute engine: the
+    bucketed all_reduces inside the graph; then under sparse_count, whose
+    host read the probe refuses."""
+    coll = incremental_slice(mt, compiled=True)
+    for _, probs, target in batches(torch):
+        coll.update(probs, target)
+    results, boxes, times = synced_computes(torch, sync, coll, world)
+    for res in results[1:]:
+        for key, value in results[0].items():
+            check(same_tree(torch, res[key], value), f"14(d): captured synced compute {key} differs from the eager one")
+    stats = coll.engine_stats()
+    compute = stats["compute"]
+    engine = coll._compute_engine
+    graphs = [s.graph for s in engine._steps.values()] if engine is not None else []
+    check(not stats["fallback_reasons"], f"14(d): fallbacks {stats['fallback_reasons']}")
+    check((compute.eager_calls, compute.cache_misses, compute.cache_hits) == (1, 1, 1) and all(g is not None for g in graphs),
+          f"14(d): compute engine calls {(compute.eager_calls, compute.cache_misses, compute.cache_hits)}, graphs {graphs}")
+    check(boxes == [{"all_reduce": 3}] * 3, f"14(d): synced computes ran {boxes}")
+    paths = {k: v["path"] for k, v in stats["partition"]["compute"].items()}
+    check(set(paths.values()) == {"fused"}, f"14(d): compute paths {paths}")
+    fields = {"collective_counts": dict(compute.collective_counts), "collective_bytes": dict(compute.collective_bytes),
+              "collective_bytes_by_transport": {k: dict(v) for k, v in compute.collective_bytes_by_transport.items()},
+              "transport_refusals": compute.transport_refusals}
+    print(f"phase 14(d) ({smi}): synced compute eager, captured, replayed: bitwise equal, {boxes[0]} each, the replay's"
+          f" inside the graph; {times[0]:.3f} / {times[1]:.3f} / {times[2]:.3f} ms (CUDA events); EngineStats {fields};"
+          f" paths {paths}")
+    sync.set_sync_transport("sparse_count")
+    try:
+        sparse = incremental_slice(mt, compiled=True)
+        for _, probs, target in batches(torch):
+            sparse.update(probs, target)
+        s_results, s_boxes, s_times = synced_computes(torch, sync, sparse, world)
+    finally:
+        sync.set_sync_transport(None)
+    for res in s_results:
+        for key, value in results[0].items():
+            check(same_tree(torch, res[key], value), f"14(d) sparse_count: synced compute {key} differs from exact")
+    s_stats = sparse.engine_stats()
+    s_paths = {k: (v["path"], v["reason"]) for k, v in s_stats["partition"]["compute"].items()}
+    want = {k: ("fused" if k == "binned" else "eager") for k in s_paths}
+    check({k: p for k, (p, _) in s_paths.items()} == want, f"14(d) sparse_count: paths {s_paths}")
+    check(all("sparse_count" in r and "host" in r for k, (p, r) in s_paths.items() if k == "acc"),
+          f"14(d) sparse_count: reasons {s_paths}")
+    print(f"phase 14(d) ({smi}): under sparse_count the probe refused the int32 groups (their sync reads the nonzero"
+          f" count to the host): {s_paths}; fallback_reasons {s_stats['fallback_reasons']}; results bitwise equal to"
+          f" exact; {s_times[0]:.3f} / {s_times[1]:.3f} / {s_times[2]:.3f} ms")
+    return {"eager_ms": times[0], "captured_ms": times[1:], "fields": fields, "paths": paths,
+            "sparse_paths": {k: p for k, (p, _) in s_paths.items()}, "sparse_ms": s_times}
+
+
+def phase_fourteen(torch, mt, np, kernels_mod, sync, smi) -> dict:
+    import torch.distributed as dist
+    from metrics_tpu_torch.core import engine
+
+    t0 = time.perf_counter()
+    kernels_mod.reset_launch_counts()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        world = dist.group.WORLD
+        gloo = dist.new_group(ranks=[0], backend="gloo")
+        a = phase_fourteen_a(torch, mt, sync, world, gloo, smi)
+        b = phase_fourteen_b(torch, mt, sync, world, gloo, smi)
+        kernels_mod.reset_launch_counts()
+        c = phase_fourteen_c(torch, mt, kernels_mod, sync, engine, world, smi)
+        kernels_mod.reset_launch_counts()
+        d = phase_fourteen_d(torch, mt, sync, world, smi)
+        launches = kernels_mod.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    elapsed = time.perf_counter() - t0
+    b1 = sum(c[k]["launches"] for k in c)
+    check(launches["pairwise_iou"] == launches["greedy_match"] == launches["maxsim_tf32x3"] == 0,
+          f"phase 14 launched a detection or text kernel: {launches}")
+    print(f"phase 14 ({smi}): {elapsed:.1f} s in all (limit {PHASE14_LIMIT_S:.0f} s); B1 launched {b1} times in 14(c)'s"
+          f" streaks, {launches['binned_counts']} in 14(d)")
+    check(elapsed < PHASE14_LIMIT_S, f"phase 14 took {elapsed:.1f} s, over its {PHASE14_LIMIT_S:.0f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "seconds": elapsed, "launches": {**launches, "binned_counts": b1}}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5615,6 +5958,9 @@ def main() -> None:
     # ---- phase 13: audio (no kernel of B1-B3 on its path)
     thirteen = phase_thirteen(torch, mt, np, kernels_mod, smi)
 
+    # ---- phase 14: sync variants (B1 inside the captured incremental step)
+    fourteen = phase_fourteen(torch, mt, np, kernels_mod, sync, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -5636,6 +5982,7 @@ def main() -> None:
             "phase11_launches": eleven["launches"][kname],
             "phase12_launches": twelve["launches"][kname],
             "phase13_launches": thirteen["launches"][kname],
+            "phase14_launches": fourteen["launches"][kname],
             **us,
             **extra,
         }
@@ -5658,7 +6005,13 @@ def main() -> None:
                eager_update_step_us=[r["step_us"] for r in timings["eager"]],
                eager_update_idle_share=[r["step_idle"] for r in timings["eager"]],
                eager_compute_ms=[r["compute_ms"] for r in timings["eager"]],
-               eager_compute_idle_share=[r["compute_idle"] for r in timings["eager"]]),
+               eager_compute_idle_share=[r["compute_idle"] for r in timings["eager"]],
+               phase14_sync_ms={"config2": {t: fourteen["a"][t]["ms"] for t in sync.TRANSPORTS},
+                                **{f"confmat_{regime}": {t: fourteen["b"][regime][t]["ms"] for t in sync.TRANSPORTS}
+                                   for regime in ("sparse", "dense")}},
+               phase14_incremental_step_ms={k: {"captured": r["step_ms"], "eager": r["eager_step_ms"]}
+                                            for k, r in fourteen["c"].items()},
+               phase14_synced_compute_ms={"eager": fourteen["d"]["eager_ms"], "captured": fourteen["d"]["captured_ms"]}),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],

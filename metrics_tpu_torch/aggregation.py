@@ -13,7 +13,7 @@ package's compiled and eager updates do.
 The sketch aggregators keep a fixed-size
 :class:`~metrics_tpu_torch.sketches.MergeableSketch` state under the
 ``"sketch"`` reduction tag, whatever the stream's length; their inserts are
-captured like any other update. A sharded buffer waits for A17.
+captured like any other update. A sharded buffer waits for A17b.
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Its int32 ``confmat`` state is the one JaccardIndex, MatthewsCorrCoef and
 CohenKappa hold: with equal arguments the four share one compute group
 (``_update_signature``). The JAX package's ``shard_axis`` and sharded
-compute have no counterpart here (ROADMAP A17).
+compute have no counterpart here (ROADMAP A17b).
 """
 from __future__ import annotations
 

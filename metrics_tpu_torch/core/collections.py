@@ -14,7 +14,9 @@ dispatcher of ``core/engine.py``: the fused groups run as one captured step
 their own bucketed engines, the rest eagerly. While fused updates advance only
 the leaders, the members are detached, and they take the leader's state again
 at the next observation (``compute()``, ``items()``, ``values()``, ``[]``), so
-they see every replay's counts. A synced compute stays eager.
+they see every replay's counts. A synced compute is captured too, its
+collectives inside the graph, unless its sync reads a value back to the host.
+The incremental sync protocol keeps one carry per compute group.
 """
 from __future__ import annotations
 
@@ -329,8 +331,8 @@ class MetricCollection:
     def compute(self) -> Dict[str, Any]:
         """Value per member: one sync per compute group, through its leader;
         the members compute on the shared synced state; then one unsync. With
-        the compiled path on, the fused groups' finalize is one captured step
-        (a synced compute stays eager)."""
+        the compiled path on, the fused groups' sync and finalize are one
+        captured step."""
         self._realias_members()
         if self._fused_compute_enabled():
             return _flatten_results(self._get_dispatcher().compute())
@@ -438,7 +440,8 @@ class MetricCollection:
         return _flatten_results(res)
 
     def sync_states(self, states: Dict[str, StateDict], group: Optional[dist.ProcessGroup]) -> Dict[str, StateDict]:
-        """Pure sync over ``group``: one bucketed sync per compute group."""
+        """Pure sync over ``group``: one bucketed sync per compute group,
+        with its leader's declared transports and tolerances."""
         return {g[0]: self._metrics[g[0]].sync_states(states[g[0]], group) for g in self._groups}
 
     def sync_compute_state(
@@ -448,6 +451,38 @@ class MetricCollection:
         if group is not None:
             states = self.sync_states(states, group)
         return self.compute_state(states)
+
+    # ------------------------------------------------------------------ #
+    # incremental sync protocol: one carry per compute group
+    # ------------------------------------------------------------------ #
+    def init_incremental(self, states: Dict[str, StateDict], *, sync_every: Optional[int] = None) -> Dict[str, Any]:
+        """One :class:`~metrics_tpu_torch.parallel.IncrementalCarry` per
+        compute group around its starting state (from :meth:`init_state`)."""
+        return {g[0]: self._metrics[g[0]].init_incremental(states[g[0]], sync_every=sync_every) for g in self._groups}
+
+    def update_state_incremental(
+        self, carries: Dict[str, Any], *args: Any, group: Optional[dist.ProcessGroup] = None, **kwargs: Any
+    ) -> Dict[str, Any]:
+        """Pure streak step of every group: its update and, on cadence with
+        ``group`` given, its covered buckets' collectives."""
+        out = {}
+        for g in self._groups:
+            leader = self._metrics[g[0]]
+            out[g[0]] = leader.update_state_incremental(carries[g[0]], *args, group=group, **leader._filter_kwargs(**kwargs))
+        return out
+
+    def finalize_incremental(
+        self, carries: Dict[str, Any], group: Optional[dist.ProcessGroup] = None
+    ) -> Dict[str, StateDict]:
+        """Pure incremental finalize of every group: bitwise equal to
+        :meth:`sync_states` of the final states under exact transports."""
+        return {g[0]: self._metrics[g[0]].finalize_incremental(carries[g[0]], group) for g in self._groups}
+
+    def sync_compute_incremental(
+        self, carries: Dict[str, Any], group: Optional[dist.ProcessGroup] = None
+    ) -> Dict[str, Any]:
+        """Pure incremental finalize, then compute."""
+        return self.compute_state(self.finalize_incremental(carries, group))
 
     def __repr__(self) -> str:
         repr_str = self.__class__.__name__ + "(\n"

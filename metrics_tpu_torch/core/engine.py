@@ -64,13 +64,29 @@ batch's rows and nothing else of the buffer. The host mirror of each count
 and overflow flag gets the step's row count added at every call, as the
 launch counts do: nothing is read back.
 
+**Collectives inside a step.** A compute that syncs (``compute()`` under
+:func:`~metrics_tpu_torch.parallel.sync_axes`, or in a multi-rank default
+group) is captured as ``sync_states`` then ``compute_state``, keyed by its
+group besides the state signature: the bucketed ``all_reduce``s replay inside
+the graph. A sync that would read a value back to the host (a ``CatBuffer``'s
+fill counts, a ragged gather's shapes, sparse_count's nonzero count:
+``parallel.sync.sync_host_read``) is refused before any collective runs, so
+every rank refuses alike, and the member stays eager with that reason. A
+capture that NCCL refuses is refused the same way. The collectives count
+(``parallel.count_collectives``) at the probe, which also fills the
+``EngineStats`` collective fields as the JAX engine fills them at trace time,
+and again at every replay. :class:`CompiledIncrementalStep` captures the
+incremental protocol's ``update_state_incremental``: one graph per input
+signature that emits and one that does not, the cadence kept on the host.
+NCCL has run its first collective on the group before any capture, at the
+eager first call.
+
 **Errors.** Only :class:`Uncapturable` and the errors torch raises for an
 operation a capture refuses revert a member. A kernel build or launch error
 propagates, as it does eagerly.
 
 Not here, and queued elsewhere: tenant classification and ``PATH_TENANT``
-(A19), the incremental sync groups and collectives inside a captured compute
-(A17), and the tracer, chaos and guard hooks and the autotune token (A20).
+(A19), and the tracer, chaos and guard hooks and the autotune token (A20).
 
 Global switches: ``set_compiled_update``, ``set_compiled_compute`` and
 ``set_fused_update`` (environment variables ``METRICS_TPU_COMPILED_UPDATE``,
@@ -89,6 +105,7 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -194,8 +211,8 @@ class EngineStats:
     donated_calls: int = 0  # compiled calls that updated the state in place
     bucketed_calls: int = 0  # updates routed through the shape-bucketing layer
     key_fast_hits: int = 0  # dispatch keys served from the id-keyed memo
-    # collectives of a captured step: zero and empty until sync can be
-    # captured (A17)
+    # the collectives of each probed step (counted once per signature, as the
+    # JAX engine counts them at trace time)
     collective_counts: Dict[str, int] = field(default_factory=dict)
     collective_bytes: Dict[str, int] = field(default_factory=dict)
     collective_bytes_by_transport: Dict[str, Dict[str, int]] = field(default_factory=dict)
@@ -238,6 +255,9 @@ def _flatten_into(tree: Any, leaves: list) -> Any:
     if getattr(kind, "_is_mergeable_sketch", False) is True:
         leaves.extend(getattr(tree, f) for f, _ in kind.sketch_fields)
         return ("s", kind, tree.config())
+    if kind is _sync.IncrementalCarry:
+        return ("i", (tree.sync_every, tree.pending, tree.emissions, tree.track_emissions),
+                tuple(_flatten_into(part, leaves) for part in (tree.state, tree.acc, tree.last)))
     leaves.append(tree)
     return None
 
@@ -266,6 +286,8 @@ def _build(node: Any, it: Any) -> Any:
         return CatBuffer._from_parts(next(it), next(it), next(it), capacity=node[1])
     if node[0] == "s":
         return node[1]._from_parts(node[2], [next(it) for _ in node[1].sketch_fields])
+    if node[0] == "i":
+        return _sync.IncrementalCarry(*(_build(c, it) for c in node[2]), *node[1])
     return node[1](*(_build(c, it) for c in node[2]))
 
 
@@ -560,6 +582,8 @@ class CapturedStep:
         # (dtype, shape, offset, count), handed out by one unbind each
         self._out_layout: List[Tuple[torch.dtype, torch.Size, int, int]] = []
         self.launch_delta: Dict[str, int] = {}
+        # the probe's collectives, counted again at every replay
+        self.collectives: Optional[Dict[str, Any]] = None
         self.buffer_rows: Tuple[int, ...] = ()
         self._state_spec = self._args_spec = self._out_spec = None
         self._consts: List[Any] = []
@@ -574,7 +598,7 @@ class CapturedStep:
         self._consts = [None if isinstance(x, Tensor) else x for x in arg_leaves]
         device = next((x.device for x in state_leaves + arg_leaves if isinstance(x, Tensor)), torch.device("cpu"))
         if device.type != "cuda":
-            with _probe():
+            with _probe(), _sync.count_collectives() as self.collectives:
                 out = self.fn(state, args, kwargs)
             out_leaves = self._check_out(state, state_leaves, out)
             self._make_statics(state_leaves, arg_leaves, out_leaves)
@@ -587,7 +611,7 @@ class CapturedStep:
             with torch.cuda.stream(side):
                 # the probe runs where the capture will: per-stream resources
                 # a kernel wrapper makes on first use exist before the capture
-                with _probe():
+                with _probe(), _sync.count_collectives() as self.collectives:
                     out = self.fn(state, args, kwargs)
                 out_leaves = self._check_out(state, state_leaves, out)
             with torch.cuda.stream(current):
@@ -656,12 +680,16 @@ class CapturedStep:
         graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
         try:
-            with _steady(), torch.cuda.graph(graph, pool=self.pool, stream=side):
+            with _steady(), _sync._muted(), torch.cuda.graph(graph, pool=self.pool, stream=side):
                 self._body()
         except RuntimeError as err:
+            first = str(err).splitlines()[0][:200] if str(err) else type(err).__name__
+            if self.collectives and self.collectives["count"]:
+                # NCCL's refusals do not all say "capture"
+                raise Uncapturable(f"the CUDA graph capture of the step's collectives failed: {first}") from err
             if "captur" not in str(err).lower():
                 raise
-            raise Uncapturable(f"the CUDA graph capture refused the step: {str(err).splitlines()[0][:200]}") from err
+            raise Uncapturable(f"the CUDA graph capture refused the step: {first}") from err
         finally:
             # a capture records launches; it makes none
             self.launch_delta = _sub_counts(_kernels.launch_counts(), before)
@@ -671,6 +699,8 @@ class CapturedStep:
     def replay(self) -> None:
         self.graph.replay()
         _kernels.add_launches(self.launch_delta)
+        if self.collectives and self.collectives["count"]:
+            _sync.replay_ticks(self.collectives)
 
     def _load_args(self, arg_leaves: list) -> None:
         for dst, src in zip(self.arg_static, arg_leaves):
@@ -709,11 +739,11 @@ class CapturedStep:
                     s.copy_(b)  # a holder of this static keeps its value
         return tree_unflatten(list(out), self._state_spec)
 
-    def run_compute(self, state: Any, leaves: list) -> Any:
+    def run_compute(self, state: Any, leaves: list, args: Tuple = (), kwargs: Optional[Dict] = None) -> Any:
         """A steady-state compute; returns fresh tensors."""
         if self.graph is None:
             with _steady():
-                return self.fn(state, (), {})
+                return self.fn(state, args, kwargs or {})
         for s, x in zip(self.state_static, leaves):
             s.copy_(x)
         self.replay()
@@ -866,7 +896,10 @@ class _EngineBase:
             if count == _WARMUP_CALLS or step is None:
                 t0 = time.perf_counter()
                 step = self._new_step()
-                result = step.probe(state, args, kwargs)
+                try:
+                    result = step.probe(state, args, kwargs)
+                finally:
+                    _add_collectives(self.stats, step.collectives)
                 self._steps[key] = step
                 self._static_ids.update(id(x) for x in step.state_static)
                 self.stats.compile_seconds += time.perf_counter() - t0
@@ -880,7 +913,7 @@ class _EngineBase:
                 free = self._statics_free(step, leaves, donate_ok)
                 result = step.run_update(state, leaves, args, kwargs, arg_leaves, donate_ok, free)
             else:
-                result = step.run_compute(state, leaves)
+                result = step.run_compute(state, leaves, args, kwargs)
         except Uncapturable as err:
             self._broken = _first_line(err, 400)
             self.stats.fallback_reasons[self._owner_name()] = self._broken
@@ -911,6 +944,21 @@ class _EngineBase:
         else:
             result = _fresh_outputs(result, leaves)
         return True, result
+
+
+def _add_collectives(stats: EngineStats, box: Optional[Dict[str, Any]]) -> None:
+    """Add a probe's collectives and refusals to ``stats``."""
+    if not box:
+        return
+    for kind, n in box["by_kind"].items():
+        stats.collective_counts[kind] = stats.collective_counts.get(kind, 0) + n
+    for kind, n in box["bytes_by_kind"].items():
+        stats.collective_bytes[kind] = stats.collective_bytes.get(kind, 0) + n
+    for transport, split in box["bytes_by_transport"].items():
+        per = stats.collective_bytes_by_transport.setdefault(transport, {"wire": 0, "logical": 0})
+        per["wire"] += split["wire"]
+        per["logical"] += split["logical"]
+    stats.transport_refusals += len(box["refusals"])
 
 
 def _fresh_outputs(result: Any, leaves: list) -> Any:
@@ -1081,6 +1129,33 @@ def classify_compute_member(metric: Any) -> Tuple[str, str]:
     return PATH_FUSED, "compilable"
 
 
+def classify_incremental_member(metric: Any) -> Tuple[str, str]:
+    """Whether a member's states take in-streak incremental emissions under
+    the resolved sync mode (``"incremental"``, when at least one leaf does)
+    or not (``"deferred"``), and why: :func:`parallel.sync.incremental_plan`
+    over the registered defaults and declarations."""
+    plan = _sync.incremental_plan(metric._defaults, metric._reductions, modes=getattr(metric, "_sync_modes", None))
+    covered = [n for n, e in plan.items() if e["mode"] == "incremental"]
+    if covered:
+        return "incremental", f"{len(covered)}/{len(plan)} state leaves take in-streak emissions"
+    if not plan:
+        return "deferred", "no registered states"
+    if any(e["eligible"] for e in plan.values()):
+        return "deferred", "sync mode resolves to deferred for every leaf"
+    return "deferred", next(iter(plan.values()))["reason"]
+
+
+def _classify_incremental_groups(coll: Any) -> Dict[str, Dict[str, str]]:
+    """Per-member incremental classification; the leader decides its group."""
+    members: Dict[str, Dict[str, str]] = {}
+    for group in coll._groups:
+        lname = group[0]
+        path, reason = classify_incremental_member(coll._metrics[lname])
+        for name in group:
+            members[name] = {"path": path, "reason": reason if name == lname else f"follows group leader {lname!r}: {reason}"}
+    return members
+
+
 def _classify_update_groups(coll: Any, migrated: Dict[str, str]):
     """Partition the compute groups for ``update()``: the leader's
     classification decides its group. Returns ``(fused, bucketed, eager)``
@@ -1201,10 +1276,44 @@ class CollectionUpdateEngine(_EngineBase):
         return True
 
 
+def _refuse_host_read_sync(metric: Any, state: Any, group: Any) -> None:
+    """Raise :class:`Uncapturable` before any collective when ``metric``'s
+    sync of ``state`` over ``group`` would read a value back to the host."""
+    reason = _sync.sync_host_read(state, metric._reductions, group, metric._sync_transports, metric._sync_tolerances)
+    if reason is not None:
+        raise Uncapturable(reason)
+
+
+class _GroupKeys:
+    """The process groups a compute engine's steps sync over, by the key the
+    step's signature carries (``id`` of the group; None: no sync)."""
+
+    def __init__(self) -> None:
+        self._groups: Dict[Optional[int], Any] = {None: None}
+
+    def key(self, group: Any) -> Optional[int]:
+        if group is None:
+            return None
+        self._groups[id(group)] = group
+        return id(group)
+
+    def __getitem__(self, key: Optional[int]) -> Any:
+        return self._groups[key]
+
+
+def _compute_group(metric: Any) -> Any:
+    """The group ``metric.compute()`` syncs over now, or None."""
+    if metric._to_sync and _sync.distributed_available():
+        return metric._sync_group()
+    return None
+
+
 class CompiledComputeEngine(_EngineBase):
-    """Per-metric cache of captured ``compute_state`` steps, keyed on the
-    state signature. Sync stays eager: a compute whose state is (or is about
-    to be) synced runs the facade's eager path."""
+    """Per-metric cache of captured ``sync_compute_state`` steps, keyed on the
+    state signature and the group the compute syncs over (none: no sync), so
+    a synced compute replays its collectives inside the graph. Host offload,
+    a custom ``dist_sync_fn`` and an already synced state run the facade's
+    eager path."""
 
     _kind = "compute"
     _target = "compute_state"
@@ -1215,30 +1324,36 @@ class CompiledComputeEngine(_EngineBase):
         super().__init__(donate=False)
         self.metric = metric
         self._has_children = bool(metric._child_metrics())
+        self._groups = _GroupKeys()
 
     def _on_cuda(self) -> bool:
         return self.metric.device.type == "cuda"
 
     def _step_fn(self) -> Callable:
-        metric = self.metric
-        return lambda state, args, kwargs: metric.compute_state(state)
+        metric, groups = self.metric, self._groups
+
+        def step(state, args, kwargs):
+            group = groups[args[0]]
+            if group is not None:
+                _refuse_host_read_sync(metric, state, group)
+            return metric.sync_compute_state(state, group)
+
+        return step
 
     def dispatch(self) -> Tuple[bool, Any]:
         m = self.metric
         if self._broken is not None or self._has_children or not m.supports_compiled_compute:
             return False, None
         # escape hatches stay eager: host offload, a custom sync, and state
-        # that is (or is about to be) replaced by a real sync
+        # that a sync already replaced
         if m.compute_on_cpu or m.dist_sync_fn is not None or m._is_synced:
-            return False, None
-        if m._to_sync and _sync.distributed_available():
             return False, None
         if _capturing():
             return False, None
         state = m.get_state()
         if not _leaves_compilable(state):
             return False, None
-        return self._dispatch(state, (), {}, frozenset())
+        return self._dispatch(state, (self._groups.key(_compute_group(m)),), {}, frozenset())
 
 
 class CollectionComputeEngine(_EngineBase):
@@ -1258,42 +1373,155 @@ class CollectionComputeEngine(_EngineBase):
         self._group_names = tuple(group_names)
         subset = frozenset(self._group_names)
         self._subset_groups = tuple(tuple(g) for g in collection._groups if g[0] in subset)
+        self._groups = _GroupKeys()
+        self._sync_key: Optional[int] = None
 
     def _on_cuda(self) -> bool:
         coll = self.collection
         return any(coll._metrics[g[0]].device.type == "cuda" for g in self._subset_groups)
 
     def _step_fn(self) -> Callable:
-        coll = self.collection
-        groups = self._subset_groups
+        coll, groups, keys = self.collection, self._subset_groups, self._groups
 
         def step(states, args, kwargs):
-            return {name: coll._metrics[name].compute_state(states[group[0]]) for group in groups for name in group}
+            group = keys[args[0]]
+            if group is not None:
+                for g in groups:
+                    _refuse_host_read_sync(coll._metrics[g[0]], states[g[0]], group)
+                states = {g[0]: coll._metrics[g[0]].sync_states(states[g[0]], group) for g in groups}
+            return {name: coll._metrics[name].compute_state(states[g[0]]) for g in groups for name in g}
 
         return step
 
     def eligible(self) -> bool:
-        """Per-call escapes: a sync due, a synced member, or a member never
-        updated (the eager loop keeps its warning) run the eager loop."""
+        """Per-call escapes: leaders that sync over different groups, a
+        synced member, or a member never updated (the eager loop keeps its
+        warning) run the eager loop."""
         if self._broken is not None or _capturing():
             return False
         coll = self.collection
+        sync_groups = set()
         for group in self._subset_groups:
-            leader = coll._metrics[group[0]]
-            if leader._to_sync and _sync.distributed_available():
-                return False
+            sync_groups.add(self._groups.key(_compute_group(coll._metrics[group[0]])))
             for name in group:
                 m = coll._metrics[name]
                 if m._is_synced or m._update_count == 0:
                     return False
+        if len(sync_groups) > 1:
+            return False
+        self._sync_key = sync_groups.pop()
         return True
+
+    @property
+    def sync_group(self) -> Any:
+        """The group the last eligible call syncs over (None: no sync)."""
+        return self._groups[self._sync_key]
 
     def dispatch(self) -> Tuple[bool, Any]:
         coll = self.collection
         states = {g[0]: coll._metrics[g[0]].get_state() for g in self._subset_groups}
         if not _leaves_compilable(states):
             return False, None
-        return self._dispatch(states, (), {}, frozenset())
+        return self._dispatch(states, (self._sync_key,), {}, frozenset())
+
+
+class CompiledIncrementalStep(_EngineBase):
+    """Captured ``update_state_incremental`` steps of a metric or a
+    collection, synced over ``group``: the counterpart of jitting the JAX
+    package's incremental step inside its ``shard_map``.
+
+    ``step(carry, *args, **kwargs)`` takes and returns what the owner's
+    ``update_state_incremental`` does (a carry; a collection's
+    ``{leader: carry}``). The carries' ``state``, ``acc`` and ``last`` dicts
+    are the step's state. Whether the call emits is part of its signature
+    (with the gate's decisions, where a covered leaf is quantized and its
+    bound compounds), so a cadence of K captures at most two graphs per input
+    signature, one that emits and one that does not; ``pending`` and
+    ``emissions`` stay on the host. As in the update engine, the first call
+    of a signature runs eager, the second is probed and captured, every later
+    one replays; on the CPU the step runs with the checks off. Results are
+    fresh tensors: the carry handed in stays valid.
+    """
+
+    _kind = "incremental"
+    _target = "update_state_incremental"
+    _opt_out = "an eager update_state_incremental"
+
+    def __init__(self, owner: Any, group: Any = None) -> None:
+        super().__init__(donate=False)
+        self._is_collection = hasattr(owner, "_groups")
+        if self._is_collection:
+            self.collection = owner
+        else:
+            self.metric = owner
+        self.owner = owner
+        self.group = group
+        self._host: Dict[str, Tuple[int, int, int, bool]] = {}
+
+    def _leaders(self) -> List[Tuple[str, Any]]:
+        if self._is_collection:
+            return [(g[0], self.owner._metrics[g[0]]) for g in self.owner._groups]
+        return [("", self.owner)]
+
+    def _on_cuda(self) -> bool:
+        return any(m.device.type == "cuda" for _, m in self._leaders())
+
+    def _carries(self, carry: Any) -> Dict[str, Any]:
+        return dict(carry) if self._is_collection else {"": carry}
+
+    def _step_fn(self) -> Callable:
+        owner, group, host = self.owner, self.group, self._host
+        is_collection = self._is_collection
+
+        def step(tree, args, kwargs):
+            carries = {
+                name: _sync.IncrementalCarry(parts["state"], parts["acc"], parts["last"], *host[name])
+                for name, parts in tree.items()
+            }
+            new = owner.update_state_incremental(carries if is_collection else carries[""], *args[1:], group=group,
+                                                 **kwargs)
+            new = new if is_collection else {"": new}
+            return {name: {"state": c.state, "acc": c.acc, "last": c.last} for name, c in new.items()}
+
+        return step
+
+    def _emission_key(self, carries: Dict[str, Any]) -> Tuple[Tuple, Dict[str, Tuple[int, int]]]:
+        """The signature part of this call's emissions, and each carry's next
+        ``(pending, emissions)``."""
+        world = dist.get_world_size(self.group) if self.group is not None else None
+        key, nxt = [], {}
+        for name, metric in self._leaders():
+            carry = carries[name]
+            emits, pending, emissions = _sync._advanced(carry, self.group)
+            gates = ()
+            if emits:
+                gates = tuple(
+                    _sync.TRANSPORTS.index(t) for _, t in _sync.emission_transports(
+                        carry, metric._reductions, world, modes=metric._sync_modes,
+                        transports=metric._sync_transports, tolerances=metric._sync_tolerances,
+                    )
+                )
+            key.append((emits, gates))
+            nxt[name] = (pending, emissions)
+        return tuple(key), nxt
+
+    def __call__(self, carry: Any, *args: Any, **kwargs: Any) -> Any:
+        carries = self._carries(carry)
+        tree = {name: {"state": c.state, "acc": c.acc, "last": c.last} for name, c in carries.items()}
+        if self._broken is not None or _capturing() or not _leaves_compilable(tree):
+            return self.owner.update_state_incremental(carry, *args, group=self.group, **kwargs)
+        key, nxt = self._emission_key(carries)
+        self._host.clear()
+        self._host.update({n: (c.sync_every, c.pending, c.emissions, c.track_emissions) for n, c in carries.items()})
+        handled, out = self._dispatch(tree, (key, *args), kwargs, frozenset(), verify_args=_flat_leaves_compilable)
+        if not handled:
+            return self.owner.update_state_incremental(carry, *args, group=self.group, **kwargs)
+        new = {
+            name: _sync.IncrementalCarry(out[name]["state"], out[name]["acc"], out[name]["last"], c.sync_every,
+                                         *nxt[name], c.track_emissions)
+            for name, c in carries.items()
+        }
+        return new if self._is_collection else new[""]
 
 
 # --------------------------------------------------------------------------- #
@@ -1323,6 +1551,7 @@ class CollectionPartition:
     compute_eager: Tuple[str, ...]
     update_members: Dict[str, Dict[str, str]]
     compute_members: Dict[str, Dict[str, str]]
+    incremental_members: Dict[str, Dict[str, str]] = field(default_factory=dict)
     update_rest: Tuple[Tuple[str, ...], ...] = ()
     compute_rest: Tuple[Tuple[str, ...], ...] = ()
 
@@ -1360,13 +1589,14 @@ class CollectionDispatcher:
     # ------------------------------------------------------------------ #
     def _partition_key(self) -> Tuple:
         coll = self.collection
-        parts = []
+        parts: List[Any] = [("sync_mode", _sync.sync_mode_default())]
         for group in coll._groups:
             leader = coll._metrics[group[0]]
             parts.append((
                 tuple(group),
                 getattr(leader, "_compiled_update", None) is False,
                 bool(getattr(leader, "_batch_buckets", False)),
+                tuple(sorted(getattr(leader, "_sync_modes", {}).items())),
                 group[0] in self._migrated_update,
                 group[0] in self._migrated_compute,
                 tuple(
@@ -1403,6 +1633,7 @@ class CollectionDispatcher:
             update_fused=u_fused, update_bucketed=u_bucketed, update_eager=u_eager,
             compute_fused=c_fused, compute_eager=c_eager,
             update_members=u_members, compute_members=c_members,
+            incremental_members=_classify_incremental_groups(coll),
             update_rest=tuple(tuple(g) for g in coll._groups if g[0] not in u_set),
             compute_rest=tuple(tuple(g) for g in coll._groups if g[0] not in c_set),
         )
@@ -1475,9 +1706,17 @@ class CollectionDispatcher:
     def _migrate_compute(self, engine: CollectionComputeEngine) -> CollectionPartition:
         coll = self.collection
         culprits: Dict[str, str] = {}
+        sync_group = engine.sync_group
         for lname in self._partition.compute_fused:
             group = next(g for g in coll._groups if g[0] == lname)
-            state = coll._metrics[lname].get_state()
+            leader = coll._metrics[lname]
+            state = leader.get_state()
+            if sync_group is not None:
+                reason = _sync.sync_host_read(state, leader._reductions, sync_group, leader._sync_transports,
+                                              leader._sync_tolerances)
+                if reason is not None:
+                    culprits[lname] = f"{lname}: Uncapturable: {reason}"
+                    continue
             for name in group:
                 try:
                     with _probe():
@@ -1581,13 +1820,15 @@ class CollectionDispatcher:
         """The ``engine_stats()["partition"]`` payload."""
         part = self._partition
         if part is not None:
-            u_members, c_members = part.update_members, part.compute_members
+            u_members, c_members, i_members = part.update_members, part.compute_members, part.incremental_members
         else:
             u_members = _classify_update_groups(self.collection, self._migrated_update)[3]
             c_members = _classify_compute_groups(self.collection, self._migrated_compute)[2]
+            i_members = _classify_incremental_groups(self.collection)
         return {
             "update": {name: dict(info) for name, info in u_members.items()},
             "compute": {name: dict(info) for name, info in c_members.items()},
+            "incremental": {name: dict(info) for name, info in i_members.items()},
             "builds": self.stats.builds,
             "repartitions": self.stats.repartitions,
             "migrations": self.stats.migrations,
@@ -1609,6 +1850,7 @@ def collection_partition_view(coll: Any) -> Dict[str, Any]:
     return {
         "update": _classify_update_groups(coll, {})[3],
         "compute": _classify_compute_groups(coll, {})[2],
+        "incremental": _classify_incremental_groups(coll),
         "builds": 0, "repartitions": 0, "migrations": 0, "stable_hits": 0,
         "probations": 0, "repromotions": 0,
         "probation": {}, "last_fallback_exception": None,
@@ -1629,9 +1871,11 @@ def metric_partition_view(metric: Any) -> Dict[str, Any]:
     if engine is not None and engine.broken is not None:
         c_path, c_reason = PATH_EAGER, f"runtime fallback: {engine.broken.splitlines()[0][:200]}"
         last_exc = engine.stats.last_fallback_exception or last_exc
+    i_path, i_reason = classify_incremental_member(metric)
     return {
         "update": {"path": u_path, "reason": u_reason},
         "compute": {"path": c_path, "reason": c_reason},
+        "incremental": {"path": i_path, "reason": i_reason},
         "last_fallback_exception": last_exc,
     }
 

@@ -6,13 +6,17 @@ mean, max, min and cat reduction tags, the pure ``init_state`` /
 ``update`` / ``compute`` / ``forward`` / ``reset`` facade, ``state_dict`` and
 ``CompositionalMetric``, the sync facade: ``sync`` / ``unsync`` /
 ``sync_context`` over a ``torch.distributed`` process group, which
-``compute()`` runs in, and the compiled engines (``core/engine.py``): from
-the second call of each input signature, ``update()`` and ``compute()``
-replay a captured CUDA graph (on the CPU, the same step with the value checks
-off). Sketch states (``dist_reduce_fx="sketch"``, ``metrics_tpu_torch.sketches``)
-are one leaf of their components everywhere: reset, moves, ``state_dict``,
-merges, sync and the engines. The JAX package's sharding, incremental sync,
-tracer and resilience guard have no counterpart here.
+``compute()`` runs in, with each state's declared sync transport, tolerance
+and mode (``add_state(sync_transport=, sync_tolerance=, sync_mode=)``), the
+incremental sync protocol (``init_incremental`` /
+``update_state_incremental`` / ``finalize_incremental``), and the compiled
+engines (``core/engine.py``): from the second call of each input signature,
+``update()`` and ``compute()``, synced or not, replay a captured CUDA graph
+(on the CPU, the same step with the value checks off). Sketch states
+(``dist_reduce_fx="sketch"``, ``metrics_tpu_torch.sketches``) are one leaf of
+their components everywhere: reset, moves, ``state_dict``, merges, sync and
+the engines. The JAX package's sharded state, tracer and resilience guard
+have no counterpart here yet.
 
 State lives on one explicit device. ``device=None`` means CUDA; without a
 card the constructor raises instead of quietly running on the CPU, so CPU
@@ -208,7 +212,11 @@ class Metric:
         self._defaults: Dict[str, StateValue] = {}
         self._persistent: Dict[str, bool] = {}
         self._reductions: Dict[str, Optional[Union[str, Callable]]] = {}
+        # declared sync transports, tolerances and modes: configuration, not
+        # state (they change how and when sync bytes cross, not the values)
+        self._sync_transports: Dict[str, str] = {}
         self._sync_tolerances: Dict[str, float] = {}
+        self._sync_modes: Dict[str, str] = {}
         self._update_count = 0
         self._forward_cache: Any = None
         self._computed: Any = None
@@ -231,7 +239,9 @@ class Metric:
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
         bufferable: Optional[bool] = None,
+        sync_transport: Optional[str] = None,
         sync_tolerance: Optional[float] = None,
+        sync_mode: Optional[str] = None,
     ) -> None:
         """Register a state variable.
 
@@ -246,10 +256,21 @@ class Metric:
         set, an empty-list state that is *bufferable* becomes a buffer of that
         capacity: one consumed as a flat dim-0 concatenation. ``bufferable``
         defaults to ``dist_reduce_fx == "cat"``; flat ``None``-reduce lists
-        (retrieval's) pass ``bufferable=True``. ``sync_tolerance`` records
-        the state's relative error budget in :attr:`sync_tolerances`, as the
-        JAX package does; the port has no quantized transports yet, so
-        nothing reads it.
+        (retrieval's) pass ``bufferable=True``.
+
+        ``sync_transport`` declares how the state's sync bucket crosses the
+        wire: ``"exact"`` (the default), ``"bf16"``, ``"int8"`` or
+        ``"sparse_count"`` (:mod:`metrics_tpu_torch.parallel.sync`). It wins
+        over :func:`~metrics_tpu_torch.set_sync_transport` but never over the
+        error-budget gate, which falls back to exact when the predicted
+        error exceeds ``sync_tolerance``, the state's relative budget (unset:
+        the transport's default; the tightest in a bucket wins).
+        ``sync_mode`` is ``"deferred"`` (sync at ``compute()``) or
+        ``"incremental"`` (emissions during the streak, through the
+        incremental protocol); it wins over
+        :func:`~metrics_tpu_torch.set_sync_mode` in both directions, and only
+        dense elementwise states can take emissions. All three are
+        configuration, not state.
         """
         if (
             not isinstance(default, (Tensor, CatBuffer))
@@ -278,11 +299,21 @@ class Metric:
             default = CatBuffer.empty(self.buffer_capacity)
         if isinstance(default, (Tensor, CatBuffer)) or _is_sketch(default):
             default = default.to(self._device)
+        if sync_transport is not None:
+            if sync_transport not in _sync.TRANSPORTS:
+                raise ValueError(
+                    f"state {name!r}: unknown sync_transport {sync_transport!r}; expected one of {_sync.TRANSPORTS}"
+                )
+            self._sync_transports[name] = sync_transport
         if sync_tolerance is not None:
             sync_tolerance = float(sync_tolerance)
             if sync_tolerance < 0.0:
                 raise ValueError(f"state {name!r}: sync_tolerance must be >= 0, got {sync_tolerance}")
             self._sync_tolerances[name] = sync_tolerance
+        if sync_mode is not None:
+            if sync_mode not in _sync.SYNC_MODES:
+                raise ValueError(f"state {name!r}: unknown sync_mode {sync_mode!r}; expected one of {_sync.SYNC_MODES}")
+            self._sync_modes[name] = sync_mode
         if isinstance(default, CatBuffer) and name not in self._buffer_states:
             self._buffer_states = self._buffer_states + (name,)
         self._defaults[name] = _copy_state_value(default)
@@ -301,9 +332,20 @@ class Metric:
         return self._device
 
     @property
+    def sync_transports(self) -> Dict[str, str]:
+        """Declared per-state sync transports (name -> transport)."""
+        return dict(self._sync_transports)
+
+    @property
     def sync_tolerances(self) -> Dict[str, float]:
         """Declared per-state sync error tolerances (name -> relative budget)."""
         return dict(self._sync_tolerances)
+
+    @property
+    def sync_modes(self) -> Dict[str, str]:
+        """Declared per-state sync modes (name -> mode); undeclared states
+        follow :func:`~metrics_tpu_torch.parallel.sync_mode_default`."""
+        return dict(self._sync_modes)
 
     # ------------------------------------------------------------------ #
     # pure functional protocol
@@ -456,10 +498,66 @@ class Metric:
 
     def sync_states(self, state: StateDict, group: Optional[dist.ProcessGroup]) -> StateDict:
         """Pure: ``state`` synced over ``group`` by reduction tag (bucketed
-        by ``(reduction, dtype)`` unless
+        by ``(reduction, dtype, transport)`` unless
         :func:`~metrics_tpu_torch.parallel.set_bucketed_sync` turned it
-        off); ``group=None`` returns it unchanged."""
-        return _sync.sync_state(state, self._reductions, group)
+        off), each state through its declared transport behind the
+        error-budget gate; ``group=None`` returns it unchanged."""
+        return _sync.sync_state(
+            state, self._reductions, group, transports=self._sync_transports, tolerances=self._sync_tolerances
+        )
+
+    def sync_compute_state(self, state: StateDict, group: Optional[dist.ProcessGroup] = None) -> Any:
+        """Pure sync, then compute: the unit the compiled compute engine
+        captures, collectives included. ``group=None`` skips the sync."""
+        if group is not None:
+            state = self.sync_states(state, group)
+        return self.compute_state(state)
+
+    # ------------------------------------------------------------------ #
+    # incremental sync protocol: in-streak emissions
+    # ------------------------------------------------------------------ #
+    def incremental_plan(self, state: Optional[StateDict] = None) -> Dict[str, Dict[str, Any]]:
+        """Pure: each state's incremental routing under the resolved mode
+        (:func:`~metrics_tpu_torch.parallel.incremental_plan`)."""
+        return _sync.incremental_plan(self.metric_state if state is None else state, self._reductions,
+                                      modes=self._sync_modes)
+
+    def init_incremental(self, state: StateDict, *, sync_every: Optional[int] = None) -> "_sync.IncrementalCarry":
+        """Pure: a streak's starting ``state`` (usually :meth:`init_state`)
+        in an :class:`~metrics_tpu_torch.parallel.IncrementalCarry` that
+        emits every ``sync_every``-th update (default
+        :func:`~metrics_tpu_torch.parallel.sync_cadence_default`)."""
+        return _sync.init_incremental(state, self._reductions, modes=self._sync_modes, sync_every=sync_every,
+                                      transports=self._sync_transports)
+
+    def update_state_incremental(
+        self, carry: "_sync.IncrementalCarry", *args: Any, group: Optional[dist.ProcessGroup] = None, **kwargs: Any
+    ) -> "_sync.IncrementalCarry":
+        """Pure: one streak step, :meth:`update_state` then, with ``group``
+        given and the cadence due, the covered buckets' collectives folded
+        into the carry's accumulator. ``group=None`` never emits, so the
+        carry is a plain deferred state holder.
+        ``core.engine.CompiledIncrementalStep`` captures this step."""
+        state = self.update_state(carry.state, *args, **kwargs)
+        return _sync.advance_incremental(
+            carry, state, self._reductions, group, modes=self._sync_modes, transports=self._sync_transports,
+            tolerances=self._sync_tolerances,
+        )
+
+    def finalize_incremental(self, carry: "_sync.IncrementalCarry", group: Optional[dist.ProcessGroup] = None) -> StateDict:
+        """Pure: the synced state at the end of a streak. Covered buckets
+        cost nothing; cadence tails and residue sync through the deferred
+        path, bitwise equal to :meth:`sync_states` of the final state under
+        exact transports."""
+        return _sync.finalize_incremental_state(
+            carry, self._reductions, group, modes=self._sync_modes, transports=self._sync_transports,
+            tolerances=self._sync_tolerances,
+        )
+
+    def sync_compute_incremental(self, carry: "_sync.IncrementalCarry", group: Optional[dist.ProcessGroup] = None) -> Any:
+        """Pure finalize, then compute: the incremental counterpart of
+        :meth:`sync_compute_state`."""
+        return self.compute_state(self.finalize_incremental(carry, group))
 
     # ------------------------------------------------------------------ #
     # stateful facade: forward / update / compute
@@ -679,7 +777,7 @@ class Metric:
         if dist_sync_fn is not None:
             self.set_state(dist_sync_fn(state, self._reductions, group))
         else:
-            self.set_state(_sync.sync_state(state, self._reductions, group))
+            self.set_state(self.sync_states(state, group))
 
     def sync(
         self,

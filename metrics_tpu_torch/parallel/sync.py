@@ -1,9 +1,9 @@
 """Metric state sync over ``torch.distributed`` process groups.
 
-Counterpart of the core of ``metrics_tpu/parallel/sync.py``. Where the JAX
-package names a mesh axis, the port takes a ``ProcessGroup``; where it emits
+Counterpart of ``metrics_tpu/parallel/sync.py``. Where the JAX package names a
+mesh axis, the port takes a ``ProcessGroup``; where it emits
 ``psum``/``pmean``/``pmax``/``pmin``/``all_gather`` inside a ``shard_map``,
-the port runs one eager collective:
+the port runs one collective:
 
 - ``sum``, ``max`` and ``min`` states are one ``all_reduce``; ``mean`` is a
   SUM ``all_reduce`` divided by the group's size (gloo has no AVG);
@@ -12,15 +12,34 @@ the port runs one eager collective:
   to the largest row count, ``all_gather`` and trim, in rank-major order;
 - ``None`` stacks the ranks' values and a callable applies to the stack.
 
-By default the leaves of a state are coalesced by ``(reduction, dtype)`` into
-one flat buffer per bucket and one collective each (``_sync_bucketed``), as in
-the JAX package; ``CatBuffer`` states gather their fill counts and overflow
-flags in one ``all_gather`` and their payloads in one per dtype
-(``_sync_bucketed_catbuffers``). A sketch state (``"sketch"``) splits into
-its components, each an elementwise ``sum``, ``max`` or ``min`` leaf that
-joins the ``(reduction, dtype)`` buckets like any other, and is reassembled
-after them: sketches add no collective of their own. Bools cross the wire as
-int32, since gloo reduces no bool.
+By default the leaves of a state are coalesced by ``(reduction, dtype,
+transport)`` into one flat buffer per bucket and one collective each
+(``_sync_bucketed``), as in the JAX package; ``CatBuffer`` states gather their
+fill counts and overflow flags in one ``all_gather`` and their payloads in one
+per dtype (``_sync_bucketed_catbuffers``). A sketch state (``"sketch"``) splits
+into its components, each an elementwise ``sum``, ``max`` or ``min`` leaf that
+joins the buckets like any other, and is reassembled after them: sketches add
+no collective of their own. Bools cross the wire as int32, since gloo reduces
+no bool.
+
+**Transports** (the wire axis). Each sum bucket crosses the wire through a
+declared transport: ``exact`` (the default), ``bf16`` (cast, ``all_reduce``,
+upcast), ``int8`` (a MAX ``all_reduce`` of one scale per 256-element block,
+then the int8 payload ``all_gather``-ed and summed locally in int32: the
+JAX package widens to int32 inside its ``psum`` and counts int8 bytes; the
+port hands int8 to ``torch.distributed`` and counts what it hands over) and
+``sparse_count`` (the top ``K`` entries as values and indices, gathered and
+scatter-added; a MAX ``all_reduce`` of the nonzero count, read on the host,
+takes the dense ``all_reduce`` when any rank holds more than ``K``). Every
+quantized bucket passes the error-budget gate (``_gate_transport``), which
+refuses it back to exact with a reason-carrying record.
+
+**Incremental sync** (the time axis). ``init_incremental`` /
+``advance_incremental`` / ``finalize_incremental_state`` carry a streak's
+state with a synced accumulator: every ``sync_every``-th step emits the
+covered buckets' collectives, so finalize pays only cadence tails and the
+non-elementwise residue, bitwise equal to a deferred ``sync_state`` of the
+final state for exact transports.
 
 ``group=None`` is the identity: outside a multi-process run there is
 nothing to sync. Unlike ``shard_map``, where every device runs one trace, the
@@ -30,12 +49,16 @@ An empty ``cat`` list or an unmaterialized ``CatBuffer`` passes through
 unchanged, as in the JAX package, so a rank that never appended to such a
 state must not sync it while others do.
 
-Not ported: transports and codecs, incremental sync, sharded and resharded
-state and tenant-stacked sync.
+Not ported here: sharded and resharded state, whose ``kind="reshard"``
+bounds the gate already models (A17b); tenant-stacked sync (A19); the
+autotune controller that ``_resolve_transport`` and ``sync_cadence_default``
+consult in the JAX package, and the tracer, chaos and registry hooks (A20):
+they go where those functions now fall through to the global defaults.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
@@ -80,9 +103,363 @@ def set_bucketed_sync(enabled: Optional[bool]) -> None:
 
 
 # --------------------------------------------------------------------------- #
+# sync mode and cadence: deferred (at compute) or incremental (in the streak)
+# --------------------------------------------------------------------------- #
+# Precedence: per-state ``add_state(sync_mode=)`` > ``set_sync_mode()`` >
+# ``METRICS_TPU_SYNC_MODE`` > ``"deferred"``; the cadence: the carry's
+# ``sync_every=`` > ``set_sync_cadence()`` > ``METRICS_TPU_SYNC_EVERY`` > 1.
+SYNC_MODES = ("deferred", "incremental")
+
+_ENV_SYNC_MODE = "METRICS_TPU_SYNC_MODE"
+_ENV_SYNC_EVERY = "METRICS_TPU_SYNC_EVERY"
+_sync_mode_default: Optional[str] = None  # None = follow the environment
+_sync_cadence_default: Optional[int] = None  # None = follow the environment
+
+
+def _sketch_entries(key: str, sketch: Any) -> List[Tuple[str, Tensor, str]]:
+    """Per-component ``(flat_key, tensor, reduction)`` rows of a sketch."""
+    return [(f"{key}{_SKETCH_SEP}{fname}", getattr(sketch, fname), fred) for fname, fred in sketch.component_reductions()]
+
+
+def _expand_sketch_maps(
+    key: str,
+    sketch: Any,
+    transports: Optional[Dict[str, str]],
+    tolerances: Optional[Dict[str, float]],
+    eff_transports: Dict[str, str],
+    eff_tolerances: Dict[str, float],
+) -> None:
+    """Copy a sketch state's declared transport and tolerance onto its
+    components' flat keys, so the decomposed entries inherit them."""
+    t = (transports or {}).get(key)
+    tol = (tolerances or {}).get(key)
+    for fname, _ in sketch.component_reductions():
+        fkey = f"{key}{_SKETCH_SEP}{fname}"
+        if t is not None:
+            eff_transports[fkey] = t
+        if tol is not None:
+            eff_tolerances[fkey] = tol
+
+
+def _is_integer(dtype: torch.dtype) -> bool:
+    """numpy's ``issubdtype(dtype, integer)``: bool is not an integer."""
+    return not dtype.is_floating_point and not dtype.is_complex and dtype != torch.bool
+
+
+def _sketch_field_codec(fred: str, dtype: torch.dtype) -> str:
+    """Incremental codec of one sketch component: integer sums fold (exact),
+    the rest (max/min registers, float trackers) replace."""
+    return "fold" if fred == "sum" and _is_integer(dtype) else "replace"
+
+
+def sync_mode_default() -> str:
+    """The process-wide default sync mode of states with no declaration
+    (``set_sync_mode`` / ``METRICS_TPU_SYNC_MODE``, ``"deferred"`` unless
+    overridden)."""
+    if _sync_mode_default is not None:
+        return _sync_mode_default
+    env = os.environ.get(_ENV_SYNC_MODE, "deferred").strip().lower()
+    return env if env in SYNC_MODES else "deferred"
+
+
+def set_sync_mode(mode: Optional[str]) -> None:
+    """Set the process-wide default sync mode.
+
+    ``None`` restores the environment default (``METRICS_TPU_SYNC_MODE``,
+    ``"deferred"``). Per-state ``add_state(..., sync_mode=...)`` declarations
+    take precedence over this switch in both directions.
+    """
+    global _sync_mode_default
+    if mode is not None and mode not in SYNC_MODES:
+        raise ValueError(f"unknown sync mode {mode!r}; expected one of {SYNC_MODES}")
+    _sync_mode_default = mode
+
+
+def sync_cadence_default() -> int:
+    """The default emission cadence K (every K-th update of an incremental
+    streak emits): ``set_sync_cadence`` > ``METRICS_TPU_SYNC_EVERY`` > 1. The
+    ``sync_every=`` argument of :func:`init_incremental` outranks all of them."""
+    if _sync_cadence_default is not None:
+        return _sync_cadence_default
+    env = os.environ.get(_ENV_SYNC_EVERY)
+    if env is not None:
+        try:
+            return max(1, int(env))
+        except ValueError:
+            return 1
+    return 1
+
+
+def set_sync_cadence(sync_every: Optional[int]) -> None:
+    """Set the process-wide default emission cadence of incremental sync.
+
+    ``None`` restores the environment default (``METRICS_TPU_SYNC_EVERY``, 1).
+    """
+    global _sync_cadence_default
+    if sync_every is not None and int(sync_every) < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    _sync_cadence_default = None if sync_every is None else int(sync_every)
+
+
+# --------------------------------------------------------------------------- #
+# transports and their error model
+# --------------------------------------------------------------------------- #
+# Transports are configuration, never state: they change how bytes cross the
+# wire, not what the state means.
+TRANSPORTS = ("exact", "bf16", "int8", "sparse_count")
+
+_ENV_TRANSPORT = "METRICS_TPU_SYNC_TRANSPORT"
+_transport_default: Optional[str] = None  # None = follow the environment
+
+# int8 quantization granularity: one max-abs scale per this many elements
+INT8_BLOCK = 256
+# sparse_count slots per rank as a fraction of the bucket's elements
+SPARSE_COUNT_DENSITY = 0.25
+
+# bf16 round-to-nearest relative error (8-bit significand with the hidden bit)
+_EPS_BF16 = 2.0 ** -9
+# int8 symmetric quantization levels across [-max_abs, +max_abs]
+_INT8_LEVELS = 254.0
+
+# Default relative tolerances (against the bucket's largest exact value): the
+# gate refuses a quantized bucket whose predicted worst-case bound exceeds its
+# tolerance. Lossless transports tolerate nothing and bound nothing.
+DEFAULT_TOLERANCES = {"exact": 0.0, "sparse_count": 0.0, "bf16": 0.05, "int8": 0.05}
+
+# dtypes a quantized transport may carry (sum reductions only), by name
+_QUANTIZABLE_DTYPES = frozenset(("float32", "float64", "int32", "int64"))
+_SPARSE_DTYPES = frozenset(("int32", "int64"))
+
+
+def _dtype_name(dtype: Any) -> str:
+    """``"float32"`` for ``torch.float32``, a numpy dtype or the string."""
+    return str(dtype).replace("torch.", "")
+
+
+def _itemsize(dtype: Any) -> int:
+    return torch.empty((), dtype=getattr(torch, _dtype_name(dtype))).element_size()
+
+
+def sync_transport_default() -> str:
+    """The process-wide default transport of buckets with no per-state
+    declaration (``set_sync_transport`` / ``METRICS_TPU_SYNC_TRANSPORT``,
+    ``"exact"`` unless overridden)."""
+    if _transport_default is not None:
+        return _transport_default
+    env = os.environ.get(_ENV_TRANSPORT, "exact").strip().lower()
+    return env if env in TRANSPORTS else "exact"
+
+
+def set_sync_transport(transport: Optional[str]) -> None:
+    """Set the process-wide default sync transport.
+
+    ``None`` restores the environment default (``METRICS_TPU_SYNC_TRANSPORT``,
+    ``"exact"``). Per-state ``add_state(..., sync_transport=...)``
+    declarations take precedence; the error-budget gate outranks both.
+    """
+    global _transport_default
+    if transport is not None and transport not in TRANSPORTS:
+        raise ValueError(f"unknown sync transport {transport!r}; expected one of {TRANSPORTS}")
+    _transport_default = transport
+
+
+def transport_error_bound(transport: str, world: int, kind: str = "psum") -> float:
+    """Worst-case relative quantization error of one synced bucket.
+
+    Relative to the bucket's largest exact magnitude (per int8 scale block
+    for ``int8``), from the group's size alone. ``kind="psum"`` models the
+    error of ``world`` reduced terms; ``kind="reshard"`` one cast or
+    quantization of disjoint blocks (sharded state), independent of the
+    group's size.
+    """
+    if transport in ("exact", "sparse_count"):
+        return 0.0
+    if transport == "bf16":
+        # one cast per term plus the rounding of each add; +2 for the upcast
+        return (2.0 * _EPS_BF16) if kind == "reshard" else (world + 2) * 2.0 * _EPS_BF16
+    if transport == "int8":
+        # each rank rounds to the shared scale grid: error <= scale / 2 = max / 254
+        return (2.0 / _INT8_LEVELS) if kind == "reshard" else (world + 2) / _INT8_LEVELS
+    raise ValueError(f"unknown sync transport {transport!r}")
+
+
+def default_tolerance(transport: str) -> float:
+    """The default tolerance of a transport (:data:`DEFAULT_TOLERANCES`);
+    ``add_state(..., sync_tolerance=)`` overrides it, the tightest declared
+    tolerance in a bucket winning."""
+    return DEFAULT_TOLERANCES[transport]
+
+
+def _transport_applicable(transport: str, red: Any, dtype: Any, kind: str = "psum") -> bool:
+    """Whether a transport can carry a ``(reduction, dtype)`` bucket at all.
+    An inapplicable one routes through ``exact`` with no refusal: a global
+    ``bf16`` switch must not refuse every max or gather bucket."""
+    if transport == "exact":
+        return True
+    name = _dtype_name(dtype)
+    if kind == "reshard":
+        return transport in ("bf16", "int8") and name in _QUANTIZABLE_DTYPES
+    if red != "sum":
+        return False
+    if transport == "sparse_count":
+        return name in _SPARSE_DTYPES
+    return name in _QUANTIZABLE_DTYPES
+
+
+def _sparse_slots(nelems: int) -> int:
+    """The (index, value) slots each rank sends for a sparse_count bucket."""
+    return max(1, min(nelems, int(math.ceil(SPARSE_COUNT_DENSITY * nelems))))
+
+
+def transport_wire_bytes(transport: str, nelems: int, dtype: Any) -> int:
+    """The bytes one rank puts into the collectives of one bucket on
+    ``transport``, protocol included (the int8 scales, the sparse nonzero
+    count), the sparse overflow branch left out."""
+    n = int(nelems)
+    itemsize = _itemsize(dtype)
+    if transport == "exact":
+        return n * itemsize
+    if transport == "bf16":
+        return 2 * n
+    if transport == "int8":
+        nblocks = -(-n // INT8_BLOCK) if n else 0
+        return nblocks * (INT8_BLOCK + 4)
+    if transport == "sparse_count":
+        return 4 + 2 * _sparse_slots(n) * itemsize
+    raise ValueError(f"unknown sync transport {transport!r}")
+
+
+def _gate_transport(
+    transport: str,
+    red: Any,
+    dtype: Any,
+    nelems: int,
+    world: Optional[int],
+    tolerance: Optional[float],
+    kind: str = "psum",
+    error_scale: float = 1.0,
+) -> Tuple[str, Optional[Dict[str, Any]]]:
+    """The error-budget gate: ``(final_transport, refusal or None)``.
+
+    A quantized transport is refused (exact, with a record) when its bound
+    exceeds the bucket's tolerance or the group's size is unknown, and
+    sparse_count when it cannot beat the dense bytes. An inapplicable
+    transport routes to exact with no refusal. ``error_scale`` compounds the
+    bound: the n-th incremental emission of a fold bucket carries n
+    independently quantized deltas.
+    """
+    if transport == "exact":
+        return "exact", None
+    if not _transport_applicable(transport, red, dtype, kind):
+        return "exact", None
+    tol = default_tolerance(transport) if tolerance is None else float(tolerance)
+    scale = max(1.0, float(error_scale))
+    if world is None:
+        refusal = {"transport": transport, "reason": "unknown_world", "bound": None, "tolerance": tol,
+                   "elements": int(nelems)}
+        if scale != 1.0:
+            refusal["emissions"] = int(scale)
+        return "exact", refusal
+    bound = transport_error_bound(transport, world, kind) * scale
+    if bound > tol:
+        refusal = {"transport": transport, "reason": "error_budget", "bound": float(bound), "tolerance": tol,
+                   "world": int(world), "elements": int(nelems)}
+        if scale != 1.0:
+            refusal["emissions"] = int(scale)
+        return "exact", refusal
+    if transport == "sparse_count":
+        itemsize = _itemsize(dtype)
+        k = _sparse_slots(nelems)
+        if 2 * k * itemsize + 4 >= nelems * itemsize:
+            return "exact", {"transport": transport, "reason": "no_byte_win", "bound": 0.0, "tolerance": tol,
+                             "world": int(world), "elements": int(nelems), "slots": int(k)}
+    return transport, None
+
+
+def _resolve_transport(name: str, transports: Optional[Dict[str, str]]) -> str:
+    """Per-state declaration > global default."""
+    t = (transports or {}).get(name)
+    if t is not None and t not in TRANSPORTS:
+        raise ValueError(f"unknown sync transport {t!r} for state {name!r}; expected one of {TRANSPORTS}")
+    return t if t is not None else sync_transport_default()
+
+
+def _bucket_tolerance(names: Sequence[str], tolerances: Optional[Dict[str, float]]) -> Optional[float]:
+    """The tightest declared tolerance in a bucket, or None (the default)."""
+    declared = [float(tolerances[n]) for n in names if tolerances and n in tolerances]
+    return min(declared) if declared else None
+
+
+def _numel(val: Any) -> int:
+    return int(math.prod(val.shape)) if len(val.shape) else 1
+
+
+def transport_plan(
+    state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    world: int,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+    error_scale: float = 1.0,
+) -> List[Dict[str, Any]]:
+    """The per-bucket transport decisions :func:`sync_state` would make in a
+    group of ``world`` ranks, from shapes and dtypes alone (the leaves may be
+    tensors or anything with ``shape`` and ``dtype``); nothing is synced.
+
+    Each entry: ``{"names", "reduction", "dtype", "kind", "elements",
+    "requested", "transport", "bound", "tolerance", "refusal", "wire_bytes",
+    "logical_bytes"}``; ``transport`` is the gate's decision, ``wire_bytes``
+    :func:`transport_wire_bytes` of it, ``logical_bytes`` the exact path's.
+    ``error_scale`` plans the ``error_scale``-th incremental emission.
+    """
+    groups: Dict[Tuple[Any, str, str, str], List[Tuple[str, Any]]] = {}
+    flat_items: List[Tuple[str, Any, Any]] = []
+    eff_transports: Dict[str, str] = dict(transports or {})
+    eff_tolerances: Dict[str, float] = dict(tolerances or {})
+    for name, val in state.items():
+        red = reductions.get(name)
+        if is_sketch(val) and red == "sketch":
+            _expand_sketch_maps(name, val, transports, tolerances, eff_transports, eff_tolerances)
+            flat_items.extend(_sketch_entries(name, val))
+            continue
+        if getattr(val, "dtype", None) is None or getattr(val, "shape", None) is None or callable(red):
+            continue
+        flat_items.append((name, val, red))
+    for name, val, red in flat_items:
+        t = _resolve_transport(name, eff_transports)
+        groups.setdefault((red, _dtype_name(val.dtype), t, "psum"), []).append((name, val))
+    plan: List[Dict[str, Any]] = []
+    for (red, dtype, requested, kind), items in groups.items():
+        names = [n for n, _ in items]
+        nelems = sum(_numel(v) for _, v in items)
+        tol = _bucket_tolerance(names, eff_tolerances)
+        final, refusal = _gate_transport(requested, red, dtype, nelems, world, tol, kind=kind, error_scale=error_scale)
+        eff_tol = (default_tolerance(requested) if tol is None else float(tol)) if requested != "exact" else 0.0
+        plan.append({
+            "names": names,
+            "reduction": red,
+            "dtype": dtype,
+            "kind": kind,
+            "elements": nelems,
+            "requested": requested,
+            "transport": final,
+            "bound": transport_error_bound(final, world, kind) * max(1.0, float(error_scale)),
+            "tolerance": eff_tol,
+            "refusal": refusal,
+            "wire_bytes": transport_wire_bytes(final, nelems, dtype),
+            "logical_bytes": nelems * _itemsize(dtype),
+        })
+    return plan
+
+
+# --------------------------------------------------------------------------- #
 # collective counting
 # --------------------------------------------------------------------------- #
 _counter = threading.local()
+
+
+def _new_box() -> Dict[str, Any]:
+    return {"count": 0, "by_kind": {}, "bytes": 0, "bytes_by_kind": {}, "bytes_by_transport": {}, "refusals": []}
 
 
 @contextlib.contextmanager
@@ -91,17 +468,25 @@ def count_collectives() -> Iterator[Dict[str, Any]]:
 
     Yields a dict: ``count``, ``by_kind`` (``all_reduce``, ``all_gather``,
     ``size_exchange``), ``bytes`` and ``bytes_by_kind``, the payload bytes
-    each rank puts into the collectives. The JAX package counts at trace
-    time; the port counts the collectives it runs. The shape exchanges of
-    ragged ``cat`` gathers have a kind of their own, so the payload
-    collectives compare with the JAX package's kind for kind (``psum``,
-    ``pmean``, ``pmax`` and ``pmin`` are each an ``all_reduce`` here). Boxes
-    nest: every open box sees every collective.
+    each rank hands to ``torch.distributed`` (at the dtype it hands over: an
+    int8 payload counts one byte an element, a bool state four, as int32);
+    ``bytes_by_transport``, ``{transport: {"wire", "logical"}}``, where
+    ``logical`` is what the exact path would have moved for the same bucket
+    (protocol overhead, the int8 scales and the sparse nonzero count, has
+    ``logical=0``; the sparse overflow branch counts under
+    ``sparse_count_overflow``); and ``refusals``, the gate's records.
+
+    The JAX package counts at trace time; the port counts the collectives it
+    runs. A captured step's collectives count at its probe and again at
+    every replay, none at its capture. ``psum``, ``pmean``, ``pmax`` and
+    ``pmin`` are each an ``all_reduce`` here, and the int8 payload, a
+    ``psum`` there, is an ``all_gather``. Boxes nest: every open box sees
+    every collective.
     """
     stack = getattr(_counter, "stack", None)
     if stack is None:
         stack = _counter.stack = []
-    box: Dict[str, Any] = {"count": 0, "by_kind": {}, "bytes": 0, "bytes_by_kind": {}}
+    box = _new_box()
     stack.append(box)
     try:
         yield box
@@ -110,13 +495,57 @@ def count_collectives() -> Iterator[Dict[str, Any]]:
         assert popped is box
 
 
-def _tick(kind: str, wire: Tensor) -> None:
-    nbytes = wire.numel() * wire.element_size()
-    for box in getattr(_counter, "stack", None) or ():
+@contextlib.contextmanager
+def _muted() -> Iterator[None]:
+    """No collective or refusal counts while the block runs (a capture,
+    which records the collectives it does not run)."""
+    prev = getattr(_counter, "muted", False)
+    _counter.muted = True
+    try:
+        yield
+    finally:
+        _counter.muted = prev
+
+
+def _open_boxes() -> Sequence[Dict[str, Any]]:
+    if getattr(_counter, "muted", False):
+        return ()
+    return getattr(_counter, "stack", None) or ()
+
+
+def _tick(kind: str, nbytes: int, logical: Optional[int] = None, transport: str = "exact") -> None:
+    """Count one collective of ``nbytes`` on the wire; ``logical`` is what
+    the exact path would move for it (default: the wire bytes)."""
+    logical = nbytes if logical is None else logical
+    for box in _open_boxes():
         box["count"] += 1
         box["by_kind"][kind] = box["by_kind"].get(kind, 0) + 1
         box["bytes"] += nbytes
         box["bytes_by_kind"][kind] = box["bytes_by_kind"].get(kind, 0) + nbytes
+        per = box["bytes_by_transport"].setdefault(transport, {"wire": 0, "logical": 0})
+        per["wire"] += nbytes
+        per["logical"] += logical
+
+
+def _tick_refusal(refusal: Dict[str, Any]) -> None:
+    for box in _open_boxes():
+        box["refusals"].append(dict(refusal))
+
+
+def replay_ticks(box: Dict[str, Any]) -> None:
+    """Count again, in every open box, the collectives of ``box`` (a
+    captured step's probe) but not its refusals: a replay runs the
+    collectives and judges nothing."""
+    for open_box in _open_boxes():
+        open_box["count"] += box["count"]
+        open_box["bytes"] += box["bytes"]
+        for key in ("by_kind", "bytes_by_kind"):
+            for kind, n in box[key].items():
+                open_box[key][kind] = open_box[key].get(kind, 0) + n
+        for transport, split in box["bytes_by_transport"].items():
+            per = open_box["bytes_by_transport"].setdefault(transport, {"wire": 0, "logical": 0})
+            per["wire"] += split["wire"]
+            per["logical"] += split["logical"]
 
 
 # --------------------------------------------------------------------------- #
@@ -161,9 +590,13 @@ def _to_wire(x: Tensor) -> Tensor:
     return x.to(torch.int32) if x.dtype == torch.bool else x.contiguous().clone()
 
 
+def _nbytes(x: Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _all_reduce(x: Tensor, reduction: str, group: dist.ProcessGroup) -> Tensor:
     wire = _to_wire(x)
-    _tick("all_reduce", wire)
+    _tick("all_reduce", _nbytes(wire))
     dist.all_reduce(wire, op=_REDUCE_OPS[reduction], group=group)
     if reduction == "mean":
         return wire / dist.get_world_size(group)
@@ -172,10 +605,11 @@ def _all_reduce(x: Tensor, reduction: str, group: dist.ProcessGroup) -> Tensor:
     return wire
 
 
-def _all_gather(x: Tensor, group: dist.ProcessGroup, kind: str = "all_gather") -> List[Tensor]:
+def _all_gather(x: Tensor, group: dist.ProcessGroup, kind: str = "all_gather", logical: Optional[int] = None,
+                transport: str = "exact") -> List[Tensor]:
     """Every rank's ``x`` (equal shapes), in rank order."""
     wire = _to_wire(x)
-    _tick(kind, wire)
+    _tick(kind, _nbytes(wire), logical, transport)
     out = [torch.empty_like(wire) for _ in range(dist.get_world_size(group))]
     dist.all_gather(out, wire, group=group)
     return [o.to(torch.bool) for o in out] if x.dtype == torch.bool else out
@@ -246,17 +680,115 @@ def sync_array(x: Tensor, reduction: Reduction, group: Group, name: str = "state
     raise ValueError(f"Unknown dist_reduce_fx {reduction!r}; expected one of {_REDUCTIONS} or a callable.")
 
 
-def _sync_bucketed(entries: List[Tuple[str, Tensor, Reduction]], group: dist.ProcessGroup) -> Dict[str, Tensor]:
-    """One collective per ``(reduction, dtype)`` bucket (plus one shape
-    exchange for a ``cat`` bucket): the bucket's leaves are flattened with
-    ``torch.cat`` and unflattened by offsets, bitwise equal to the per-leaf
-    path. A singleton bucket goes straight through :func:`sync_array`."""
+# --------------------------------------------------------------------------- #
+# the codecs: how a flat sum bucket crosses the wire
+# --------------------------------------------------------------------------- #
+def _sum_bf16(flat: Tensor, group: dist.ProcessGroup, dtype: torch.dtype) -> Tensor:
+    """Cast, ``all_reduce`` in bfloat16, upcast; integer buckets round back."""
+    wire = flat.to(torch.bfloat16)
+    _tick("all_reduce", _nbytes(wire), logical=_nbytes(flat), transport="bf16")
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+    if _is_integer(dtype):
+        return torch.round(wire.to(torch.float32)).to(dtype)
+    return wire.to(dtype)
+
+
+def _sum_int8(flat: Tensor, group: dist.ProcessGroup, dtype: torch.dtype) -> Tensor:
+    """Per-block max-abs scales, then the int8 payload.
+
+    A MAX ``all_reduce`` of one float32 max-abs per :data:`INT8_BLOCK`
+    elements (protocol, ``logical=0``) gives every rank the same grid; each
+    quantizes with round-half-to-even and clips to [-127, 127]. The payload
+    crosses as int8: one ``all_gather``, summed here in int32, which cannot
+    wrap for ``world * 127`` and is exact, so the result is bit for bit the
+    JAX package's int32-accumulated ``psum``.
+    """
+    n = flat.numel()
+    nblocks = -(-n // INT8_BLOCK)
+    padded = torch.nn.functional.pad(flat.to(torch.float32), (0, nblocks * INT8_BLOCK - n))
+    blocks = padded.view(nblocks, INT8_BLOCK)
+    gmax = blocks.abs().amax(dim=1)
+    _tick("all_reduce", _nbytes(gmax), logical=0, transport="int8")
+    dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+    # a tensor divisor: CUDA divides by a Python scalar as a multiplication
+    # by its reciprocal, which may round differently from the division
+    scale = torch.where(gmax > 0.0, gmax / torch.full_like(gmax, 127.0), torch.ones_like(gmax))
+    q = torch.clamp(torch.round(blocks / scale[:, None]), -127.0, 127.0).to(torch.int8)
+    gathered = _all_gather(q, group, logical=_nbytes(flat), transport="int8")
+    acc = torch.stack(gathered).to(torch.int32).sum(dim=0, dtype=torch.int32)
+    deq = (acc.to(torch.float32) * scale[:, None]).reshape(-1)[:n]
+    if _is_integer(dtype):
+        return torch.round(deq).to(dtype)
+    return deq.to(dtype)
+
+
+def _sum_sparse_count(flat: Tensor, group: dist.ProcessGroup, dtype: torch.dtype) -> Tensor:
+    """Values and indices of the ``K = ceil(density * n)`` largest-magnitude
+    entries of each rank, gathered and scatter-added: lossless. A MAX
+    ``all_reduce`` of the nonzero count, read on the host, takes the dense
+    ``all_reduce`` (``sparse_count_overflow``) when any rank holds more than
+    ``K`` nonzeros. The JAX package keeps both branches in one program
+    (``lax.cond``); here the read is a host read, which a captured step
+    refuses."""
+    n = flat.numel()
+    k = _sparse_slots(n)
+    nnz = (flat != 0).sum(dtype=torch.int32).reshape(1)
+    _tick("all_reduce", _nbytes(nnz), logical=0, transport="sparse_count")
+    dist.all_reduce(nnz, op=dist.ReduceOp.MAX, group=group)
+    if int(nnz) > k:
+        wire = flat.contiguous().clone()
+        _tick("all_reduce", _nbytes(wire), transport="sparse_count_overflow")
+        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
+        return wire
+    idx = torch.topk(flat.abs(), k, sorted=False).indices
+    payload = torch.cat([flat[idx], idx.to(dtype)])
+    gathered = torch.stack(_all_gather(payload, group, logical=_nbytes(flat), transport="sparse_count"))  # (world, 2k)
+    vals = gathered[:, :k].reshape(-1)
+    gidx = gathered[:, k:].reshape(-1).to(torch.int64)
+    return torch.zeros(n, dtype=dtype, device=flat.device).index_add_(0, gidx, vals)
+
+
+_CODECS = {"bf16": _sum_bf16, "int8": _sum_int8, "sparse_count": _sum_sparse_count}
+
+
+def _sync_bucketed(
+    entries: List[Tuple[str, Tensor, Reduction]],
+    group: dist.ProcessGroup,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+    error_scale: float = 1.0,
+) -> Dict[str, Tensor]:
+    """One collective per ``(reduction, dtype, transport)`` bucket (plus one
+    shape exchange for a ``cat`` bucket): the bucket's leaves are flattened
+    with ``torch.cat`` and unflattened by offsets, bitwise equal to the
+    per-leaf path. A singleton exact bucket goes straight through
+    :func:`sync_array`. Every leaf resolves its transport (declaration >
+    global default), so a state with no declaration buckets exactly as
+    before; a quantized bucket passes the gate first, and a refused one syncs
+    exact (splitting an elementwise bucket changes no leaf's value)."""
     out: Dict[str, Tensor] = {}
-    buckets: Dict[Tuple[Reduction, torch.dtype], List[Tuple[str, Tensor]]] = {}
+    buckets: Dict[Tuple[Reduction, torch.dtype, str], List[Tuple[str, Tensor]]] = {}
     for name, x, red in entries:
-        buckets.setdefault((red, x.dtype), []).append((name, x))
-    for (red, _dtype), items in buckets.items():
-        if len(items) == 1:
+        buckets.setdefault((red, x.dtype, _resolve_transport(name, transports)), []).append((name, x))
+    world = dist.get_world_size(group) if any(t != "exact" for _, _, t in buckets) else None
+    for (red, dtype, requested), items in buckets.items():
+        transport = requested
+        if requested != "exact":
+            names = [n for n, _ in items]
+            nelems = sum(x.numel() for _, x in items)
+            transport, refusal = _gate_transport(
+                requested, red, dtype, nelems, world, _bucket_tolerance(names, tolerances), error_scale=error_scale
+            )
+            if refusal is not None:
+                _tick_refusal(dict(refusal, reduction=str(red), dtype=_dtype_name(dtype), states=names))
+        if transport != "exact":
+            flat = items[0][1].reshape(-1) if len(items) == 1 else torch.cat([x.reshape(-1) for _, x in items])
+            synced = _CODECS[transport](flat, group, dtype)
+            offset = 0
+            for name, x in items:
+                out[name] = synced[offset : offset + x.numel()].view(x.shape)
+                offset += x.numel()
+        elif len(items) == 1:
             name, x = items[0]
             out[name] = sync_array(x, red, group, name)
         elif red in _ELEMENTWISE:
@@ -328,16 +860,22 @@ def sync_state(
     reductions: Dict[str, Reduction],
     group: Group,
     bucketed: Optional[bool] = None,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
 ) -> Dict[str, Any]:
     """Sync a whole state dict over ``group`` by each state's reduction tag.
 
     ``cat`` list states are concatenated locally first, so each costs one
     gather, and come back as a one-element container of the input's type.
     ``bucketed`` (default: :func:`bucketed_sync_enabled`) coalesces the
-    leaves by ``(reduction, dtype)``; materialized ``CatBuffer`` states join
-    their own bucket; callables always sync per leaf; a sketch syncs as its
-    components (each by its own reduction) and comes back reassembled.
-    ``group=None`` returns the state unchanged.
+    leaves by ``(reduction, dtype, transport)``; materialized ``CatBuffer``
+    states join their own bucket; callables always sync per leaf; a sketch
+    syncs as its components (each by its own reduction, each taking the
+    sketch's declared transport and tolerance) and comes back reassembled.
+    ``transports`` (name -> transport) and ``tolerances`` (name -> relative
+    budget) pick each state's codec; undeclared states follow
+    :func:`sync_transport_default`, and every quantized bucket passes the
+    error-budget gate. ``group=None`` returns the state unchanged.
     """
     if group is None:
         return dict(state)
@@ -348,14 +886,16 @@ def sync_state(
     buf_entries: List[Tuple[str, CatBuffer]] = []
     rewrap: Dict[str, type] = {}
     sketches: Dict[str, Any] = {}
+    eff_transports: Dict[str, str] = dict(transports or {})
+    eff_tolerances: Dict[str, float] = dict(tolerances or {})
     for name, val in state.items():
         red = reductions.get(name)
         if is_sketch(val):
             if red != "sketch":
                 raise ValueError(f"sketch state {name!r} requires dist_reduce_fx 'sketch', got {red!r}")
             sketches[name] = val
-            for fname, fred in val.component_reductions():
-                key, comp = f"{name}{_SKETCH_SEP}{fname}", getattr(val, fname)
+            _expand_sketch_maps(name, val, transports, tolerances, eff_transports, eff_tolerances)
+            for key, comp, fred in _sketch_entries(name, val):
                 if bucketed:
                     entries.append((key, comp, fred))
                 else:
@@ -389,7 +929,7 @@ def sync_state(
         else:
             out[name] = sync_array(val, red, group, name)
     if entries:
-        out.update(_sync_bucketed(entries, group))
+        out.update(_sync_bucketed(entries, group, eff_transports, eff_tolerances))
     if buf_entries:
         out.update(_sync_bucketed_catbuffers(buf_entries, group))
     for name, container in rewrap.items():
@@ -397,6 +937,35 @@ def sync_state(
     for name, sketch in sketches.items():
         out[name] = sketch.replace(**{f: out[f"{name}{_SKETCH_SEP}{f}"] for f, _ in sketch.component_reductions()})
     return {name: out[name] for name in state}
+
+
+def sync_host_read(
+    state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    group: Group,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+) -> Optional[str]:
+    """Why :func:`sync_state` of ``state`` would read a value back to the
+    host (which a captured step cannot do), or None. Decided from the
+    structure, the declarations and the group's size alone, before any
+    collective runs, so every rank refuses alike."""
+    if group is None:
+        return None
+    for name, val in state.items():
+        red = reductions.get(name)
+        if isinstance(val, CatBuffer) and val.materialized:
+            return f"the sync of CatBuffer state {name!r} reads the ranks' fill counts back to the host"
+        if isinstance(val, (list, tuple)) and len(val):
+            return f"the sync of list state {name!r} exchanges its ranks' shapes through the host"
+        if isinstance(val, Tensor) and red == "cat":
+            return f"the ragged gather of cat state {name!r} exchanges its ranks' shapes through the host"
+    world = dist.get_world_size(group)
+    for entry in transport_plan(state, reductions, world, transports, tolerances):
+        if entry["transport"] == "sparse_count":
+            return (f"the sparse_count sync of {entry['names']} reads its nonzero count back to the host to pick "
+                    "its branch")
+    return None
 
 
 def gather_all_arrays(x: Tensor, group: Group = None) -> List[Tensor]:
@@ -409,3 +978,378 @@ def gather_all_arrays(x: Tensor, group: Group = None) -> List[Tensor]:
     shapes = [s.tolist() for s in _all_gather(torch.tensor(x.shape, dtype=torch.int64, device=x.device), group, "size_exchange")]
     rows = max(s[0] for s in shapes)
     return [g[: s[0]] for g, s in zip(_all_gather(_pad_rows(x, rows), group), shapes)]
+
+
+# --------------------------------------------------------------------------- #
+# incremental sync: in-streak per-bucket emissions
+# --------------------------------------------------------------------------- #
+# Two emission codecs, chosen so that incremental equals deferred bit for bit
+# under exact transports:
+#
+# ``fold``     integer ``sum`` leaves. Each emission syncs the delta since the
+#              last one and adds it to a synced accumulator (``acc +=
+#              sum(state - last); last = state``); integer adds are exact and
+#              associative, so a cadence tail costs one residual delta sync.
+#              Quantized transports compound per emission: the gate judges
+#              the ``emission``-th bound.
+# ``replace``  float ``sum`` and any ``mean``/``max``/``min`` leaves. Each
+#              emission runs the bucket's full collective and replaces the
+#              accumulator; the last one is the deferred collective itself
+#              when the cadence lands on the final update, else finalize
+#              re-syncs the live state.
+#
+# Everything else (cat/None/callable reductions, list and CatBuffer states,
+# and, once sharded state is ported, shard_axis leaves) is residue: the
+# ordinary deferred sync at finalize.
+def _resolve_mode(name: str, modes: Optional[Dict[str, str]]) -> str:
+    m = (modes or {}).get(name)
+    if m is not None and m not in SYNC_MODES:
+        raise ValueError(f"unknown sync mode {m!r} for state {name!r}; expected one of {SYNC_MODES}")
+    return m if m is not None else sync_mode_default()
+
+
+def incremental_plan(
+    state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    modes: Optional[Dict[str, str]] = None,
+    shard_axes: Optional[Dict[str, Any]] = None,
+) -> Dict[str, Dict[str, Any]]:
+    """Per-leaf routing of incremental sync: ``{name: {"mode", "codec",
+    "eligible", "reason"}}``. ``mode`` is ``"incremental"`` (the leaf takes
+    emissions) or ``"deferred"`` (finalize residue); ``codec`` is ``"fold"``,
+    ``"replace"``, ``"sketch"`` or None; ``eligible`` says whether the leaf
+    could take emissions (a dense tensor of an elementwise reduction, not
+    sharded); ``reason`` explains a deferred routing. Reads only dtypes and
+    declarations. ``shard_axes`` names sharded leaves, which stay residue
+    (the port has none until sharded state is ported)."""
+    shard_axes = shard_axes or {}
+    plan: Dict[str, Dict[str, Any]] = {}
+    for name, val in state.items():
+        red = reductions.get(name)
+        if is_sketch(val) and red == "sketch":
+            if _resolve_mode(name, modes) == "incremental":
+                plan[name] = {"mode": "incremental", "codec": "sketch", "eligible": True, "reason": ""}
+            else:
+                plan[name] = {"mode": "deferred", "codec": "sketch", "eligible": True,
+                              "reason": "sync mode resolves to deferred"}
+            continue
+        dtype = None if isinstance(val, CatBuffer) else getattr(val, "dtype", None)
+        if isinstance(val, (list, tuple)) or dtype is None:
+            entry = {"mode": "deferred", "codec": None, "eligible": False,
+                     "reason": "non-array state (list/CatBuffer) has per-device layout"}
+        elif callable(red) or red not in _ELEMENTWISE:
+            entry = {"mode": "deferred", "codec": None, "eligible": False,
+                     "reason": f"reduction {red!r} is not mergeable-elementwise"}
+        elif name in shard_axes:
+            entry = {"mode": "deferred", "codec": None, "eligible": False,
+                     "reason": "shard_axis leaves sync gather-free/resharded at finalize"}
+        else:
+            codec = "fold" if red == "sum" and _is_integer(dtype) else "replace"
+            if _resolve_mode(name, modes) == "incremental":
+                entry = {"mode": "incremental", "codec": codec, "eligible": True, "reason": ""}
+            else:
+                entry = {"mode": "deferred", "codec": codec, "eligible": True, "reason": "sync mode resolves to deferred"}
+        plan[name] = entry
+    return plan
+
+
+class IncrementalCarry:
+    """A streak's ``(state, acc, last)`` with its cadence bookkeeping.
+
+    ``state`` is the live, unsynced state (authoritative for residue);
+    ``acc`` the synced accumulator of each covered leaf; ``last`` the state
+    of each ``fold`` leaf at the last emission. ``sync_every``, ``pending``,
+    ``emissions`` and ``track_emissions`` are Python ints and a bool: the
+    static part of the JAX package's pytree, here the spec of the engines'
+    tree flattener (``core/engine.py``), which flattens a carry into its
+    three dicts. ``pending`` cycles ``0..K-1`` (saturating at K where
+    nothing emits); ``emissions`` is the ordinal the quantized gate
+    compounds by, saturating at 1 when no covered leaf is quantized.
+    """
+
+    __slots__ = ("state", "acc", "last", "sync_every", "pending", "emissions", "track_emissions")
+
+    def __init__(
+        self,
+        state: Dict[str, Any],
+        acc: Dict[str, Tensor],
+        last: Dict[str, Tensor],
+        sync_every: int = 1,
+        pending: int = 0,
+        emissions: int = 0,
+        track_emissions: bool = False,
+    ) -> None:
+        self.state = state
+        self.acc = acc
+        self.last = last
+        self.sync_every = int(sync_every)
+        self.pending = int(pending)
+        self.emissions = int(emissions)
+        self.track_emissions = bool(track_emissions)
+
+    @property
+    def synced(self) -> bool:
+        """Whether at least one emission has run (``acc`` holds real data)."""
+        return self.emissions > 0
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"IncrementalCarry(leaves={len(self.state)}, covered={len(self.acc)}, sync_every={self.sync_every}, "
+                f"pending={self.pending}, emissions={self.emissions})")
+
+
+def init_incremental(
+    state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    *,
+    modes: Optional[Dict[str, str]] = None,
+    sync_every: Optional[int] = None,
+    transports: Optional[Dict[str, str]] = None,
+) -> IncrementalCarry:
+    """A fresh :class:`IncrementalCarry` around ``state``: zero accumulators
+    for the covered leaves and zero delta bases for the ``fold`` ones (the
+    first delta is the whole state). ``sync_every`` (default
+    :func:`sync_cadence_default`) is the cadence K."""
+    k = sync_cadence_default() if sync_every is None else int(sync_every)
+    if k < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    plan = incremental_plan(state, reductions, modes=modes)
+    acc: Dict[str, Tensor] = {}
+    last: Dict[str, Tensor] = {}
+    covered: List[str] = []
+    eff_transports: Dict[str, str] = dict(transports or {})
+    for name, entry in plan.items():
+        if entry["mode"] != "incremental":
+            continue
+        if entry["codec"] == "sketch":
+            sk = state[name]
+            _expand_sketch_maps(name, sk, transports, None, eff_transports, {})
+            for key, comp, fred in _sketch_entries(name, sk):
+                acc[key] = torch.zeros_like(comp)
+                if _sketch_field_codec(fred, comp.dtype) == "fold":
+                    last[key] = torch.zeros_like(comp)
+                covered.append(key)
+            continue
+        leaf = state[name]
+        acc[name] = torch.zeros_like(leaf)
+        if entry["codec"] == "fold":
+            last[name] = torch.zeros_like(leaf)
+        covered.append(name)
+    track = any(_resolve_transport(n, eff_transports) != "exact" for n in covered)
+    return IncrementalCarry(dict(state), acc, last, sync_every=k, pending=0, emissions=0, track_emissions=track)
+
+
+def _emission_entries(
+    state: Dict[str, Any],
+    last: Dict[str, Tensor],
+    reductions: Dict[str, Reduction],
+    modes: Optional[Dict[str, str]],
+    transports: Optional[Dict[str, str]],
+    tolerances: Optional[Dict[str, float]],
+) -> Tuple[List[Tuple[str, Tensor, Reduction]], List[Tuple[str, Tensor, Reduction]], Dict[str, Tensor],
+           Dict[str, str], Dict[str, float]]:
+    """The fold entries (deltas), the replace entries (live leaves), the live
+    leaf of each, and the transports and tolerances with sketch components
+    expanded, of one emission."""
+    plan = incremental_plan(state, reductions, modes=modes)
+    fold: List[Tuple[str, Tensor, Reduction]] = []
+    replace: List[Tuple[str, Tensor, Reduction]] = []
+    live: Dict[str, Tensor] = {}
+    eff_transports: Dict[str, str] = dict(transports or {})
+    eff_tolerances: Dict[str, float] = dict(tolerances or {})
+    for name, entry in plan.items():
+        if entry["mode"] != "incremental":
+            continue
+        if entry["codec"] == "sketch":
+            sk = state[name]
+            _expand_sketch_maps(name, sk, transports, tolerances, eff_transports, eff_tolerances)
+            for key, comp, fred in _sketch_entries(name, sk):
+                live[key] = comp
+                if _sketch_field_codec(fred, comp.dtype) == "fold":
+                    fold.append((key, comp - last[key], "sum"))
+                else:
+                    replace.append((key, comp, fred))
+            continue
+        arr = state[name]
+        live[name] = arr
+        if entry["codec"] == "fold":
+            fold.append((name, arr - last[name], "sum"))
+        else:
+            replace.append((name, arr, reductions.get(name)))
+    return fold, replace, live, eff_transports, eff_tolerances
+
+
+def emit_incremental(
+    state: Dict[str, Any],
+    acc: Dict[str, Tensor],
+    last: Dict[str, Tensor],
+    reductions: Dict[str, Reduction],
+    group: dist.ProcessGroup,
+    *,
+    modes: Optional[Dict[str, str]] = None,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+    emission: int = 1,
+) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """One in-streak emission: the new ``(acc, last)``. ``fold`` leaves sync
+    their delta since ``last`` (bucketed like the deferred path, gated at the
+    ``emission``-th compounded bound) into ``acc``; ``replace`` leaves run
+    their full bucket collective and replace ``acc``."""
+    fold, replace, live, eff_transports, eff_tolerances = _emission_entries(
+        state, last, reductions, modes, transports, tolerances
+    )
+    new_acc = dict(acc)
+    new_last = dict(last)
+    if fold:
+        # fold and replace leaves never share a bucket (fold is exactly the
+        # integer sums), so two calls bucket as one would
+        synced = _sync_bucketed(fold, group, eff_transports, eff_tolerances, error_scale=float(emission))
+        for name, _, _ in fold:
+            new_acc[name] = acc[name] + synced[name]
+            new_last[name] = live[name]
+    if replace:
+        # a full collective each time: its error does not compound
+        synced = _sync_bucketed(replace, group, eff_transports, eff_tolerances)
+        for name, _, _ in replace:
+            new_acc[name] = synced[name]
+    return new_acc, new_last
+
+
+def finalize_incremental(
+    state: Dict[str, Any],
+    acc: Dict[str, Tensor],
+    last: Dict[str, Tensor],
+    reductions: Dict[str, Reduction],
+    group: Group,
+    *,
+    pending: int,
+    synced: bool,
+    modes: Optional[Dict[str, str]] = None,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+    bucketed: Optional[bool] = None,
+    emission: int = 1,
+) -> Dict[str, Any]:
+    """The synced state at the end of a streak, paying only the residue:
+
+    - covered and fresh (``pending == 0`` after an emission): the
+      accumulator is the synced leaf, no collective;
+    - covered ``fold`` with a cadence tail: one residual delta sync per
+      bucket, folded in (still exact for integer sums);
+    - covered ``replace`` with a tail, or a carry that never emitted: the
+      live state through the deferred path;
+    - residue leaves: the ordinary :func:`sync_state`.
+    """
+    if group is None:
+        return dict(state)
+    plan = incremental_plan(state, reductions, modes=modes)
+    out: Dict[str, Any] = {}
+    residue: Dict[str, Any] = {}
+    fold_tail: List[Tuple[str, Tensor, Reduction]] = []
+    for name, entry in plan.items():
+        if entry["codec"] == "sketch" and is_sketch(state.get(name)):
+            sk = state[name]
+            keys = [f"{name}{_SKETCH_SEP}{fname}" for fname, _ in sk.component_reductions()]
+            covered = entry["mode"] == "incremental" and all(k in acc for k in keys)
+            if covered and synced and pending <= 0:
+                out[name] = sk.replace(**{f: acc[f"{name}{_SKETCH_SEP}{f}"] for f, _ in sk.component_reductions()})
+            else:
+                # a tail or no emission: the max/min components re-sync anyway
+                residue[name] = sk
+            continue
+        covered = entry["mode"] == "incremental" and name in acc
+        if not covered or not synced:
+            residue[name] = state[name]
+        elif pending <= 0:
+            out[name] = acc[name]
+        elif entry["codec"] == "fold":
+            fold_tail.append((name, state[name] - last[name], "sum"))
+        else:
+            residue[name] = state[name]
+    if fold_tail:
+        tail = _sync_bucketed(fold_tail, group, transports, tolerances, error_scale=float(emission))
+        for name, _, _ in fold_tail:
+            out[name] = acc[name] + tail[name]
+    if residue:
+        out.update(sync_state(
+            residue, {n: reductions.get(n) for n in residue}, group, bucketed=bucketed,
+            transports={n: t for n, t in (transports or {}).items() if n in residue},
+            tolerances={n: t for n, t in (tolerances or {}).items() if n in residue},
+        ))
+    return {name: out[name] for name in state}
+
+
+def _advanced(carry: IncrementalCarry, group: Group) -> Tuple[bool, int, int]:
+    """Whether advancing ``carry`` emits, and its next ``(pending,
+    emissions)``: the host bookkeeping of :func:`advance_incremental`."""
+    k = carry.sync_every
+    pending = carry.pending + 1
+    if group is None or not carry.acc:
+        return False, min(pending, k), carry.emissions
+    if pending < k:
+        return False, pending, carry.emissions
+    emission = carry.emissions + 1
+    return True, 0, emission if carry.track_emissions else min(emission, 1)
+
+
+def advance_incremental(
+    carry: IncrementalCarry,
+    new_state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    group: Group = None,
+    *,
+    modes: Optional[Dict[str, str]] = None,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+) -> IncrementalCarry:
+    """Fold one post-update state into the carry, emitting on cadence.
+    ``group=None`` never emits: the carry tracks the live state and finalize
+    is the deferred sync (``pending`` saturates at ``sync_every``)."""
+    emits, pending, emissions = _advanced(carry, group)
+    acc, last = carry.acc, carry.last
+    if emits:
+        acc, last = emit_incremental(
+            new_state, carry.acc, carry.last, reductions, group, modes=modes, transports=transports,
+            tolerances=tolerances, emission=carry.emissions + 1,
+        )
+    return IncrementalCarry(new_state, acc, last, carry.sync_every, pending, emissions, carry.track_emissions)
+
+
+def emission_transports(
+    carry: IncrementalCarry,
+    reductions: Dict[str, Reduction],
+    world: int,
+    *,
+    modes: Optional[Dict[str, str]] = None,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+) -> Tuple[Tuple[Tuple[str, ...], str], ...]:
+    """The gate's decision for each fold bucket at the carry's next
+    emission (its names and final transport): what a captured emission
+    bakes in besides the state's shapes. Empty when no covered leaf is
+    quantized, since then nothing compounds."""
+    if not carry.track_emissions:
+        return ()
+    fold, _, _, eff_transports, eff_tolerances = _emission_entries(
+        carry.state, carry.last, reductions, modes, transports, tolerances
+    )
+    plan = transport_plan({n: x for n, x, _ in fold}, {n: "sum" for n, _, _ in fold}, world,
+                          eff_transports, eff_tolerances, error_scale=float(carry.emissions + 1))
+    return tuple((tuple(p["names"]), p["transport"]) for p in plan)
+
+
+def finalize_incremental_state(
+    carry: IncrementalCarry,
+    reductions: Dict[str, Reduction],
+    group: Group,
+    *,
+    modes: Optional[Dict[str, str]] = None,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+    bucketed: Optional[bool] = None,
+) -> Dict[str, Any]:
+    """Carry-level wrapper over :func:`finalize_incremental`."""
+    return finalize_incremental(
+        carry.state, carry.acc, carry.last, reductions, group, pending=carry.pending, synced=carry.synced,
+        modes=modes, transports=transports, tolerances=tolerances, bucketed=bucketed,
+        emission=carry.emissions + 1,
+    )

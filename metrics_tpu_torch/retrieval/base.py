@@ -17,7 +17,7 @@ Two evaluation paths, as in the JAX package:
 
 The states are flat ``dist_reduce_fx=None`` lists, or buffers under
 ``buffer_capacity`` (``bufferable=True``); the JAX package's ``shard_axis=0``
-declaration on them waits for sharded state (ROADMAP A17).
+declaration on them waits for sharded state (ROADMAP A17b).
 """
 from __future__ import annotations
 

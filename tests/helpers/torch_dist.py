@@ -12,6 +12,7 @@ answer within ``WATCHDOG_S`` is terminated and the call fails.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
@@ -430,3 +431,266 @@ def fid_synced(calls: Sequence[tuple]) -> Dict[str, Any]:
         synced = metric.sync_states(local, dist.group.WORLD)
     value = metric.compute()
     return {"local": to_numpy(local), "synced": to_numpy(synced), "counts": dict(box["by_kind"]), "fid": float(value)}
+
+
+# --------------------------------------------------------------------------- #
+# transports and incremental sync (tests/test_torch_sync_transports.py and
+# tests/test_torch_incremental_sync.py)
+# --------------------------------------------------------------------------- #
+_SINGLETON: Dict[str, Any] = {}
+
+
+def _group(singleton: bool) -> Any:
+    """The world, or this rank's group of one (every rank makes every
+    singleton group, in rank order, the first time one is asked for)."""
+    if not singleton:
+        return dist.group.WORLD
+    if not _SINGLETON:
+        for r in range(dist.get_world_size()):
+            group = dist.new_group([r])
+            if r == dist.get_rank():
+                _SINGLETON["own"] = group
+    return _SINGLETON["own"]
+
+
+@contextlib.contextmanager
+def _defaults(transport: Optional[str] = None, mode: Optional[str] = None):
+    """The global transport and sync mode for the block, restored after."""
+    mt.set_sync_transport(transport)
+    mt.set_sync_mode(mode)
+    try:
+        yield
+    finally:
+        mt.set_sync_transport(None)
+        mt.set_sync_mode(None)
+
+
+def transport_sync(state: Dict[str, Any], reductions: Dict[str, Any], transports: Optional[dict] = None,
+                   tolerances: Optional[dict] = None, singleton: bool = False, default: Optional[str] = None) -> Dict[str, Any]:
+    """This rank's state synced over the world (or its group of one) with the
+    declared transports; the synced state and the collectives' box."""
+    with _defaults(default), count_collectives() as box:
+        out = sync_state(to_torch(state), reductions, _group(singleton), bucketed=True, transports=transports,
+                         tolerances=tolerances)
+    return {"state": to_numpy(out), "box": box}
+
+
+class QuantMetric(mt.Metric):
+    """A metric declaring a transport on its sum state."""
+
+    full_state_update = False
+
+    def __init__(self, transport: Optional[str] = None, tolerance: Optional[float] = None) -> None:
+        super().__init__(device="cpu", compiled_compute=False)
+        kw: Dict[str, Any] = {}
+        if transport is not None:
+            kw["sync_transport"] = transport
+        if tolerance is not None:
+            kw["sync_tolerance"] = tolerance
+        self.add_state("total", torch.zeros(32), dist_reduce_fx="sum", **kw)
+        self.add_state("n", torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x: torch.Tensor) -> None:
+        self.total = self.total + x
+        self.n = self.n + 1.0
+
+    def compute(self) -> torch.Tensor:
+        return self.total / torch.clamp(self.n, min=1.0)
+
+
+def declared_sync(x: np.ndarray, transport: Optional[str], batch: tuple) -> Dict[str, Any]:
+    """QuantMetric's and the entry collection's ``sync_states`` with every
+    state declared on ``transport``, and the collectives of each."""
+    metric = QuantMetric(transport)
+    with count_collectives() as box:
+        synced = metric.sync_states(metric.update_state(metric.init_state(), torch.from_numpy(x)), dist.group.WORLD)
+    coll = make_collection(C)
+    if transport is not None:
+        for m in coll.values():
+            m._sync_transports = {name: transport for name in m._defaults}
+    states = coll.update_state(coll.init_state(), *to_torch(batch))
+    with count_collectives() as coll_box:
+        coll_synced = coll.sync_states(states, dist.group.WORLD)
+    return {"metric": to_numpy(synced), "box": box, "collection": to_numpy(coll_synced), "coll_box": coll_box}
+
+
+INCR_REDUCTIONS = {"hits": "sum", "n": "sum", "total": "sum", "peak": "max"}
+
+
+def incr_state() -> Dict[str, torch.Tensor]:
+    """Fold (int sums) and replace (float sum, max) leaves, a scalar of each."""
+    return {"hits": torch.arange(16, dtype=torch.int32), "n": torch.tensor(0, dtype=torch.int32),
+            "total": torch.zeros(8), "peak": torch.tensor(float("-inf"))}
+
+
+def incr_step(state: Dict[str, torch.Tensor], x: torch.Tensor, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+    return {"hits": state["hits"] + x, "n": state["n"] + 1, "total": state["total"] + t,
+            "peak": torch.maximum(state["peak"], x.max().to(torch.float32))}
+
+
+def incremental_streak(xs: np.ndarray, ts: np.ndarray, sync_every: int, modes: Optional[dict],
+                       no_group: bool = False, transports: Optional[dict] = None) -> Dict[str, Any]:
+    """The streak through the carry protocol, then finalize; the collectives
+    of every step and of the finalize, and the carry's bookkeeping."""
+    group = None if no_group else dist.group.WORLD
+    carry = mt.parallel.init_incremental(incr_state(), INCR_REDUCTIONS, modes=modes, sync_every=sync_every,
+                                         transports=transports)
+    per_step, marks = [], []
+    for x, t in zip(xs, ts):
+        state = incr_step(carry.state, torch.from_numpy(x), torch.from_numpy(t))
+        with count_collectives() as box:
+            carry = mt.parallel.advance_incremental(carry, state, INCR_REDUCTIONS, group, modes=modes,
+                                                    transports=transports)
+        per_step.append(box["count"])
+        marks.append((carry.sync_every, carry.pending, carry.emissions, carry.track_emissions))
+    with count_collectives() as fin:
+        out = mt.parallel.finalize_incremental_state(carry, INCR_REDUCTIONS, group, modes=modes, transports=transports)
+    return {"out": to_numpy(out), "per_step": per_step, "final": fin["count"], "marks": marks,
+            "state": to_numpy(carry.state)}
+
+
+def deferred_streak(xs: np.ndarray, ts: np.ndarray) -> Dict[str, Any]:
+    """The same updates, one deferred ``sync_state`` at the end."""
+    state = incr_state()
+    for x, t in zip(xs, ts):
+        state = incr_step(state, torch.from_numpy(x), torch.from_numpy(t))
+    with count_collectives() as box:
+        out = sync_state(state, INCR_REDUCTIONS, dist.group.WORLD)
+    return {"out": to_numpy(out), "count": box["count"]}
+
+
+def metric_incremental(preds: np.ndarray, target: np.ndarray, sync_every: int) -> Dict[str, Any]:
+    """Accuracy (micro) with every state incremental: the carry protocol and
+    the deferred ``sync_states`` over the same updates, each with its compute."""
+    world = dist.group.WORLD
+    metric = mt.Accuracy(num_classes=C, average="micro", device="cpu")
+    for name in metric._defaults:
+        metric._sync_modes[name] = "incremental"
+    carry = metric.init_incremental(metric.init_state(), sync_every=sync_every)
+    state = metric.init_state()
+    for p, t in zip(preds, target):
+        carry = metric.update_state_incremental(carry, torch.from_numpy(p), torch.from_numpy(t), group=world)
+        state = metric.update_state(state, torch.from_numpy(p), torch.from_numpy(t))
+    deferred = metric.sync_states(state, world)
+    return {"incremental": to_numpy(metric.finalize_incremental(carry, world)), "deferred": to_numpy(deferred),
+            "incremental_value": to_numpy(metric.sync_compute_incremental(carry, world)),
+            "deferred_value": to_numpy(metric.compute_state(deferred))}
+
+
+def default_modes_sync(batch: tuple) -> Dict[str, Any]:
+    """Accuracy at the default sync mode: ``sync_states`` of its state and
+    the incremental finalize of a carry over the same update, with the
+    collectives of each."""
+    world = dist.group.WORLD
+    metric = mt.Accuracy(num_classes=C, average="micro", device="cpu")
+    args = to_torch(batch)
+    with count_collectives() as box:
+        deferred = metric.sync_states(metric.update_state(metric.init_state(), *args), world)
+    carry = metric.update_state_incremental(metric.init_incremental(metric.init_state()), *args, group=world)
+    with count_collectives() as fin:
+        finalized = metric.finalize_incremental(carry, world)
+    return {"deferred": to_numpy(deferred), "finalized": to_numpy(finalized), "box": box, "fin": fin,
+            "covered": sorted(carry.acc)}
+
+
+class _BodyGraph:
+    """A stand-in graph whose replay runs the captured body, ticking nothing
+    (a graph's replay runs no Python), so the card's replay path runs on the
+    CPU (``tests/helpers/torch_port.py`` has the same for the JAX-side tests)."""
+
+    def __init__(self, step: Any) -> None:
+        self.step = step
+
+    def replay(self) -> None:
+        from metrics_tpu_torch.core import engine
+        from metrics_tpu_torch.parallel import sync as sync_mod
+
+        with engine._steady(), sync_mod._muted():
+            self.step._body()
+
+
+@contextlib.contextmanager
+def _card_replay_path():
+    from metrics_tpu_torch.core import engine
+
+    probe = engine.CapturedStep.probe
+
+    def probe_then_graph(self, state, args, kwargs):
+        out = probe(self, state, args, kwargs)
+        self.graph = _BodyGraph(self)
+        return out
+
+    engine.CapturedStep.probe = probe_then_graph
+    try:
+        yield
+    finally:
+        engine.CapturedStep.probe = probe
+
+
+def _config2_and_binned() -> Any:
+    coll = make_collection(C)
+    coll.add_metrics({"binned": make_metric("BinnedAveragePrecision")})
+    return coll
+
+
+def captured_incremental(batches: Sequence[tuple], sync_every: int) -> Dict[str, Any]:
+    """config2 plus a binned AP, every state incremental, through
+    ``CompiledIncrementalStep`` (replays run the captured body) and through
+    the eager protocol: both finalizes, the deferred sync of the final
+    states, the emitting steps and the engine's counters."""
+    from metrics_tpu_torch.core.engine import CompiledIncrementalStep
+
+    world = dist.group.WORLD
+    with _defaults(mode="incremental"), _card_replay_path():
+        coll = _config2_and_binned()
+        step = CompiledIncrementalStep(coll, world)
+        carries = coll.init_incremental(coll.init_state(), sync_every=sync_every)
+        eager = coll.init_incremental(coll.init_state(), sync_every=sync_every)
+        emitting, counts = 0, []
+        for batch in batches:
+            args = to_torch(batch)
+            with count_collectives() as box:
+                carries = step(carries, *args)
+            eager = coll.update_state_incremental(eager, *args, group=world)
+            emitting += next(iter(carries.values())).pending == 0
+            counts.append(box["count"])
+        with count_collectives() as fin:
+            captured = coll.finalize_incremental(carries, world)
+        deferred = coll.sync_states({k: c.state for k, c in eager.items()}, world)
+        stats = step.stats
+        return {"captured": to_numpy(captured), "eager": to_numpy(coll.finalize_incremental(eager, world)),
+                "deferred": to_numpy(deferred), "emitting": emitting, "counts": counts, "final": fin["count"],
+                "calls": (stats.eager_calls, stats.cache_misses, stats.cache_hits), "broken": step.broken,
+                "collective_counts": dict(stats.collective_counts),
+                "values": to_numpy(coll.sync_compute_incremental(carries, world))}
+
+
+def captured_synced_compute(batches: Sequence[tuple], transport: Optional[str] = None, calls: int = 3) -> Dict[str, Any]:
+    """config2 plus a binned AP at the engine defaults, fed this rank's
+    batches, then ``calls`` synced computes (replays run the captured body):
+    each result and its collectives, the compute engine's counters and the
+    partition's compute paths."""
+    with _defaults(transport), _card_replay_path():
+        coll = _config2_and_binned()
+        for batch in batches:
+            coll.update(*to_torch(batch))
+        results, boxes = [], []
+        with mt.parallel.sync_axes(dist.group.WORLD):
+            for _ in range(calls):
+                for m in coll.values():
+                    m._computed = None
+                with count_collectives() as box:
+                    results.append(to_numpy(coll.compute()))
+                boxes.append(box)
+        stats = coll.engine_stats()
+        compute = stats["compute"]
+        return {"results": results, "boxes": boxes,
+                "stats": None if compute is None else {
+                    "calls": (compute.eager_calls, compute.cache_misses, compute.cache_hits),
+                    "collective_counts": dict(compute.collective_counts),
+                    "collective_bytes": dict(compute.collective_bytes),
+                    "collective_bytes_by_transport": {k: dict(v) for k, v in compute.collective_bytes_by_transport.items()},
+                    "transport_refusals": compute.transport_refusals},
+                "fallback_reasons": stats["fallback_reasons"],
+                "paths": {k: v["path"] for k, v in stats["partition"]["compute"].items()},
+                "reasons": {k: v["reason"] for k, v in stats["partition"]["compute"].items()}}

@@ -58,15 +58,17 @@ class BodyGraph:
     captured step's body (static inputs to static outputs), so the card's
     replay path of ``metrics_tpu_torch.core.engine.CapturedStep`` (input
     copies, in-place statics, backups of held statics, clones out) runs
-    without a card."""
+    without a card. Like a graph's replay, it counts no collective (the step
+    counts its probe's again)."""
 
     def __init__(self, step: Any) -> None:
         self.step = step
 
     def replay(self) -> None:
         from metrics_tpu_torch.core import engine
+        from metrics_tpu_torch.parallel import sync
 
-        with engine._steady():
+        with engine._steady(), sync._muted():
             self.step._body()
 
 

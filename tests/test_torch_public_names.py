@@ -28,7 +28,7 @@ import metrics_tpu_torch as mt_torch
 pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
-    "A17": "sync variants: quantized transports, incremental sync, sharded state",
+    "A17b": "sharded state: the mesh specs and the sharded-compute combine",
     "A18": "checkpoint",
     "A19": "tenancy, serve and cluster",
     "A20": "observability, resilience, autotune and the kernel registry's telemetry",
@@ -36,19 +36,12 @@ ITEMS = {
     "B1": "the Pallas module of B1, whose port is ops/classification/binned_counts.py",
 }
 
-_SYNC_KNOBS = [
-    "set_sync_cadence", "set_sync_mode", "set_sync_transport", "sync_cadence_default", "sync_mode_default",
-    "sync_transport_default", "transport_error_bound",
-]
-
-
 def _items(item, names):
     return {name: item for name in names}
 
 
 MISSING = {
     "": {
-        **_items("A17", _SYNC_KNOBS),
         **_items("A18", ["checkpoint", "restore_checkpoint", "save_checkpoint", "verify_checkpoint"]),
         **_items("A19", ["TenantSet", "serve", "tenancy"]),
         **_items("A20", ["PolicyConfig", "TunedPlan", "autotune", "autotune_enabled", "export_tuned_plan",
@@ -57,11 +50,9 @@ MISSING = {
     "core": {},
     "utils": {"httpd": "A19"},  # the stdlib HTTP lifecycle of the serve and scrape servers
     "parallel": {
-        **_items("A17", _SYNC_KNOBS + [
-            "DEFAULT_TOLERANCES", "IncrementalCarry", "SYNC_MODES", "TRANSPORTS", "advance_incremental",
-            "batch_sharded", "class_sharded", "data_parallel_mesh", "default_tolerance", "finalize_incremental_state",
-            "gather_result", "grid_sharded", "incremental_plan", "init_incremental", "psum_result", "replicated",
-            "sample_sharded", "shard_spec", "transport_plan",
+        **_items("A17b", [
+            "batch_sharded", "class_sharded", "data_parallel_mesh", "gather_result", "grid_sharded", "psum_result",
+            "replicated", "sample_sharded", "shard_spec",
         ]),
         "ANALYSIS_MODULE_SPECS": "A21",
     },

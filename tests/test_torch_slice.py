@@ -273,6 +273,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch.ops.kernels.iou_matching, metrics_tpu_torch.ops.kernels.cosine_matching\n"
         "import metrics_tpu_torch.text, metrics_tpu_torch.ops.text.bert, metrics_tpu_torch.utils.imports\n"
         "import metrics_tpu_torch.parallel, metrics_tpu_torch.entry, metrics_tpu_torch.core.engine\n"
+        "import metrics_tpu_torch.parallel.sync, metrics_tpu_torch.parallel.mesh, metrics_tpu_torch.core.collections\n"
         "import metrics_tpu_torch.ops.classification.auroc, metrics_tpu_torch.ops.classification.calibration_error\n"
         "import metrics_tpu_torch.ops.classification.average_precision, metrics_tpu_torch.aggregation\n"
         "import metrics_tpu_torch.ops.classification.ranking, metrics_tpu_torch.ops.classification.kl_divergence\n"
