@@ -310,6 +310,35 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    refuses: the int32 groups eager with that reason, the binned AP captured,
    the results unchanged. The phase stays under 90 s.
 
+15. Sharded state in a world of one NCCL rank: a mesh of one shows the
+   capture, the results and the memory, not the links' cost. (a) A
+   4,096-class ConfusionMatrix (64 MiB int32) placed with ``shard_state``,
+   fed phase 14's 16 x 2**20 pairs: the update eager, then captured (the
+   delta's zeroing, the update, its ``reduce_scatter`` and the add in one
+   graph), one ``reduce_scatter`` an update, no host sync and a flat
+   ``memory_allocated`` in the steady state, the block bit for bit a
+   replicated twin's; ``compute()`` through the sharded-compute protocol
+   (eager, captured, replayed: one result ``all_gather``, no reshard), and
+   ``unshard_state`` (one reshard), both bitwise; ``forward`` of a placed
+   metric built with ``sync_on_compute=False`` (it still syncs), bitwise
+   against a replicated twin; the peak
+   ``max_memory_allocated`` over an eager update (the transient delta) and the
+   update's time, captured and eager, by events. (b) A sharded
+   BinnedPrecisionRecallCurve and BinnedAveragePrecision at 1,000 classes
+   and 100 thresholds over phase 3's stream: B1 once an update, the blocks
+   bit for bit the plain version's on the card and a replicated twin's, the
+   protocol's results bitwise. (c) A collection of micro Accuracy, macro
+   Precision and the ConfusionMatrix, sharded and replicated members fused,
+   bitwise equal to an unsharded collection. (d) A class x threshold grid of
+   B1's counts declared ``shard_axis=(0, 1)`` on a [1, 1] mesh: two
+   ``reduce_scatter``s an update, two reshards at compute, bitwise. (e) A
+   sample-sharded CatMetric buffer: its updates eager with the reason
+   recorded, bitwise against a replicated twin; an overflowed buffer's flag
+   through the placement, a captured step (a CUDA graph over its leaves,
+   built by hand: no entry point captures such a buffer's update, so this
+   checks the engine's flattener only) and ``unshard_state``. The phase
+   stays under 60 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions, the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
@@ -5758,6 +5787,341 @@ def phase_fourteen(torch, mt, np, kernels_mod, sync, smi) -> dict:
     return {"a": a, "b": b, "c": c, "d": d, "seconds": elapsed, "launches": {**launches, "binned_counts": b1}}
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: sharded state (shard_state, the sharded update, the sharded-compute
+# protocol, unshard_state), in a world of one NCCL rank
+# --------------------------------------------------------------------------- #
+PHASE15_LIMIT_S = 60.0
+SHARD_NOTE = "a world of one shows capture, correctness and memory, not link cost"
+GRID_SHAPE = (N_CLASSES, N_THRESHOLDS)
+CAT_CAPACITY = 1 << 16
+
+
+def updates_timed(torch, sync, metric, stream) -> tuple:
+    """Each update's CUDA-event time and collectives."""
+    times, boxes = [], []
+    for args in stream:
+        with sync.count_collectives() as box:
+            _, ms = event_ms(torch, lambda: metric.update(*args))
+        times.append(ms)
+        boxes.append(dict(box["by_kind"]))
+    return times, boxes
+
+
+def computes(torch, sync, metric, calls: int = 3) -> tuple:
+    """``calls`` computes (eager, captured, replayed): results and collectives."""
+    results, boxes = [], []
+    for _ in range(calls):
+        metric._computed = None
+        with sync.count_collectives() as box:
+            results.append(metric.compute())
+        boxes.append(dict(box["by_kind"]))
+    return results, boxes
+
+
+def phase_fifteen_a(torch, mt, sync, mesh, smi) -> dict:
+    """15(a): the 4,096-class ConfusionMatrix, placed, eager then captured."""
+    stream = list(confmat_stream(torch, dense=True))
+    twin = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES)
+    for preds, target in stream:
+        twin.update(preds, target)
+    metric = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES).shard_state(mesh)
+    check(metric.active_shard_axes == {"confmat": 0}, f"15(a): active {metric.active_shard_axes}")
+    times, boxes = updates_timed(torch, sync, metric, stream[:3])  # eager, probe + capture, first replay
+    engine = metric._update_engine
+    graphs = [s for s in engine._steps.values() if s.graph is not None]
+    check(len(graphs) == 1 and engine.broken is None, f"15(a): {len(graphs)} graphs, broken {engine.broken}")
+    check(engine.stats.collective_counts == {"reduce_scatter": 1},
+          f"15(a): the captured step's collectives {engine.stats.collective_counts}")
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for args in stream[3:10]:
+            with sync.count_collectives() as box:
+                metric.update(*args)
+            boxes.append(dict(box["by_kind"]))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    gc.collect()
+    torch.cuda.synchronize()
+    drift = torch.cuda.memory_allocated() - held
+    check(drift == 0, f"15(a): memory_allocated moved by {drift} bytes over 7 replayed updates")
+    steady, steady_boxes = updates_timed(torch, sync, metric, stream[10:])
+    boxes += steady_boxes
+    check(boxes == [{"reduce_scatter": 1}] * len(stream), f"15(a): update collectives {boxes}")
+    check(engine.stats.cache_hits == len(stream) - 2, f"15(a): {engine.stats.cache_hits} replays")
+    check(same_bits(torch, metric.confmat, twin.confmat), "15(a): the block differs from the replicated twin's state")
+    # the transient delta: the peak over one eager update (a captured step
+    # draws from its graph's pool, allocated at capture, so it shows no peak)
+    eager = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES, compiled_update=False).shard_state(mesh)
+    eager_times, eager_boxes = updates_timed(torch, sync, eager, stream[:6])
+    check(eager_boxes == [{"reduce_scatter": 1}] * 6, f"15(a): eager update collectives {eager_boxes}")
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    eager.update(*stream[0])
+    peak_eager = torch.cuda.max_memory_allocated() - base
+    del eager
+    metric.reset()
+    for preds, target in stream:
+        metric.update(preds, target)
+    results, cboxes = computes(torch, sync, metric)
+    want = twin.compute()
+    for res in results:
+        check(same_bits(torch, res, want), "15(a): the protocol's compute differs from the replicated twin's")
+    check(cboxes == [{"all_gather": 1}] * 3, f"15(a): protocol computes ran {cboxes}")
+    cstats = metric.engine_stats()["compute"]
+    check((cstats.eager_calls, cstats.cache_misses, cstats.cache_hits) == (1, 1, 1),
+          f"15(a): compute engine {(cstats.eager_calls, cstats.cache_misses, cstats.cache_hits)}")
+    with sync.count_collectives() as ubox:
+        metric.unshard_state()
+    check(ubox["by_kind"] == {"reshard": 1} and ubox["bytes_by_kind"]["reshard"] == CONFMAT_CLASSES ** 2 * 4,
+          f"15(a): unshard_state ticked {ubox['by_kind']} {ubox['bytes_by_kind']}")
+    check(same_bits(torch, metric.confmat, twin.confmat) and same_bits(torch, metric.compute(), want),
+          "15(a): the unsharded state differs from the replicated twin's")
+    # forward, and sync_on_compute=False: a placed metric still syncs over its
+    # placement (its blocks are not its value), through the engines
+    fwd = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES, sync_on_compute=False).shard_state(mesh)
+    fwd_twin = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES)
+    fboxes = []
+    for args in stream[:3]:
+        want_batch = fwd_twin(*args)
+        with sync.count_collectives() as box:
+            got_batch = fwd(*args)
+        fboxes.append(dict(box["by_kind"]))
+        check(same_bits(torch, got_batch, want_batch), "15(a): the placed metric's forward differs from the twin's")
+    check(all(b.get("reduce_scatter") == 1 and b.get("all_gather") == 1 and "reshard" not in b for b in fboxes),
+          f"15(a): the placed metric's forward ran {fboxes}")
+    check(same_bits(torch, fwd.compute(), fwd_twin.compute()) and same_bits(torch, fwd.confmat, fwd_twin.confmat),
+          "15(a): after forward the placed metric differs from the twin")
+    del fwd, fwd_twin
+    state_mib = CONFMAT_CLASSES ** 2 * 4 / 2**20
+    out = {"captured_ms": statistics.median(steady), "eager_ms": statistics.median(eager_times[1:]),
+           "first_calls_ms": times, "peak_eager_mib": peak_eager / 2**20,
+           "state_mib": state_mib, "memory_drift": drift}
+    print(f"phase 15(a) ({smi}): ConfusionMatrix {CONFMAT_CLASSES} ({state_mib:.0f} MiB int32) placed on a mesh of one"
+          f" ({SHARD_NOTE}): {len(stream)} updates of {CONFMAT_BATCH} pairs, one reduce_scatter each, the first eager, then"
+          f" one graph ({engine.stats.cache_hits} replays, no host sync, memory_allocated flat); update median"
+          f" {out['captured_ms']:.3f} ms captured, {out['eager_ms']:.3f} ms eager (CUDA events); peak"
+          f" max_memory_allocated over one eager update {out['peak_eager_mib']:.1f} MiB (the whole-size delta; state"
+          f" {state_mib:.0f} MiB); compute through the"
+          f" protocol {cboxes[0]} (no reshard), eager/captured/replayed bitwise; unshard_state {dict(ubox['by_kind'])};"
+          f" block and values bitwise equal to the replicated twin; forward with sync_on_compute=False {fboxes[-1]},"
+          " bitwise")
+    return out
+
+
+def phase_fifteen_b(torch, mt, kernels_mod, sync, mesh, smi) -> dict:
+    """15(b): the sharded binned curve and AP over phase 3's stream, B1 on
+    their path, against the plain counts and a replicated twin."""
+    stream = [(probs, target) for _, probs, target in batches(torch)]
+    out = {}
+    for cls in (mt.BinnedPrecisionRecallCurve, mt.BinnedAveragePrecision):
+        label = cls.__name__
+        twin = cls(num_classes=N_CLASSES, thresholds=N_THRESHOLDS)
+        plain = cls(num_classes=N_CLASSES, thresholds=N_THRESHOLDS, compiled_update=False).shard_state(mesh)
+        plain._plain_counts = True
+        for probs, target in stream:
+            twin.update(probs, target)
+            plain.update(probs, target)
+        metric = cls(num_classes=N_CLASSES, thresholds=N_THRESHOLDS).shard_state(mesh)
+        kernels_mod.reset_launch_counts()
+        times, boxes = updates_timed(torch, sync, metric, stream)
+        launches = kernels_mod.launch_counts()["binned_counts"]
+        check(launches == len(stream), f"15(b) {label}: B1 launched {launches} times for {len(stream)} updates")
+        engine = metric._update_engine
+        graphs = sum(s.graph is not None for s in engine._steps.values())
+        ragged = len({probs.shape for probs, _ in stream}) - 1  # the last batch's signature runs eager once
+        check(engine.broken is None and graphs == 1 and engine.stats.cache_hits == len(stream) - 2 - ragged,
+              f"15(b) {label}: {graphs} graphs, {engine.stats.cache_hits} replays, broken {engine.broken}")
+        check(boxes == [{"reduce_scatter": 1}] * len(stream), f"15(b) {label}: update collectives {set(map(str, boxes))}")
+        for name in ("TPs", "FPs", "FNs"):
+            check(same_bits(torch, getattr(metric, name), getattr(plain, name)),
+                  f"15(b) {label}: block {name} differs from the plain counts' run")
+            check(same_bits(torch, getattr(metric, name), getattr(twin, name)),
+                  f"15(b) {label}: block {name} differs from the replicated twin's")
+        with sync.count_collectives() as cbox:
+            got = metric.compute()
+        check(same_tree(torch, got, twin.compute()), f"15(b) {label}: the protocol's result differs from the twin's")
+        check(cbox["by_kind"].get("reshard", 0) == 0, f"15(b) {label}: compute ran {cbox['by_kind']}")
+        out[label] = {"launches": launches, "update_ms": statistics.median(times[3:]), "compute": dict(cbox["by_kind"])}
+        print(f"phase 15(b) ({smi}): {label} {N_CLASSES} x {N_THRESHOLDS} placed ({SHARD_NOTE}): {len(stream)} updates, B1"
+              f" launched {launches} times ({engine.stats.cache_hits} of them in replays of {graphs} graph), one"
+              f" reduce_scatter each, update median {out[label]['update_ms']:.3f} ms"
+              f" (CUDA events); blocks bitwise equal to the plain counts' run and the replicated twin's; compute"
+              f" {dict(cbox['by_kind'])}, bitwise")
+    return out
+
+
+def phase_fifteen_c(torch, mt, sync, mesh, smi) -> dict:
+    """15(c): micro Accuracy, macro Precision and a ConfusionMatrix, sharded
+    and replicated members fused, against an unsharded collection."""
+
+    def make():
+        return mt.MetricCollection({
+            "acc": mt.Accuracy(num_classes=N_CLASSES, average="micro"),
+            "prec": mt.Precision(num_classes=N_CLASSES, average="macro"),
+            "confmat": mt.ConfusionMatrix(num_classes=N_CLASSES),
+        })
+
+    ref, coll = make(), make().shard_state(mesh)
+    for logits, _, target in batches(torch):
+        ref.update(logits, target)
+        coll.update(logits, target)
+    got, want = coll.compute(), ref.compute()
+    for key, value in want.items():
+        check(same_bits(torch, got[key], value), f"15(c): {key} differs from the unsharded collection's")
+    stats = coll.engine_stats()
+    update = stats["update"]
+    paths = {k: v["path"] for k, v in stats["partition"]["update"].items()}
+    check(update is not None and update.cache_hits > 0 and paths == {"acc": "fused", "prec": "fused", "confmat": "fused"},
+          f"15(c): update paths {paths}, stats {update}")
+    check(update.collective_counts == {"reduce_scatter": 2}, f"15(c): fused step collectives {update.collective_counts}")
+    print(f"phase 15(c) ({smi}): micro Accuracy, macro Precision and ConfusionMatrix {N_CLASSES}, the last two placed"
+          f" ({SHARD_NOTE}), fused in one captured step ({update.cache_hits} replays, collectives {update.collective_counts});"
+          f" results bitwise equal to the unsharded collection")
+    return {"replays": update.cache_hits, "collectives": dict(update.collective_counts)}
+
+
+def grid_metric_class(torch, mt, binned):
+    class GridCounts(mt.Metric):
+        """B1's true-positive counts as a class x threshold grid, split along
+        both axes."""
+
+        full_state_update = False
+
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.grid_t = binned.sort_thresholds(torch.linspace(0, 1, N_THRESHOLDS, device=self.device))
+            self.add_state("grid", torch.zeros(GRID_SHAPE, dtype=torch.int32), dist_reduce_fx="sum", shard_axis=(0, 1))
+
+        def update(self, probs, target):
+            tp, _, _ = binned.binned_counts(probs, target, self.grid_t)
+            self.grid = self.grid + tp.to(torch.int32)
+
+        def compute(self):
+            return self.grid.sum(dim=1, dtype=torch.int32)
+
+    return GridCounts
+
+
+def phase_fifteen_d(torch, mt, kernels_mod, sync, binned, smi) -> dict:
+    """15(d): a grid leaf on a [1, 1] mesh."""
+    import metrics_tpu_torch.parallel as par
+
+    mesh = par.make_mesh([1, 1], ["cls", "thr"])
+    grid_cls = grid_metric_class(torch, mt, binned)
+    twin, metric = grid_cls(), grid_cls().shard_state(mesh, axis_name=("cls", "thr"))
+    stream = [(probs, target) for _, probs, target in batches(torch)][:12]
+    kernels_mod.reset_launch_counts()
+    times, boxes = updates_timed(torch, sync, metric, stream)
+    launches = kernels_mod.launch_counts()["binned_counts"]
+    for args in stream:
+        twin.update(*args)
+    check(launches == len(stream), f"15(d): B1 launched {launches} times for {len(stream)} updates")
+    check(boxes == [{"reduce_scatter": 2}] * len(stream), f"15(d): grid update collectives {boxes}")
+    check(same_bits(torch, metric.grid, twin.grid), "15(d): the grid differs from the replicated twin's")
+    with sync.count_collectives() as cbox:
+        got = metric.compute()
+    check(cbox["by_kind"] == {"reshard": 2} and same_bits(torch, got, twin.compute()),
+          f"15(d): compute ran {cbox['by_kind']} or differs")
+    with sync.count_collectives() as ubox:
+        metric.unshard_state()
+    check(ubox["by_kind"] == {"reshard": 1} and same_bits(torch, metric.grid, twin.grid),
+          f"15(d): unshard_state ran {ubox['by_kind']} or differs")
+    print(f"phase 15(d) ({smi}): a {GRID_SHAPE} grid of B1's counts placed over a [1, 1] mesh ({SHARD_NOTE}):"
+          f" {len(stream)} updates, B1 launched {launches} times, two reduce_scatters each; compute"
+          f" {dict(cbox['by_kind'])}, unshard {dict(ubox['by_kind'])}; bitwise equal to the replicated twin")
+    return {"launches": launches, "update_ms": statistics.median(times[2:])}
+
+
+def _copied(buf):
+    """A buffer over copies of ``buf``'s tensors: a step with work to capture."""
+    out = buf._alias()
+    out.data, out.count, out.overflowed = buf.data.clone(), buf.count.clone(), buf.overflowed.clone()
+    return out
+
+
+def phase_fifteen_e(torch, mt, sync, mesh, smi) -> dict:
+    """15(e): a sample-sharded CatMetric buffer, and the overflow flag.
+
+    Its updates read sizes on the host, so they never run captured, and no
+    entry point captures a step over such a buffer. The captured step here
+    is built by hand around a copy of the state: it checks only that the
+    engine's flattener takes the sharded buffer's leaves apart and rebuilds
+    it, flag and host mirror included, not a metric's update."""
+    from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer
+    from metrics_tpu_torch.core.engine import CapturedStep, _carry_mirrors
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+    stream = [torch.randn((4096,), generator=gen, device="cuda") for _ in range(8)]
+    twin, metric = mt.CatMetric(buffer_capacity=CAT_CAPACITY), mt.CatMetric(buffer_capacity=CAT_CAPACITY).shard_state(mesh)
+    for x in stream:
+        twin.update(x)
+        metric.update(x)
+    reasons = metric.engine_stats()["fallback_reasons"]
+    check("host" in reasons.get("update:CatMetric", ""), f"15(e): fallback reasons {reasons}")
+    with sync.count_collectives() as cbox:
+        got = metric.compute()
+    check(same_bits(torch, got, twin.compute()) and cbox["by_kind"] == {"all_gather": 1},
+          f"15(e): the sharded buffer's compute ran {cbox['by_kind']} or differs")
+    over = mt.CatMetric(buffer_capacity=CAT_CAPACITY)
+    over.value = CatBuffer(torch.zeros(CAT_CAPACITY, device="cuda"), CAT_CAPACITY + 2, overflowed=True)
+    over.shard_state(mesh)
+    placed = over.value
+    check(isinstance(placed, ShardedCatBuffer) and bool(placed.overflowed) and placed.overflow_seen,
+          "15(e): the overflow flag did not survive the placement")
+    step = CapturedStep(lambda state, args, kwargs: {k: _copied(v) for k, v in state.items()}, writes_state=True)
+    step.probe({"value": placed}, (), {})
+    check(step.graph is not None, "15(e): no CUDA graph was captured over the buffer's leaves")
+    leaves = [placed.data, placed.count, placed.overflowed]
+    result = step.run_update({"value": placed}, leaves, (), {}, [], False, [False, False, False])
+    _carry_mirrors({"value": placed}, result, step.buffer_rows)
+    through = result["value"]
+    check(isinstance(through, ShardedCatBuffer) and bool(through.overflowed) and through.overflow_seen,
+          "15(e): the overflow flag did not survive the captured step")
+    over.value = through
+    over.unshard_state()
+    check(bool(over.value.overflowed) and over.value.overflow_seen and len(over.value) == CAT_CAPACITY + 2,
+          "15(e): the overflow flag did not survive unshard_state")
+    print(f"phase 15(e) ({smi}): CatMetric buffer of {CAT_CAPACITY} rows placed ({SHARD_NOTE}): {len(stream)} eager"
+          f" updates (reason: {reasons['update:CatMetric']}); compute {dict(cbox['by_kind'])}, bitwise equal to the"
+          " replicated twin; an overflowed buffer's flag survived the placement, a captured step and unshard_state")
+    return {"compute": dict(cbox["by_kind"])}
+
+
+def phase_fifteen(torch, mt, np, kernels_mod, sync, binned, smi) -> dict:
+    import torch.distributed as dist
+
+    import metrics_tpu_torch.parallel as par
+
+    t0 = time.perf_counter()
+    kernels_mod.reset_launch_counts()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        mesh = par.make_mesh([1], ["data"])
+        a = phase_fifteen_a(torch, mt, sync, mesh, smi)
+        b = phase_fifteen_b(torch, mt, kernels_mod, sync, mesh, smi)
+        kernels_mod.reset_launch_counts()
+        c = phase_fifteen_c(torch, mt, sync, mesh, smi)
+        d = phase_fifteen_d(torch, mt, kernels_mod, sync, binned, smi)
+        e = phase_fifteen_e(torch, mt, sync, mesh, smi)
+        launches = kernels_mod.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    elapsed = time.perf_counter() - t0
+    check(launches["pairwise_iou"] == launches["greedy_match"] == launches["maxsim_tf32x3"] == 0,
+          f"phase 15 launched a detection or text kernel: {launches}")
+    b1 = sum(r["launches"] for r in b.values()) + d["launches"]
+    print(f"phase 15 ({smi}): {elapsed:.1f} s in all (limit {PHASE15_LIMIT_S:.0f} s); B1 launched {b1} times on the"
+          " sharded binned and grid paths")
+    check(elapsed < PHASE15_LIMIT_S, f"phase 15 took {elapsed:.1f} s, over its {PHASE15_LIMIT_S:.0f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "e": e, "seconds": elapsed,
+            "launches": {**{k: 0 for k in launches}, "binned_counts": b1}}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -5961,6 +6325,9 @@ def main() -> None:
     # ---- phase 14: sync variants (B1 inside the captured incremental step)
     fourteen = phase_fourteen(torch, mt, np, kernels_mod, sync, smi)
 
+    # ---- phase 15: sharded state (B1 on the sharded binned and grid paths)
+    fifteen = phase_fifteen(torch, mt, np, kernels_mod, sync, binned, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -5983,6 +6350,7 @@ def main() -> None:
             "phase12_launches": twelve["launches"][kname],
             "phase13_launches": thirteen["launches"][kname],
             "phase14_launches": fourteen["launches"][kname],
+            "phase15_launches": fifteen["launches"][kname],
             **us,
             **extra,
         }
@@ -6011,7 +6379,11 @@ def main() -> None:
                                    for regime in ("sparse", "dense")}},
                phase14_incremental_step_ms={k: {"captured": r["step_ms"], "eager": r["eager_step_ms"]}
                                             for k, r in fourteen["c"].items()},
-               phase14_synced_compute_ms={"eager": fourteen["d"]["eager_ms"], "captured": fourteen["d"]["captured_ms"]}),
+               phase14_synced_compute_ms={"eager": fourteen["d"]["eager_ms"], "captured": fourteen["d"]["captured_ms"]},
+               phase15_confmat_update_ms={"captured": fifteen["a"]["captured_ms"], "eager": fifteen["a"]["eager_ms"]},
+               phase15_confmat_eager_update_peak_mib=fifteen["a"]["peak_eager_mib"],
+               phase15_binned_update_ms={k: r["update_ms"] for k, r in fifteen["b"].items()},
+               phase15_grid_update_ms=fifteen["d"]["update_ms"]),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],

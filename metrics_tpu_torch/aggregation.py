@@ -13,7 +13,9 @@ package's compiled and eager updates do.
 The sketch aggregators keep a fixed-size
 :class:`~metrics_tpu_torch.sketches.MergeableSketch` state under the
 ``"sketch"`` reduction tag, whatever the stream's length; their inserts are
-captured like any other update. A sharded buffer waits for A17b.
+captured like any other update. CatMetric's buffer is shardable along the
+sample axis (``shard_state``); its sharded compute gathers the blocks as its
+result.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.core.buffers import CatBuffer
+from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer
 from metrics_tpu_torch.core.metric import Metric
 from metrics_tpu_torch.sketches import DyadicCountMinSketch, HyperLogLogSketch, QuantileSketch
 from metrics_tpu_torch.utils.checks import _capturing
@@ -64,7 +66,11 @@ class BaseAggregator(Metric):
                 f"Arg `nan_strategy` should either be a float or one of {allowed_nan_strategy} but got {nan_strategy}."
             )
         self.nan_strategy = nan_strategy
-        self.add_state("value", default=default_value, dist_reduce_fx=fn)
+        # a list aggregator (CatMetric) becomes a buffer under buffer_capacity,
+        # shardable along the sample axis; the dense running aggregates stay
+        # replicated
+        shard_axis = 0 if isinstance(default_value, list) and self.buffer_capacity is not None else None
+        self.add_state("value", default=default_value, dist_reduce_fx=fn, shard_axis=shard_axis)
 
     def _cast_and_nan_check_input(
         self, x: Union[float, Tensor], weight: Union[float, Tensor, None] = None
@@ -199,6 +205,14 @@ class CatMetric(BaseAggregator):
         if isinstance(self.value, list) and self.value:
             return dim_zero_cat(self.value)
         return self.value
+
+    def compute_sharded_state(self, state: Dict[str, Any], group: Any) -> Tensor:
+        value = state["value"]
+        if isinstance(value, ShardedCatBuffer):
+            # the gather of the blocks is the result-sized collective here:
+            # it ticks "all_gather", never "reshard"
+            value = value.gather(group)
+        return value.to_array() if value else torch.zeros((0,), device=self.device)
 
 
 class MeanMetric(BaseAggregator):

@@ -20,6 +20,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.parallel import sync as _psync
 from metrics_tpu_torch.ops.classification.average_precision import _average_precision_compute_with_precision_recall
 from metrics_tpu_torch.ops.classification.binned_counts import binned_counts, sort_thresholds
 from metrics_tpu_torch.utils.data import METRIC_EPS, linspace_thresholds
@@ -101,11 +102,14 @@ class BinnedPrecisionRecallCurve(Metric):
         self._grid = sort_thresholds(self.thresholds)
         self._threshold_key = tuple(self.thresholds.tolist())
 
+        # shardable along the class axis: each rank keeps a
+        # (num_classes / width, num_thresholds) block after shard_state()
         for name in ("TPs", "FPs", "FNs"):
             self.add_state(
                 name=name,
                 default=torch.zeros((num_classes, self.num_thresholds), dtype=torch.float32),
                 dist_reduce_fx="sum",
+                shard_axis=0,
             )
 
     def _update_signature(self):
@@ -135,17 +139,32 @@ class BinnedPrecisionRecallCurve(Metric):
         self.FPs = self.FPs + fp
         self.FNs = self.FNs + fn
 
-    def _curve_rows(self) -> Tuple[Tensor, Tensor]:
-        """(C, T + 1) precision and recall rows, ending in precision 1, recall 0."""
-        precisions = (self.TPs + METRIC_EPS) / (self.TPs + self.FPs + METRIC_EPS)
-        recalls = self.TPs / (self.TPs + self.FNs + METRIC_EPS)
-        ones = torch.ones((self.num_classes, 1), dtype=precisions.dtype, device=precisions.device)
+    @staticmethod
+    def _rows_of(TPs: Tensor, FPs: Tensor, FNs: Tensor) -> Tuple[Tensor, Tensor]:  # noqa: N803
+        """(rows, T + 1) precision and recall rows, ending in precision 1, recall 0."""
+        precisions = (TPs + METRIC_EPS) / (TPs + FPs + METRIC_EPS)
+        recalls = TPs / (TPs + FNs + METRIC_EPS)
+        ones = torch.ones((TPs.shape[0], 1), dtype=precisions.dtype, device=precisions.device)
         precisions = torch.cat([precisions, ones], dim=1)
         recalls = torch.cat([recalls, torch.zeros_like(ones)], dim=1)
         return precisions, recalls
 
+    def _curve_rows(self) -> Tuple[Tensor, Tensor]:
+        """(C, T + 1) precision and recall rows of the whole state."""
+        return self._rows_of(self.TPs, self.FPs, self.FNs)
+
     def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
         precisions, recalls = self._curve_rows()
+        if self.num_classes == 1:
+            return precisions[0, :], recalls[0, :], self.thresholds
+        return list(precisions), list(recalls), [self.thresholds for _ in range(self.num_classes)]
+
+    def compute_sharded_state(self, state, group):
+        # the curve is row-wise: the block's rows are the replicated rows bit
+        # for bit, and only they cross ranks
+        p_local, r_local = self._rows_of(state["TPs"], state["FPs"], state["FNs"])
+        precisions = _psync.gather_result(p_local, group, axis=0)
+        recalls = _psync.gather_result(r_local, group, axis=0)
         if self.num_classes == 1:
             return precisions[0, :], recalls[0, :], self.thresholds
         return list(precisions), list(recalls), [self.thresholds for _ in range(self.num_classes)]
@@ -171,6 +190,12 @@ class BinnedAveragePrecision(BinnedPrecisionRecallCurve):
         if self.num_classes == 1:
             precisions, recalls = precisions[0], recalls[0]
         return _average_precision_compute_with_precision_recall(precisions, recalls, self.num_classes, average=None)
+
+    def compute_sharded_state(self, state, group) -> Union[List[Tensor], Tensor]:
+        # the integration is row-local: only the (C,) result crosses ranks
+        p_local, r_local = self._rows_of(state["TPs"], state["FPs"], state["FNs"])
+        ap = _psync.gather_result(-((r_local[:, 1:] - r_local[:, :-1]) * p_local[:, :-1]).sum(dim=1), group)
+        return ap[0] if self.num_classes == 1 else list(ap)
 
 
 class BinnedRecallAtFixedPrecision(BinnedPrecisionRecallCurve):
@@ -206,3 +231,14 @@ class BinnedRecallAtFixedPrecision(BinnedPrecisionRecallCurve):
         if self.num_classes == 1:
             precisions, recalls = precisions[0], recalls[0]
         return _recall_at_precision(precisions, recalls, self.thresholds, self.min_precision)
+
+    def compute_sharded_state(self, state, group) -> Tuple[Tensor, Tensor]:
+        # the lexicographic max is per class: the block's rows, then the two
+        # (C,) results gathered
+        p_local, r_local = self._rows_of(state["TPs"], state["FPs"], state["FNs"])
+        r_at_p, t_at_p = _recall_at_precision(p_local, r_local, self.thresholds, self.min_precision)
+        recalls_at_p = _psync.gather_result(r_at_p, group, axis=0)
+        thresholds_at_p = _psync.gather_result(t_at_p, group, axis=0)
+        if self.num_classes == 1:
+            return recalls_at_p[0], thresholds_at_p[0]
+        return recalls_at_p, thresholds_at_p

@@ -13,7 +13,10 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
-from metrics_tpu_torch.ops.classification.confusion_matrix import _confusion_matrix_compute, _confusion_matrix_update
+from metrics_tpu_torch.ops.classification.confusion_matrix import (
+    _confusion_matrix_compute,
+    _confusion_matrix_update,
+)
 from metrics_tpu_torch.utils.checks import _check_arg_choice
 
 
@@ -52,7 +55,9 @@ class ConfusionMatrix(Metric):
         _check_arg_choice(normalize, "normalize", ("true", "pred", "all", "none", None))
 
         shape = (num_classes, 2, 2) if multilabel else (num_classes, num_classes)
-        self.add_state("confmat", default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
+        # shardable along the true-class axis: a 4096-class matrix over 8
+        # ranks keeps a (512, 4096) block on each after shard_state()
+        self.add_state("confmat", default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum", shard_axis=0)
 
     def _update_signature(self):
         return ("confmat", self.num_classes, self.threshold, self.multilabel)
@@ -63,3 +68,7 @@ class ConfusionMatrix(Metric):
 
     def compute(self) -> Tensor:
         return _confusion_matrix_compute(self.confmat, self.normalize)
+
+    def compute_sharded_state(self, state, group) -> Tensor:
+        # finalize the local row block; only the (normalized) result moves
+        return _confusion_matrix_compute(state["confmat"], self.normalize, group)

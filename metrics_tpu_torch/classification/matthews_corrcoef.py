@@ -35,7 +35,10 @@ class MatthewsCorrCoef(Metric):
         super().__init__(**kwargs)
         self.num_classes = num_classes
         self.threshold = threshold
-        self.add_state("confmat", default=torch.zeros((num_classes, num_classes), dtype=torch.int32), dist_reduce_fx="sum")
+        self.add_state(
+            "confmat", default=torch.zeros((num_classes, num_classes), dtype=torch.int32), dist_reduce_fx="sum",
+            shard_axis=0,
+        )
 
     def _update_signature(self):
         return ("confmat", self.num_classes, self.threshold, False)
@@ -46,3 +49,6 @@ class MatthewsCorrCoef(Metric):
 
     def compute(self) -> Tensor:
         return _matthews_corrcoef_compute(self.confmat)
+
+    def compute_sharded_state(self, state, group) -> Tensor:
+        return _matthews_corrcoef_compute(state["confmat"], group)

@@ -8,7 +8,10 @@ from typing import Any, Optional
 from torch import Tensor
 
 from metrics_tpu_torch.classification.stat_scores import StatScores
-from metrics_tpu_torch.ops.classification.precision_recall import _precision_compute, _recall_compute
+from metrics_tpu_torch.ops.classification.precision_recall import (
+    _precision_compute,
+    _recall_compute,
+)
 from metrics_tpu_torch.utils.checks import _check_arg_choice
 
 
@@ -60,6 +63,10 @@ class Precision(_PrecisionRecallBase):
         tp, fp, tn, fn = self._get_final_stats()
         return _precision_compute(tp, fp, fn, self.average, self.mdmc_reduce)
 
+    def compute_sharded_state(self, state, group) -> Tensor:
+        # only the macro layout shards (micro is scalar, samplewise is lists)
+        return _precision_compute(state["tp"], state["fp"], state["fn"], self.average, self.mdmc_reduce, group)
+
 
 class Recall(_PrecisionRecallBase):
     """TP / (TP + FN).
@@ -78,3 +85,6 @@ class Recall(_PrecisionRecallBase):
     def compute(self) -> Tensor:
         tp, fp, tn, fn = self._get_final_stats()
         return _recall_compute(tp, fp, fn, self.average, self.mdmc_reduce)
+
+    def compute_sharded_state(self, state, group) -> Tensor:
+        return _recall_compute(state["tp"], state["fp"], state["fn"], self.average, self.mdmc_reduce, group)

@@ -13,6 +13,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.core.metric import Metric
+from metrics_tpu_torch.parallel import sync as _psync
 from metrics_tpu_torch.ops.classification.stat_scores import _stat_scores_compute, _stat_scores_update
 
 
@@ -66,7 +67,10 @@ class StatScores(Metric):
         for s in ("tp", "fp", "tn", "fn"):
             if mdmc_reduce != "samplewise" and reduce != "samples":
                 shape = [] if reduce == "micro" else [num_classes]
-                self.add_state(s, default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum")
+                # per-class count vectors shard along the class axis; the
+                # micro layout is a scalar and stays replicated
+                self.add_state(s, default=torch.zeros(shape, dtype=torch.int32), dist_reduce_fx="sum",
+                               shard_axis=None if reduce == "micro" else 0)
             else:
                 self.add_state(s, default=[], dist_reduce_fx="cat")
 
@@ -112,3 +116,10 @@ class StatScores(Metric):
     def compute(self) -> Tensor:
         tp, fp, tn, fn = self._get_final_stats()
         return _stat_scores_compute(tp, fp, tn, fn)
+
+    def compute_sharded_state(self, state, group) -> Tensor:
+        # the macro layout (the only one that shards): the (C, 5) stack is
+        # elementwise per class, so the block finalizes in place and one
+        # result gather rebuilds the class dimension, bit for bit
+        block = _stat_scores_compute(state["tp"], state["fp"], state["tn"], state["fn"])
+        return _psync.gather_result(block, group, axis=0)

@@ -29,6 +29,13 @@ Two kinds of append, as in the JAX package:
 ``merge`` and ``gather`` compact with one stable sort of an integer key that
 moves the valid rows to the front.
 
+A :class:`ShardedCatBuffer` is one rank's block of a sample-sharded buffer
+(``Metric.shard_state`` of a state declared ``shard_axis=0``): rank ``r``
+of ``width`` holds rows ``[r * capacity / width, (r + 1) * capacity / width)``
+of one global buffer, whose ``count`` and sticky ``overflowed`` every rank
+holds alike. Appends go through the metric's sharded update, which gathers
+each update's rows from every rank and keeps its own.
+
 Example:
     >>> import torch
     >>> from metrics_tpu_torch.core.buffers import CatBuffer
@@ -52,7 +59,7 @@ from torch import Tensor
 from metrics_tpu_torch.utils.checks import _capturing
 from metrics_tpu_torch.utils.exceptions import MetricsUserError, Uncapturable
 
-__all__ = ["CatBuffer"]
+__all__ = ["CatBuffer", "ShardedCatBuffer"]
 
 
 class _InPlace(threading.local):
@@ -322,6 +329,83 @@ class CatBuffer:
     def __repr__(self) -> str:
         shape = None if self.data is None else tuple(self.data.shape)
         return f"CatBuffer(capacity={self.capacity}, count={self._n}, data={shape})"
+
+
+class ShardedCatBuffer(CatBuffer):
+    """Rank ``index`` of ``width``'s block of a global buffer of
+    ``capacity`` rows: ``data`` is ``(capacity / width, *item)``; ``count``,
+    ``overflowed`` and their host mirrors are the global buffer's. Global
+    appends clamp as captured appends do (the buffer never grows)."""
+
+    @classmethod
+    def block(cls, data: Optional[Tensor], count: Tensor, overflowed: Tensor, n: int, over: bool, index: int,
+              width: int, capacity: Optional[int] = None) -> "ShardedCatBuffer":
+        obj = cls._from_parts(data, count, overflowed, n, over, capacity)
+        obj._index, obj._width = int(index), int(width)
+        return obj
+
+    @property
+    def capacity(self) -> int:
+        """Rows of the global buffer."""
+        return self.data.shape[0] * self._width if self.data is not None else self._capacity
+
+    @property
+    def index(self) -> int:
+        return self._index
+
+    @property
+    def width(self) -> int:
+        return self._width
+
+    def _like(self, data: Optional[Tensor], count: Tensor, overflowed: Tensor) -> "ShardedCatBuffer":
+        out = ShardedCatBuffer.block(data, count, overflowed, self._n, self._over, self._index, self._width,
+                                     self._capacity)
+        out._device = self._device if data is None else data.device
+        return out
+
+    def copy(self) -> "ShardedCatBuffer":
+        return self._like(None if self.data is None else self.data.clone(), self.count.clone(), self.overflowed.clone())
+
+    def _alias(self) -> "ShardedCatBuffer":
+        return self._like(self.data, self.count, self.overflowed)
+
+    def to(self, device: Union[str, torch.device]) -> "ShardedCatBuffer":
+        return self._like(None if self.data is None else self.data.to(device), self.count.to(device),
+                          self.overflowed.to(device))
+
+    def valid_mask(self) -> Tensor:
+        """(rows,) bool: which rows of this block hold appended samples."""
+        rows = self.capacity // self._width
+        pos = self._index * rows + torch.arange(rows, device=self.device)
+        return pos < self.count.clamp(max=self.capacity)
+
+    def to_array(self) -> Tensor:
+        raise MetricsUserError(
+            "a sample-sharded CatBuffer holds one block of the buffer: compute() gathers it, or call "
+            "unshard_state() first"
+        )
+
+    def append(self, x: Tensor) -> None:
+        raise MetricsUserError("a sample-sharded CatBuffer is appended to by its metric's sharded update")
+
+    def merge(self, other: "CatBuffer") -> "CatBuffer":
+        raise MetricsUserError("a sample-sharded CatBuffer does not merge: unshard_state() first")
+
+    def gather(self, group, kind: str = "all_gather") -> "CatBuffer":
+        """The whole buffer, on every rank of ``group``: one ``all_gather``
+        of the blocks, ticked as ``kind``; the count and flag are global
+        already."""
+        if not self.materialized:
+            return CatBuffer(None, 0, self.capacity, self.device)
+        from metrics_tpu_torch.parallel.sync import _all_gather  # sync imports this module
+
+        data = torch.cat(_all_gather(self.data, group, kind=kind))
+        return CatBuffer._from_parts(data, self.count, self.overflowed, self._n, self._over)
+
+    def __repr__(self) -> str:
+        shape = None if self.data is None else tuple(self.data.shape)
+        return (f"ShardedCatBuffer(capacity={self.capacity}, count={self._n}, block={self._index}/{self._width}, "
+                f"data={shape})")
 
 
 def buffers_in(tree) -> List[CatBuffer]:

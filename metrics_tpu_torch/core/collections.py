@@ -17,6 +17,7 @@ at the next observation (``compute()``, ``items()``, ``values()``, ``[]``), so
 they see every replay's counts. A synced compute is captured too, its
 collectives inside the graph, unless its sync reads a value back to the host.
 The incremental sync protocol keeps one carry per compute group.
+``shard_state`` places the members' sharded states (``Metric.shard_state``).
 """
 from __future__ import annotations
 
@@ -351,14 +352,16 @@ class MetricCollection:
                 if m is not leader:
                     m.set_state(synced_state)
                     m._update_count = leader._update_count
-                prev_to_sync, prev_should_unsync = m._to_sync, m._should_unsync
+                prev = m._to_sync, m._should_unsync, m._is_synced
                 # the group is synced already: the member's compute neither
-                # syncs nor unsyncs the shared state
-                m._to_sync, m._should_unsync = False, False
+                # syncs nor unsyncs the shared state (a placed member would
+                # run the protocol on blocks it no longer holds); unsynced, a
+                # placed member's compute syncs its blocks itself
+                m._to_sync, m._should_unsync, m._is_synced = False, False, synced
                 try:
                     res[self._set_name(name)] = m.compute()
                 finally:
-                    m._to_sync, m._should_unsync = prev_to_sync, prev_should_unsync
+                    m._to_sync, m._should_unsync, m._is_synced = prev
             if synced:
                 leader.unsync()
                 local = leader.get_state()
@@ -371,6 +374,42 @@ class MetricCollection:
         self._members_stale = False
         for m in self._metrics.values():
             m.reset()
+
+    def shard_state(self, mesh: Any = None, axis_name: Union[str, Tuple[str, ...]] = "data") -> "MetricCollection":
+        """Place every member's ``shard_axis``-declared states over ``mesh``
+        (:meth:`Metric.shard_state`); members without any stay replicated,
+        without a warning. The dispatcher and its engines are rebuilt, and a
+        fused update streak then merges the sharded leaders' deltas into
+        their blocks inside its one captured step. Returns ``self``."""
+        if mesh is None:
+            from metrics_tpu_torch.parallel.mesh import data_parallel_mesh
+
+            mesh = data_parallel_mesh(axis_name=axis_name if isinstance(axis_name, str) else axis_name[0])
+        self._realias_members()
+        for m in self._metrics.values():
+            if m._shard_axes:
+                m.shard_state(mesh, axis_name)
+        self._after_placement()
+        return self
+
+    def unshard_state(self) -> "MetricCollection":
+        """Undo :meth:`shard_state` for every member."""
+        self._realias_members()
+        for m in self._metrics.values():
+            if m._state_sharding is not None:
+                m.unshard_state()
+        self._after_placement()
+        return self
+
+    def _after_placement(self) -> None:
+        """The members of a group share the leader's (re-placed) state again;
+        the partition and the captured steps bind the old placement."""
+        for group in self._groups:
+            if len(group) > 1:
+                self._share_leader_state(group)
+        self._dispatcher = None
+        self._update_engine = None
+        self._compute_engine = None
 
     def clone(self, prefix: Optional[str] = None, postfix: Optional[str] = None) -> "MetricCollection":
         mc = deepcopy(self)

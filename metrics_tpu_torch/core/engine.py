@@ -81,6 +81,16 @@ signature that emits and one that does not, the cadence kept on the host.
 NCCL has run its first collective on the group before any capture, at the
 eager first call.
 
+**Sharded state.** A placed metric's update step (``Metric.shard_state``)
+runs the metric's update on a whole-size identity delta and merges it into
+the rank's blocks with one ``reduce_scatter`` per bucket: the step captures
+the delta's fill, the update, the collective and the add, and replays them
+like any other collective. A placed compute captures the sharded-compute
+protocol. A sample-sharded buffer's update exchanges the ranks' row counts
+through the host, so the update engine declines it before any collective,
+on every rank alike, with the reason in ``fallback_reasons``; the
+collection dispatcher classifies such a leader eager for the same reason.
+
 **Errors.** Only :class:`Uncapturable` and the errors torch raises for an
 operation a capture refuses revert a member. A kernel build or launch error
 propagates, as it does eagerly.
@@ -109,7 +119,7 @@ import torch.distributed as dist
 from torch import Tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from metrics_tpu_torch.core.buffers import CatBuffer, buffers_in, writes_in_place
+from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer, buffers_in, writes_in_place
 from metrics_tpu_torch.ops import kernels as _kernels
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.utils.checks import _capturing, _checks_off
@@ -244,6 +254,9 @@ def _flatten_into(tree: Any, leaves: list) -> Any:
     if kind is CatBuffer:
         leaves.extend((tree.data, tree.count, tree.overflowed))
         return ("c", tree._capacity)
+    if kind is ShardedCatBuffer:
+        leaves.extend((tree.data, tree.count, tree.overflowed))
+        return ("C", tree._capacity, tree.index, tree.width)
     if kind is dict:
         return ("d", tuple(tree), tuple(_flatten_into(v, leaves) for v in tree.values()))
     if kind is list:
@@ -284,6 +297,8 @@ def _build(node: Any, it: Any) -> Any:
         return tuple(_build(c, it) for c in node[1])
     if node[0] == "c":
         return CatBuffer._from_parts(next(it), next(it), next(it), capacity=node[1])
+    if node[0] == "C":
+        return ShardedCatBuffer.block(next(it), next(it), next(it), 0, False, node[2], node[3], node[1])
     if node[0] == "s":
         return node[1]._from_parts(node[2], [next(it) for _ in node[1].sketch_fields])
     if node[0] == "i":
@@ -1015,6 +1030,13 @@ class CompiledUpdateEngine(_EngineBase):
             return False
         if _capturing():  # inside another engine's step, or a caller's own capture
             return False
+        reason = self.metric._sharded_update_host_read()
+        if reason is not None:
+            # no probe: every rank declines alike, before any collective
+            self._broken = reason
+            self.stats.fallback_reasons[self._owner_name()] = reason
+            self.stats.eager_calls += 1
+            return False
         accepts = self._accepts
         if accepts is not None and not accepts(args, kwargs):
             return False
@@ -1069,7 +1091,7 @@ class CompiledUpdateEngine(_EngineBase):
             kwargs = dict(kwargs)
             kwargs[self._mask_param] = torch.arange(bucket, device=m.device) < n
             if not self._dispatch_compiled(args, kwargs):
-                m._update(*args, **kwargs)
+                m._eager_update(*args, **kwargs)
             return True
 
         # chunk decomposition: exact whenever the update treats rows independently
@@ -1078,7 +1100,7 @@ class CompiledUpdateEngine(_EngineBase):
             c_leaves = [leaf[offset:offset + chunk] if batch_rows(leaf) else leaf for leaf in leaves]
             c_args, c_kwargs = tree_unflatten(c_leaves, treedef)
             if not self._dispatch_compiled(c_args, c_kwargs):
-                m._update(*c_args, **c_kwargs)
+                m._eager_update(*c_args, **c_kwargs)
             offset += chunk
         return True
 
@@ -1100,6 +1122,9 @@ def classify_update_member(metric: Any) -> Tuple[str, str]:
         return PATH_EAGER, "has child metrics"
     if not metric.supports_compiled_update:
         return PATH_EAGER, "state unsupported by compiled update (unbounded list state)"
+    sharded_read = metric._sharded_update_host_read()
+    if sharded_read is not None:
+        return PATH_EAGER, sharded_read
     statics = tuple(getattr(metric, "_static_update_kwargs", ()) or ())
     if statics:
         # routing flags (FID's and KID's `real`): the metric's own engine keys
@@ -1134,7 +1159,8 @@ def classify_incremental_member(metric: Any) -> Tuple[str, str]:
     the resolved sync mode (``"incremental"``, when at least one leaf does)
     or not (``"deferred"``), and why: :func:`parallel.sync.incremental_plan`
     over the registered defaults and declarations."""
-    plan = _sync.incremental_plan(metric._defaults, metric._reductions, modes=getattr(metric, "_sync_modes", None))
+    plan = _sync.incremental_plan(metric._defaults, metric._reductions, modes=getattr(metric, "_sync_modes", None),
+                                  shard_axes=metric.active_shard_axes)
     covered = [n for n, e in plan.items() if e["mode"] == "incremental"]
     if covered:
         return "incremental", f"{len(covered)}/{len(plan)} state leaves take in-streak emissions"
@@ -1279,7 +1305,8 @@ class CollectionUpdateEngine(_EngineBase):
 def _refuse_host_read_sync(metric: Any, state: Any, group: Any) -> None:
     """Raise :class:`Uncapturable` before any collective when ``metric``'s
     sync of ``state`` over ``group`` would read a value back to the host."""
-    reason = _sync.sync_host_read(state, metric._reductions, group, metric._sync_transports, metric._sync_tolerances)
+    reason = _sync.sync_host_read(state, metric._reductions, group, metric._sync_transports, metric._sync_tolerances,
+                                  metric.active_shard_axes)
     if reason is not None:
         raise Uncapturable(reason)
 
@@ -1302,8 +1329,10 @@ class _GroupKeys:
 
 
 def _compute_group(metric: Any) -> Any:
-    """The group ``metric.compute()`` syncs over now, or None."""
-    if metric._to_sync and _sync.distributed_available():
+    """The group ``metric.compute()`` syncs over now, or None; a placed
+    metric always syncs over its placement, whatever ``sync_on_compute`` and
+    ``dist_sync_on_step`` say (its blocks are not the value)."""
+    if metric._sharded or (metric._to_sync and _sync.distributed_available()):
         return metric._sync_group()
     return None
 
@@ -1597,6 +1626,7 @@ class CollectionDispatcher:
                 getattr(leader, "_compiled_update", None) is False,
                 bool(getattr(leader, "_batch_buckets", False)),
                 tuple(sorted(getattr(leader, "_sync_modes", {}).items())),
+                leader._state_sharding is not None,
                 group[0] in self._migrated_update,
                 group[0] in self._migrated_compute,
                 tuple(
@@ -1713,7 +1743,7 @@ class CollectionDispatcher:
             state = leader.get_state()
             if sync_group is not None:
                 reason = _sync.sync_host_read(state, leader._reductions, sync_group, leader._sync_transports,
-                                              leader._sync_tolerances)
+                                              leader._sync_tolerances, leader.active_shard_axes)
                 if reason is not None:
                     culprits[lname] = f"{lname}: Uncapturable: {reason}"
                     continue

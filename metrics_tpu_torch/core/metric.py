@@ -15,8 +15,12 @@ engines (``core/engine.py``): from the second call of each input signature,
 (on the CPU, the same step with the value checks off). Sketch states
 (``dist_reduce_fx="sketch"``, ``metrics_tpu_torch.sketches``) are one leaf of
 their components everywhere: reset, moves, ``state_dict``, merges, sync and
-the engines. The JAX package's sharded state, tracer and resilience guard
-have no counterpart here yet.
+the engines. Sharded state (``add_state(shard_axis=)``, ``shard_state`` /
+``unshard_state``): each rank holds one disjoint block of a declared leaf,
+every update merges the rank's dense delta into the owners' blocks with one
+``reduce_scatter`` per bucket, and ``compute()`` runs the metric's
+``compute_sharded_state`` on the blocks or reshards them. The JAX package's
+tracer and resilience guard have no counterpart here yet.
 
 State lives on one explicit device. ``device=None`` means CUDA; without a
 card the constructor raises instead of quietly running on the CPU, so CPU
@@ -45,7 +49,8 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch.core.buffers import CatBuffer, in_place_writes
+from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer, in_place_writes
+from metrics_tpu_torch.parallel import mesh as _meshlib
 from metrics_tpu_torch.parallel import sync as _sync
 from metrics_tpu_torch.sketches.base import MergeableSketch
 from metrics_tpu_torch.sketches.base import is_sketch as _is_sketch
@@ -55,6 +60,7 @@ from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 StateValue = Union[Tensor, List[Tensor], CatBuffer, MergeableSketch]
 StateDict = Dict[str, StateValue]
+ShardAxis = Union[int, Tuple[int, ...]]
 
 _PROTECTED_PROPERTIES = ("is_differentiable", "higher_is_better", "full_state_update")
 _REDUCTIONS = ("sum", "mean", "cat", "max", "min", "sketch", None)
@@ -104,6 +110,32 @@ def _tensors_in(value: Any):
             yield from _tensors_in(item)
 
 
+def _write_rows(block: ShardedCatBuffer, rows: Optional[Tensor], n_added: int, over_added: bool) -> ShardedCatBuffer:
+    """``block`` after the global buffer appended ``rows`` (every rank's, in
+    the global order) at its count: the rows this block owns are written,
+    at the count clamped into the capacity as a captured append clamps it
+    (the buffer never grows), and the count and sticky flag advance.
+    ``n_added`` may exceed ``len(rows)`` when a placed buffer had overflowed."""
+    cap, width = block.capacity, block.width
+    n = block._n + n_added
+    over = block._over or over_added or n > cap
+    data = None if block.data is None else block.data.clone()
+    if rows is not None and rows.shape[0]:
+        per = cap // width
+        if data is None:
+            data = torch.zeros((per, *rows.shape[1:]), dtype=rows.dtype, device=rows.device)
+        rows = rows[:cap]
+        m = rows.shape[0]
+        start = min(max(block._n, 0), cap - m)
+        lo = block.index * per
+        a, b = max(start, lo), min(start + m, lo + per)
+        if a < b:
+            data[a - lo : b - lo] = rows[a - start : b - start].to(data.dtype)
+    count = block.count + n_added
+    flag = block.overflowed | torch.full((), over, dtype=torch.bool, device=block.count.device)
+    return ShardedCatBuffer.block(data, count, flag, n, over, block.index, width, None if data is not None else cap)
+
+
 class Metric:
     """Base class for all metrics.
 
@@ -124,6 +156,9 @@ class Metric:
         dist_sync_fn: ``fn(state, reductions, group) -> state`` in place of
             :func:`~metrics_tpu_torch.parallel.sync_state`.
         sync_on_compute: sync the state in ``compute()`` (default True).
+            A metric placed by :meth:`shard_state` syncs over its placement
+            in ``compute()`` and ``forward`` whatever this and
+            ``dist_sync_on_step`` say: its blocks are not its value.
         compiled_update: dispatch ``update()`` through the compiled-update
             engine (a captured step per input signature; see
             :mod:`metrics_tpu_torch.core.engine`). ``None`` (default) follows
@@ -217,6 +252,14 @@ class Metric:
         self._sync_transports: Dict[str, str] = {}
         self._sync_tolerances: Dict[str, float] = {}
         self._sync_modes: Dict[str, str] = {}
+        # declared shard axes, and the placement shard_state() made: the
+        # (mesh, axis names), the group a sync over it runs on, and each
+        # sharded leaf's unsharded default (dense: shape, dtype and the tensor
+        # where a zero fill would not restore it)
+        self._shard_axes: Dict[str, ShardAxis] = {}
+        self._state_sharding: Optional[Tuple[Any, Union[str, Tuple[str, ...]]]] = None
+        self._sync_placement: Any = None
+        self._shard_templates: Dict[str, Any] = {}
         self._update_count = 0
         self._forward_cache: Any = None
         self._computed: Any = None
@@ -239,6 +282,7 @@ class Metric:
         dist_reduce_fx: Optional[Union[str, Callable]] = None,
         persistent: bool = False,
         bufferable: Optional[bool] = None,
+        shard_axis: Optional[ShardAxis] = None,
         sync_transport: Optional[str] = None,
         sync_tolerance: Optional[float] = None,
         sync_mode: Optional[str] = None,
@@ -271,6 +315,12 @@ class Metric:
         :func:`~metrics_tpu_torch.set_sync_mode` in both directions, and only
         dense elementwise states can take emissions. All three are
         configuration, not state.
+
+        ``shard_axis`` declares the state shardable along that dimension (the
+        class axis of a confusion matrix, the sample axis of a
+        :class:`CatBuffer`, which may only declare ``0``), or along a tuple of
+        distinct dimensions (a grid). The declaration is inert until
+        :meth:`shard_state` places the leaf as one block per rank.
         """
         if (
             not isinstance(default, (Tensor, CatBuffer))
@@ -299,6 +349,8 @@ class Metric:
             default = CatBuffer.empty(self.buffer_capacity)
         if isinstance(default, (Tensor, CatBuffer)) or _is_sketch(default):
             default = default.to(self._device)
+        if shard_axis is not None:
+            self._shard_axes[name] = self._checked_shard_axis(name, default, shard_axis)
         if sync_transport is not None:
             if sync_transport not in _sync.TRANSPORTS:
                 raise ValueError(
@@ -322,10 +374,322 @@ class Metric:
         setattr(self, name, _copy_state_value(default))
         self._mark_default_copies()
 
+    @staticmethod
+    def _checked_shard_axis(name: str, default: StateValue, shard_axis: Any) -> ShardAxis:
+        """``shard_axis`` validated against the default, as the JAX package
+        validates it."""
+        if _is_sketch(default):
+            raise ValueError(f"state {name!r}: sketch states are fixed-size and stay replicated; "
+                             "`shard_axis` is not supported")
+        if isinstance(shard_axis, (tuple, list)):
+            shard_axis = tuple(shard_axis)
+            if not shard_axis or not all(isinstance(a, int) for a in shard_axis):
+                raise ValueError(f"`shard_axis` tuple must be non-empty ints but got {shard_axis!r}")
+        elif not isinstance(shard_axis, int):
+            raise ValueError(f"`shard_axis` must be an int, a tuple of ints, or None but got {shard_axis!r}")
+        if isinstance(default, list):
+            raise ValueError(
+                f"state {name!r}: unbounded list states cannot declare `shard_axis` "
+                "(construct the metric with `buffer_capacity=N` for a shardable CatBuffer)"
+            )
+        if isinstance(default, CatBuffer) and shard_axis != 0:
+            raise ValueError(
+                f"state {name!r}: CatBuffer states shard along the sample axis only (shard_axis=0), got {shard_axis}"
+            )
+        if isinstance(default, Tensor):
+            if default.ndim == 0:
+                raise ValueError(f"state {name!r}: scalar states cannot declare `shard_axis`")
+            axes = shard_axis if isinstance(shard_axis, tuple) else (shard_axis,)
+            for a in axes:
+                if not -default.ndim <= a < default.ndim:
+                    raise ValueError(f"state {name!r}: shard_axis {a} out of range for default of rank {default.ndim}")
+            if len({a % default.ndim for a in axes}) != len(axes):
+                raise ValueError(f"state {name!r}: shard_axis tuple {shard_axis!r} names the same array axis twice")
+        return shard_axis
+
     @property
     def metric_state(self) -> StateDict:
         """Current state values keyed by registered name."""
         return {attr: getattr(self, attr) for attr in self._defaults}
+
+    # ------------------------------------------------------------------ #
+    # sharded state: placement over a mesh of ranks
+    # ------------------------------------------------------------------ #
+    @property
+    def shard_axes(self) -> Dict[str, ShardAxis]:
+        """Declared shardable state axes (name -> axis or axes), active or not."""
+        return dict(self._shard_axes)
+
+    @property
+    def active_shard_axes(self) -> Dict[str, ShardAxis]:
+        """The shard axes in effect: empty until :meth:`shard_state`. A
+        declaration alone changes nothing: an unplaced leaf holds the rank's
+        partial value, which a sync sums; a placed one holds a disjoint block
+        of the global value, which a sync gathers."""
+        return dict(self._shard_axes) if self._state_sharding is not None else {}
+
+    @property
+    def state_sharding(self) -> Optional[Tuple[Any, Union[str, Tuple[str, ...]]]]:
+        """The ``(mesh, axis_name)`` placement of :meth:`shard_state`, or None."""
+        return self._state_sharding
+
+    @property
+    def _sharded(self) -> bool:
+        return self._state_sharding is not None and bool(self._shard_axes)
+
+    def _leaf_sharding(self, name: str, val: Any, placement: Optional[Tuple[Any, Any]] = None) -> "_meshlib.NamedSharding":
+        """The placement spec of one sharded leaf (under ``placement``,
+        default: the active one)."""
+        mesh, axis_name = placement or self._state_sharding  # type: ignore[misc]
+        if isinstance(val, CatBuffer):
+            first = axis_name[0] if isinstance(axis_name, tuple) else axis_name
+            return _meshlib.sample_sharded(mesh, first)
+        return _meshlib.shard_spec(mesh, self._shard_axes[name], val.ndim, axis_name)
+
+    def _leaf_splits(self, name: str, ndim: int, placement: Optional[Tuple[Any, Any]] = None) -> List[Tuple[int, str]]:
+        """``(array axis, mesh axis name)`` of each split of a sharded leaf."""
+        spec = self._leaf_sharding(name, torch.empty((0,) * ndim), placement).spec
+        return [(axis, mesh_axis) for axis, mesh_axis in enumerate(spec) if mesh_axis is not None]
+
+    def _own_block(self, name: str, full: Tensor) -> Tensor:
+        """This rank's block of a whole leaf."""
+        mesh = self._state_sharding[0]  # type: ignore[index]
+        for axis, mesh_axis in self._leaf_splits(name, full.ndim):
+            size = full.shape[axis] // mesh.axis_size(mesh_axis)
+            full = full.narrow(axis, mesh.axis_index(mesh_axis) * size, size)
+        return full.clone()
+
+    def shard_state(self, mesh: Any = None, axis_name: Union[str, Tuple[str, ...]] = "data") -> "Metric":
+        """Place every ``shard_axis``-declared leaf as one block per rank of ``mesh``.
+
+        Each rank's leaf (its partial value) becomes its disjoint block of
+        the global value, the ranks' sum (one ``reduce_scatter`` per bucket;
+        ``max``/``min`` leaves reduce by that op); the defaults become blocks
+        too, so ``reset()`` keeps the placement. From then on every update
+        merges the rank's delta into the owners' blocks, and ``compute()``
+        syncs over the placement's group, through :meth:`compute_sharded_state`
+        or a reshard. Every rank must update the same number of times.
+
+        ``mesh=None`` is a 1-D mesh named ``axis_name`` over the default
+        group. A tuple ``axis_name`` pairs the axes of a tuple ``shard_axis``
+        with mesh axes positionally (an int ``shard_axis`` splits over the
+        first); it names every axis of the mesh, in its order. A dimension
+        the mesh axis does not divide raises ``ValueError`` (no padding: the JAX
+        package's ``device_put`` refuses it too), and a sharded dense leaf
+        whose reduction is not ``sum``, ``max`` or ``min`` raises
+        ``NotImplementedError``. The engines are dropped. Returns ``self``.
+        """
+        names = axis_name if isinstance(axis_name, tuple) else (axis_name,)
+        if not names or not all(isinstance(n, str) for n in names):
+            raise ValueError(f"`axis_name` must be a mesh-axis name or non-empty tuple of names, got {axis_name!r}")
+        if mesh is None:
+            if len(names) != 1:
+                raise ValueError("shard_state: a multi-axis placement needs an explicit mesh (see make_mesh)")
+            mesh = _meshlib.data_parallel_mesh(axis_name=names[0])
+        for n in names:
+            if n not in mesh.axis_names:
+                raise ValueError(f"axis {n!r} is not an axis of the mesh {mesh.axis_names}")
+        max_rank = max((len(a) for a in self._shard_axes.values() if isinstance(a, tuple)), default=1)
+        if max_rank > len(names):
+            raise ValueError(
+                f"a state declares {max_rank} shard axes but shard_state received only {len(names)} mesh axis "
+                f"name(s) {names!r}"
+            )
+        if names != mesh.axis_names:
+            raise ValueError(
+                f"shard_state: the axis names {names!r} must name every axis of the mesh {mesh.axis_names} once, in "
+                "its order (the ranks along a left-out axis would hold partial copies of each block)"
+            )
+        if not self._shard_axes:
+            rank_zero_warn(
+                f"{type(self).__name__}.shard_state: no state declares a `shard_axis`; state stays fully replicated.",
+                UserWarning,
+            )
+        if self._state_sharding is not None:
+            self.unshard_state()
+        placement = (mesh, axis_name)
+        for name in self._shard_axes:
+            default, red = self._defaults[name], self._reductions[name]
+            if isinstance(default, CatBuffer):
+                splits, dims = [(0, names[0])], [default.capacity]
+            elif red not in ("sum", "max", "min"):
+                raise NotImplementedError(
+                    f"state {name!r}: a sharded leaf merges its updates by sum, max or min; its reduction is {red!r}"
+                )
+            else:
+                splits = self._leaf_splits(name, default.ndim, placement)
+                dims = [default.shape[a] for a, _ in splits]
+            for (axis, mesh_axis), dim in zip(splits, dims):
+                if dim % mesh.axis_size(mesh_axis):
+                    raise ValueError(
+                        f"state {name!r}: dimension {axis} of size {dim} does not divide over the "
+                        f"{mesh.axis_size(mesh_axis)} ranks of mesh axis {mesh_axis!r}"
+                    )
+        self._state_sharding = placement
+        self._sync_placement = mesh.group(names[0]) if len(names) == 1 else mesh
+        state = self.get_state()
+        dense = []
+        for name, axis in self._shard_axes.items():
+            default, red = self._defaults[name], self._reductions[name]
+            if isinstance(default, CatBuffer):
+                self._shard_templates[name] = default.copy()
+                self._defaults[name] = self._empty_block(default)
+                setattr(self, name, self._place_rows(self._defaults[name], state[name]))
+                continue
+            keep = red != "sum" or bool(default.any())
+            self._shard_templates[name] = (tuple(default.shape), default.dtype, default.clone() if keep else None)
+            block = self._own_block(name, default)
+            self._defaults[name] = block
+            identity = block if red != "sum" else torch.zeros_like(block)
+            dense.append((name, identity, state[name], axis, red))
+        if dense:
+            for name, block in _sync.reduce_scatter_merge(dense, self._sync_placement).items():
+                setattr(self, name, block)
+        self._after_placement()
+        return self
+
+    def unshard_state(self) -> "Metric":
+        """Undo :meth:`shard_state`: every rank gathers each sharded leaf's
+        blocks (one ``"reshard"`` tick per leaf, billed at the whole leaf's
+        bytes). The whole leaf is then the global value, which rank 0 of
+        the placement keeps as its partial while the others keep the
+        identity (zeros; ``max``/``min`` leaves keep it on every rank, and
+        buffers their global overflow flag), so a later synced ``compute()``
+        returns what it returned before."""
+        if self._state_sharding is None:
+            return self
+        whole = _sync._axis_groups(self._sync_placement)[0]
+        keeper = dist.get_rank(whole) == 0
+        for name in self._shard_axes:
+            val, template, red = getattr(self, name), self._shard_templates[name], self._reductions[name]
+            if isinstance(val, ShardedCatBuffer):
+                full = self._gather_block(name, val)
+                if not keeper and full.materialized:
+                    full = CatBuffer._from_parts(torch.zeros_like(full.data), torch.zeros_like(full.count),
+                                                 full.overflowed, 0, full._over)
+                setattr(self, name, full)
+                self._defaults[name] = template
+                continue
+            full = self._gather_block(name, val)
+            setattr(self, name, full if keeper or red != "sum" else torch.zeros_like(full))
+            shape, dtype, tensor = template
+            self._defaults[name] = tensor if tensor is not None else torch.zeros(shape, dtype=dtype, device=self._device)
+        self._state_sharding = None
+        self._sync_placement = None
+        self._shard_templates = {}
+        self._after_placement()
+        return self
+
+    def _after_placement(self) -> None:
+        """A placement change: the engines' steps bind the old shapes."""
+        self._update_engine = None
+        self._compute_engine = None
+        self._computed = None
+        self._mark_default_copies()
+        self._invalidate_dispatch()
+
+    def _gather_block(self, name: str, val: Any) -> Any:
+        """The whole leaf of a sharded block, gathered untallied, with one
+        ``"reshard"`` tick at the whole leaf's bytes."""
+        mesh = self._state_sharding[0]  # type: ignore[index]
+        if isinstance(val, ShardedCatBuffer):
+            if not val.materialized:
+                return CatBuffer(None, 0, val.capacity, self._device)
+            with _sync._muted():
+                full = val.gather(mesh.group(self._leaf_sharding(name, val).spec[0]))
+            _sync._tick("reshard", full.data.numel() * full.data.element_size())
+            return full
+        with _sync._muted():
+            for axis, mesh_axis in self._leaf_splits(name, val.ndim):
+                val = torch.cat(_sync._all_gather(val, mesh.group(mesh_axis)), dim=axis)
+        _sync._tick("reshard", val.numel() * val.element_size())
+        return val
+
+    def _empty_block(self, buf: CatBuffer) -> ShardedCatBuffer:
+        """An empty block of a buffer's placement (materialized when the
+        buffer is)."""
+        mesh, axis_name = self._state_sharding  # type: ignore[misc]
+        first = axis_name[0] if isinstance(axis_name, tuple) else axis_name
+        width, index = mesh.axis_size(first), mesh.axis_index(first)
+        count = torch.zeros((), dtype=torch.int32, device=self._device)
+        over = torch.zeros((), dtype=torch.bool, device=self._device)
+        data = None
+        if buf.materialized:
+            data = torch.zeros((buf.capacity // width, *buf.data.shape[1:]), dtype=buf.data.dtype, device=self._device)
+        return ShardedCatBuffer.block(data, count, over, 0, False, index, width, None if data is not None else buf.capacity)
+
+    def _place_rows(self, block: ShardedCatBuffer, buf: CatBuffer) -> ShardedCatBuffer:
+        """``block`` with the rows of every rank's ``buf`` appended (rank
+        major); the counts and overflow flags add and or across ranks."""
+        whole = _sync._axis_groups(self._sync_placement)[0]
+        meta = torch.tensor([len(buf), int(buf.overflow_seen), int(buf.materialized)], device=self._device)
+        n_all, over_all, materialized = torch.stack(_sync._all_gather(meta, whole)).sum(dim=0).tolist()
+        if not n_all:
+            return _write_rows(block, None, 0, bool(over_all))
+        if materialized < dist.get_world_size(whole):
+            raise MetricsUserError(
+                "shard_state: a buffer that some ranks have appended to and others have not cannot be placed "
+                "(its item shape is unknown on the others); place it before the first update"
+            )
+        rows = buf.data[: min(len(buf), buf.capacity)]
+        return _write_rows(block, _sync._gather_ragged([rows], whole, ["buffer"])[0], n_all, bool(over_all))
+
+    def _append_sharded_rows(self, name: str, block: ShardedCatBuffer, delta: CatBuffer) -> ShardedCatBuffer:
+        """One update's rows of a sample-sharded buffer: every rank's rows,
+        gathered in rank order (a shape exchange, then one ``all_gather``),
+        appended at the global count; this rank keeps the rows it owns."""
+        whole = _sync._axis_groups(self._sync_placement)[0]
+        if delta.materialized:
+            rows = delta.data[: len(delta)]
+        elif block.materialized:
+            rows = block.data[:0]
+        else:
+            raise MetricsUserError(
+                f"state {name!r}: the first sharded update appended no rows on this rank, so the buffer's item shape "
+                "is unknown here; give every rank rows in the first update"
+            )
+        gathered = _sync._gather_ragged([rows], whole, [name])[0]
+        return _write_rows(block, gathered, gathered.shape[0], False)
+
+    def _delta_base(self, name: str, block: Tensor) -> Tensor:
+        """The whole-leaf identity the delta of an update starts from: zeros
+        for a sum, the unsharded default for ``max``/``min``."""
+        shape, dtype, tensor = self._shard_templates[name]
+        if self._reductions[name] != "sum":
+            return tensor.clone()
+        return torch.zeros(shape, dtype=dtype, device=block.device)
+
+    def _sharded_update_state(self, state: StateDict, args: Tuple, kwargs: Dict) -> StateDict:
+        """One update of a placed metric: the metric's own update on an
+        identity copy of each sharded leaf (a whole-size delta; an empty
+        buffer for a sample-sharded one) beside the replicated leaves as they
+        are, then the deltas merged into this rank's blocks
+        (:func:`~metrics_tpu_torch.parallel.sync.reduce_scatter_merge`)."""
+        active = self.active_shard_axes
+        work = dict(state)
+        for name in active:
+            val = state[name]
+            if isinstance(val, ShardedCatBuffer):
+                work[name] = CatBuffer(None, 0, val.capacity, self._device)
+            else:
+                work[name] = self._delta_base(name, val)
+        new = self._local_update_state(work, args, kwargs)
+        dense = [(name, state[name], new[name], axis, self._reductions[name])
+                 for name, axis in active.items() if not isinstance(state[name], CatBuffer)]
+        if dense:
+            new.update(_sync.reduce_scatter_merge(dense, self._sync_placement))
+        for name in active:
+            if isinstance(state[name], ShardedCatBuffer):
+                new[name] = self._append_sharded_rows(name, state[name], new[name])
+        return new
+
+    def _sharded_update_host_read(self) -> Optional[str]:
+        """Why an update of this placement cannot be captured, or None."""
+        for name in self.active_shard_axes:
+            if isinstance(self._defaults[name], CatBuffer):
+                return (f"the sample-sharded update of CatBuffer state {name!r} exchanges the ranks' row counts "
+                        "through the host")
+        return None
 
     @property
     def device(self) -> torch.device:
@@ -371,7 +735,11 @@ class Metric:
         out: StateDict = {}
         for attr, default in self._defaults.items():
             cur = state.get(attr)
-            if isinstance(cur, CatBuffer) and cur.materialized:
+            if isinstance(cur, ShardedCatBuffer) and cur.materialized:
+                out[attr] = cur._like(torch.zeros_like(cur.data), torch.zeros_like(cur.count),
+                                      torch.zeros_like(cur.overflowed))
+                out[attr]._n, out[attr]._over = 0, False
+            elif isinstance(cur, CatBuffer) and cur.materialized:
                 out[attr] = CatBuffer(torch.zeros_like(cur.data), 0)
             elif isinstance(cur, list):
                 out[attr] = []
@@ -445,7 +813,15 @@ class Metric:
         ``update`` and this function share one implementation. Buffers are
         copied first, since appends write into them in place; in the body of
         a captured step they are the step's own static buffers and are
-        appended to as they are (``buffers.writes_in_place``)."""
+        appended to as they are (``buffers.writes_in_place``). Under an
+        active placement the sharded leaves are blocks and the update merges
+        into them over the placement's group (:meth:`shard_state`): a
+        collective that every rank must run."""
+        if self._sharded:
+            return self._sharded_update_state(state, args, kwargs)
+        return self._local_update_state(state, args, kwargs)
+
+    def _local_update_state(self, state: StateDict, args: Tuple, kwargs: Dict) -> StateDict:
         prev = self.get_state()
         in_place = in_place_writes()
         try:
@@ -496,22 +872,58 @@ class Metric:
                 out[attr] = reduce_fn(torch.stack([a, b]))
         return out
 
-    def sync_states(self, state: StateDict, group: Optional[dist.ProcessGroup]) -> StateDict:
+    def sync_states(self, state: StateDict, group: Any, keep_sharded: bool = False) -> StateDict:
         """Pure: ``state`` synced over ``group`` by reduction tag (bucketed
         by ``(reduction, dtype, transport)`` unless
         :func:`~metrics_tpu_torch.parallel.set_bucketed_sync` turned it
         off), each state through its declared transport behind the
-        error-budget gate; ``group=None`` returns it unchanged."""
+        error-budget gate; ``group=None`` returns it unchanged. Under an
+        active placement the sharded leaves reshard (one tiled ``all_gather``
+        per bucket), or stay blocks with ``keep_sharded=True``."""
         return _sync.sync_state(
-            state, self._reductions, group, transports=self._sync_transports, tolerances=self._sync_tolerances
+            state, self._reductions, group, transports=self._sync_transports, tolerances=self._sync_tolerances,
+            shard_axes=self.active_shard_axes, keep_sharded=keep_sharded,
         )
 
-    def sync_compute_state(self, state: StateDict, group: Optional[dist.ProcessGroup] = None) -> Any:
+    def sync_compute_state(self, state: StateDict, group: Any = None) -> Any:
         """Pure sync, then compute: the unit the compiled compute engine
-        captures, collectives included. ``group=None`` skips the sync."""
+        captures, collectives included. ``group=None`` skips the sync.
+
+        An active placement whose sync runs over one process group (not a
+        mesh of several axes) takes the sharded-compute protocol when the
+        class supports it: the sharded leaves stay blocks and
+        :meth:`compute_sharded_state` combines only the result, so nothing
+        reshards."""
         if group is not None:
+            if isinstance(group, dist.ProcessGroup) and self.active_shard_axes and self.supports_sharded_compute:
+                return self.compute_sharded_state(self.sync_states(state, group, keep_sharded=True), group)
             state = self.sync_states(state, group)
         return self.compute_state(state)
+
+    def compute_sharded_state(self, state: StateDict, group: dist.ProcessGroup) -> Any:
+        """Pure: the metric value from a *still-sharded* state: the sharded
+        leaves are this rank's blocks, the replicated ones already synced.
+        Classes whose finalize is a per-block reduction and a small combine
+        override this, combining only the result with
+        :func:`~metrics_tpu_torch.parallel.psum_result` and
+        :func:`~metrics_tpu_torch.parallel.gather_result`."""
+        raise NotImplementedError
+
+    @property
+    def supports_sharded_compute(self) -> bool:
+        """True when this class ships a ``compute_sharded_state`` matching
+        its ``compute``: the class defining the former sits at the same or a
+        more derived place in the MRO than the class defining the latter, so
+        a subclass that redefines ``compute`` alone reshards instead of
+        finalizing its parent's metric."""
+        cls = type(self)
+        csc_owner = next((c for c in cls.__mro__ if "compute_sharded_state" in c.__dict__), None)
+        if csc_owner is None or csc_owner is Metric:
+            return False
+        compute_owner = next((c for c in cls.__mro__ if "compute" in c.__dict__), None)
+        if compute_owner is None:
+            return False
+        return cls.__mro__.index(csc_owner) <= cls.__mro__.index(compute_owner)
 
     # ------------------------------------------------------------------ #
     # incremental sync protocol: in-streak emissions
@@ -520,7 +932,7 @@ class Metric:
         """Pure: each state's incremental routing under the resolved mode
         (:func:`~metrics_tpu_torch.parallel.incremental_plan`)."""
         return _sync.incremental_plan(self.metric_state if state is None else state, self._reductions,
-                                      modes=self._sync_modes)
+                                      modes=self._sync_modes, shard_axes=self.active_shard_axes)
 
     def init_incremental(self, state: StateDict, *, sync_every: Optional[int] = None) -> "_sync.IncrementalCarry":
         """Pure: a streak's starting ``state`` (usually :meth:`init_state`)
@@ -528,7 +940,7 @@ class Metric:
         emits every ``sync_every``-th update (default
         :func:`~metrics_tpu_torch.parallel.sync_cadence_default`)."""
         return _sync.init_incremental(state, self._reductions, modes=self._sync_modes, sync_every=sync_every,
-                                      transports=self._sync_transports)
+                                      transports=self._sync_transports, shard_axes=self.active_shard_axes)
 
     def update_state_incremental(
         self, carry: "_sync.IncrementalCarry", *args: Any, group: Optional[dist.ProcessGroup] = None, **kwargs: Any
@@ -541,22 +953,26 @@ class Metric:
         state = self.update_state(carry.state, *args, **kwargs)
         return _sync.advance_incremental(
             carry, state, self._reductions, group, modes=self._sync_modes, transports=self._sync_transports,
-            tolerances=self._sync_tolerances,
+            tolerances=self._sync_tolerances, shard_axes=self.active_shard_axes,
         )
 
-    def finalize_incremental(self, carry: "_sync.IncrementalCarry", group: Optional[dist.ProcessGroup] = None) -> StateDict:
+    def finalize_incremental(
+        self, carry: "_sync.IncrementalCarry", group: Any = None, keep_sharded: bool = False
+    ) -> StateDict:
         """Pure: the synced state at the end of a streak. Covered buckets
-        cost nothing; cadence tails and residue sync through the deferred
-        path, bitwise equal to :meth:`sync_states` of the final state under
-        exact transports."""
+        cost nothing; cadence tails and residue (sharded leaves among it)
+        sync through the deferred path, bitwise equal to :meth:`sync_states`
+        of the final state under exact transports."""
         return _sync.finalize_incremental_state(
             carry, self._reductions, group, modes=self._sync_modes, transports=self._sync_transports,
-            tolerances=self._sync_tolerances,
+            tolerances=self._sync_tolerances, shard_axes=self.active_shard_axes, keep_sharded=keep_sharded,
         )
 
-    def sync_compute_incremental(self, carry: "_sync.IncrementalCarry", group: Optional[dist.ProcessGroup] = None) -> Any:
+    def sync_compute_incremental(self, carry: "_sync.IncrementalCarry", group: Any = None) -> Any:
         """Pure finalize, then compute: the incremental counterpart of
-        :meth:`sync_compute_state`."""
+        :meth:`sync_compute_state`, with its sharded-compute routing."""
+        if isinstance(group, dist.ProcessGroup) and self.active_shard_axes and self.supports_sharded_compute:
+            return self.compute_sharded_state(self.finalize_incremental(carry, group, keep_sharded=True), group)
         return self.compute_state(self.finalize_incremental(carry, group))
 
     # ------------------------------------------------------------------ #
@@ -691,7 +1107,7 @@ class Metric:
             self._update_count += 1
             engine = self._maybe_engine()
             if engine is None or not engine.dispatch(args, kwargs):
-                update(*args, **kwargs)
+                self._eager_update(*args, **kwargs)
             if self._buffer_states:
                 self._surface_buffer_overflows()
             if self.compute_on_cpu:
@@ -699,6 +1115,14 @@ class Metric:
 
         self._update = update  # unwrapped, used by the pure protocol
         return wrapped_func
+
+    def _eager_update(self, *args: Any, **kwargs: Any) -> None:
+        """One update outside the engines: the metric's own ``update``, or
+        under an active placement the sharded update of :meth:`update_state`."""
+        if self._sharded:
+            self.set_state(self.update_state(self.get_state(), *args, **kwargs))
+        else:
+            self._update(*args, **kwargs)
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -721,8 +1145,15 @@ class Metric:
                     if handled:
                         self._computed = _squeeze_if_scalar(value)
                         return self._computed
+                if self._sharded and self.dist_sync_fn is None and not self._is_synced:
+                    # the blocks are not the value: the protocol, or a reshard,
+                    # whatever ``sync_on_compute``/``dist_sync_on_step`` say
+                    value = self.sync_compute_state(self.get_state(), self._sync_group())
+                    self._computed = _squeeze_if_scalar(value)
+                    return self._computed
+            should_sync = self._to_sync or (self._sharded and not self._is_synced)
             with self.sync_context(
-                dist_sync_fn=self.dist_sync_fn, should_sync=self._to_sync, should_unsync=self._should_unsync
+                dist_sync_fn=self.dist_sync_fn, should_sync=should_sync, should_unsync=self._should_unsync
             ):
                 self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
@@ -763,9 +1194,12 @@ class Metric:
     # distributed sync
     # ------------------------------------------------------------------ #
     def _sync_group(self, process_group: Optional[dist.ProcessGroup] = None) -> Optional[dist.ProcessGroup]:
-        """The group a sync runs over: the argument, the metric's own group,
-        :func:`~metrics_tpu_torch.parallel.sync_axes`' group, else the default
-        group when it has more than one rank."""
+        """The group a sync runs over: the active placement's (a process
+        group, or its mesh for a tuple of axes), else the argument, the
+        metric's own group, :func:`~metrics_tpu_torch.parallel.sync_axes`'
+        group, else the default group when it has more than one rank."""
+        if self._sharded:
+            return self._sync_placement
         return next(
             (g for g in (process_group, self.process_group, _sync.current_sync_axes()) if g is not None),
             _sync._default_group(),
@@ -791,7 +1225,8 @@ class Metric:
         if self._is_synced and should_sync:
             raise MetricsUserError("The Metric has already been synced.")
         is_distributed = distributed_available() if callable(distributed_available) else None
-        if not should_sync or not is_distributed:
+        # sharded blocks are not the value: a placed metric syncs even in a world of one
+        if not should_sync or not (is_distributed or self._sharded):
             return
         self._cache = self.get_state()
         self._sync_dist(dist_sync_fn or self.dist_sync_fn, process_group=process_group)
@@ -873,8 +1308,9 @@ class Metric:
 
     def __deepcopy__(self, memo: Dict[int, Any]) -> "Metric":
         """A copy that shares the process group: a group cannot be copied."""
-        if self.process_group is not None:
-            memo.setdefault(id(self.process_group), self.process_group)
+        for shared in (self.process_group, self._sync_placement, (self._state_sharding or (None,))[0]):
+            if shared is not None:  # process groups cannot be copied
+                memo.setdefault(id(shared), shared)
         new = type(self).__new__(type(self))
         memo[id(self)] = new
         new.__setstate__(deepcopy(self.__getstate__(), memo))
@@ -899,6 +1335,10 @@ class Metric:
         for attr in self._defaults:
             setattr(self, attr, move(getattr(self, attr)))
         self._defaults = {k: move(d) for k, d in self._defaults.items()}
+        self._shard_templates = {
+            k: move(t) if isinstance(t, CatBuffer) else (t[0], t[1], None if t[2] is None else move(t[2]))
+            for k, t in self._shard_templates.items()
+        }
         self._move_attributes(self._device)
         self._computed = None
         # the graphs bind the old device's addresses
@@ -922,8 +1362,8 @@ class Metric:
             if isinstance(val, CatBuffer):
                 if not val.materialized:
                     return val
-                out = CatBuffer._from_parts(cast(val.data), val.count, val.overflowed, len(val), val.overflow_seen)
-                out._device = val.device
+                out = val._alias()
+                out.data = cast(val.data)
                 return out
             if _is_sketch(val):
                 return val
@@ -960,6 +1400,12 @@ class Metric:
                 elif _is_sketch(current):
                     # a dict of components, as the JAX package checkpoints it
                     out[prefix + key] = {f: v.detach().clone() for f, v in current.components().items()}
+                elif isinstance(current, ShardedCatBuffer):
+                    # this rank's block beside the global count and flag
+                    out[prefix + key] = {
+                        "block": current.data.detach().clone() if current.materialized else None,
+                        "count": current.count.detach().clone(), "overflowed": current.overflowed.detach().clone(),
+                    }
                 elif isinstance(current, CatBuffer):
                     # the compact valid prefix, as the JAX package checkpoints it
                     out[prefix + key] = (
@@ -970,12 +1416,25 @@ class Metric:
         return out
 
     def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:
+        """Load the persistent states. Under an active placement a sharded
+        leaf takes either this rank's block (what :meth:`state_dict` holds
+        here) or the whole global leaf, of which it keeps its block."""
         for key in self._defaults:
             name = prefix + key
             if name in state_dict:
                 val = state_dict[name]
                 default = self._defaults[key]
-                if isinstance(default, CatBuffer):
+                if isinstance(default, ShardedCatBuffer):
+                    if not isinstance(val, dict):
+                        raise MetricsUserError(f"state {key!r}: a sample-sharded buffer loads from its state_dict block")
+                    data = None if val["block"] is None else torch.as_tensor(val["block"], device=self._device)
+                    count = torch.as_tensor(val["count"], device=self._device)
+                    over = torch.as_tensor(val["overflowed"], device=self._device)
+                    setattr(self, key, ShardedCatBuffer.block(
+                        data, count, over, int(count), bool(over), default.index, default.width,
+                        None if data is not None else default.capacity,
+                    ))
+                elif isinstance(default, CatBuffer):
                     if isinstance(val, list):
                         val = torch.cat([torch.atleast_1d(torch.as_tensor(v)) for v in val]) if val else torch.zeros(0)
                     arr = torch.as_tensor(val, device=self._device)
@@ -991,7 +1450,10 @@ class Metric:
                 elif isinstance(val, list):
                     setattr(self, key, [torch.as_tensor(v, device=self._device) for v in val])
                 else:
-                    setattr(self, key, torch.as_tensor(val, device=self._device))
+                    val = torch.as_tensor(val, device=self._device)
+                    if key in self.active_shard_axes and val.shape != default.shape:
+                        val = self._own_block(key, val)
+                    setattr(self, key, val)
             elif strict and self._persistent[key]:
                 raise KeyError(f"Missing key {name!r} in state_dict")
         self._invalidate_dispatch()

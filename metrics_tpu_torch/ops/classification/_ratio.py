@@ -1,6 +1,7 @@
 """Shared ratio-score reduction used by precision/recall (counterpart of
 ``metrics_tpu/ops/classification/_ratio.py``): absent classes get the ``-1``
-sentinel of ``_reduce_stat_scores`` instead of a boolean filter."""
+sentinel of ``_reduce_stat_scores`` instead of a boolean filter. With a
+``group`` it reduces a class block and combines only the result."""
 from __future__ import annotations
 
 from typing import Optional
@@ -22,8 +23,10 @@ def mask_absent_and_reduce(
     mdmc_average: Optional[str],
     weights: Optional[Tensor] = None,
     zero_division: int = 0,
+    group=None,
 ) -> Tensor:
-    """Apply the absent-class sentinel then reduce."""
+    """Apply the absent-class sentinel (elementwise) then reduce, over
+    ``group``'s class blocks when one is given (the sharded compute)."""
     if mdmc_average != MDMCAverageMethod.SAMPLEWISE and average in (
         AverageMethod.MACRO,
         AverageMethod.NONE,
@@ -39,4 +42,6 @@ def mask_absent_and_reduce(
         average=average,
         mdmc_average=mdmc_average,
         zero_division=zero_division,
+        group=group,
     )
+

@@ -11,17 +11,21 @@ from metrics_tpu_torch.ops.classification.stat_scores import _stat_scores_update
 from metrics_tpu_torch.utils.checks import _check_avg_args
 
 
-def _precision_compute(tp: Tensor, fp: Tensor, fn: Tensor, average: Optional[str], mdmc_average: Optional[str]) -> Tensor:
+def _precision_compute(
+    tp: Tensor, fp: Tensor, fn: Tensor, average: Optional[str], mdmc_average: Optional[str], group=None
+) -> Tensor:
     return mask_absent_and_reduce(
         tp, tp + fp, tp, fp, fn, average, mdmc_average,
-        weights=None if average != "weighted" else tp + fn,
+        weights=None if average != "weighted" else tp + fn, group=group,
     )
 
 
-def _recall_compute(tp: Tensor, fp: Tensor, fn: Tensor, average: Optional[str], mdmc_average: Optional[str]) -> Tensor:
+def _recall_compute(
+    tp: Tensor, fp: Tensor, fn: Tensor, average: Optional[str], mdmc_average: Optional[str], group=None
+) -> Tensor:
     return mask_absent_and_reduce(
         tp, tp + fn, tp, fp, fn, average, mdmc_average,
-        weights=None if average != "weighted" else tp + fn,
+        weights=None if average != "weighted" else tp + fn, group=group,
     )
 
 

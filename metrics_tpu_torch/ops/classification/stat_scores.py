@@ -277,12 +277,20 @@ def _reduce_stat_scores(
     average: Optional[str],
     mdmc_average: Optional[str],
     zero_division: int = 0,
+    group=None,
 ) -> Tensor:
     """Reduce ``numerator/denominator`` scores with ignore/zero-div handling.
 
     Negative denominators mark ignored classes; zero denominators score
-    ``zero_division``.
+    ``zero_division``. With a ``group`` the scores are this rank's class
+    block of the macro layout (the sharded compute): masks and ratios are
+    elementwise, so only the weight normalizer and the final reduction cross
+    ranks. ``average='none'`` gathers the per-class scores as a result
+    (bitwise); averaged modes ``psum`` the weighted partial sums (within
+    float32 rounding of the replicated sum).
     """
+    from metrics_tpu_torch.parallel import sync as _psync  # at call time: parallel imports core, core the metrics
+
     numerator, denominator = numerator.to(torch.float32), denominator.to(torch.float32)
     zero_div_mask = denominator == 0
     ignore_mask = denominator < 0
@@ -293,7 +301,7 @@ def _reduce_stat_scores(
     weights = torch.where(ignore_mask, 0.0, weights)
 
     if average not in (AverageMethod.MICRO, AverageMethod.NONE, None):
-        weights = weights / weights.sum(dim=-1, keepdim=True)
+        weights = weights / _psync.psum_result(weights.sum(dim=-1, keepdim=True), group)
 
     scores = weights * (numerator / denominator)
     scores = torch.where(torch.isnan(scores), float(zero_division), scores)
@@ -303,8 +311,8 @@ def _reduce_stat_scores(
         ignore_mask = ignore_mask.sum(dim=0).to(torch.bool)
 
     if average in (AverageMethod.NONE, None):
-        return torch.where(ignore_mask, float("nan"), scores)
-    return scores.sum()
+        return _psync.gather_result(torch.where(ignore_mask, float("nan"), scores), group, axis=0)
+    return _psync.psum_result(scores.sum(), group)
 
 
 def stat_scores(

@@ -19,11 +19,24 @@ Example (a world of one rank, on the CPU):
     >>> mesh = make_mesh([1, 1], ["data", "model"])
     >>> mesh.axis_size("data"), mesh.axis_index("model"), dist.get_world_size(mesh.group(("data", "model")))
     (1, 0, 1)
+    >>> class_sharded(mesh, "data").spec
+    ('data', None)
+    >>> grid_sharded(mesh, ("data", "model"), (1,), 2).spec
+    (None, 'data')
     >>> dist.destroy_process_group()
+
+The placement specs (``replicated``, ``batch_sharded``, ``class_sharded``,
+``sample_sharded``, ``grid_sharded``, ``shard_spec``) are the counterparts
+of the JAX package's ``NamedSharding`` helpers. Each returns a
+:class:`NamedSharding` of the port's own: the mesh and a ``spec`` tuple
+equal to ``tuple(PartitionSpec(...))`` of the JAX helper. A sharded state
+leaf lives as one disjoint block per rank (``Metric.shard_state``); the spec
+says which array axis is split over which mesh axis.
 """
 from __future__ import annotations
 
 import itertools
+from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -92,3 +105,74 @@ class Mesh:
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str], backend: Optional[str] = None) -> Mesh:
     """Lay out the ranks of the default process group as a named mesh."""
     return Mesh(axis_sizes, axis_names, backend)
+
+
+def data_parallel_mesh(axis_name: str = "data") -> Mesh:
+    """1-D mesh over every rank of the default group. The JAX package's
+    ``n`` (the first ``n`` devices) has no counterpart: a mesh lays out
+    every rank."""
+    return make_mesh([-1], [axis_name])
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """Where a state leaf lives: ``spec[i]`` names the mesh axis (or None,
+    whole on every rank) that array axis ``i`` is split over."""
+
+    mesh: Mesh
+    spec: Tuple[Optional[str], ...]
+
+
+def replicated(mesh: Mesh) -> NamedSharding:
+    return NamedSharding(mesh, ())
+
+
+def batch_sharded(mesh: Mesh, axis_name: str = "data") -> NamedSharding:
+    return NamedSharding(mesh, (axis_name,))
+
+
+def class_sharded(mesh: Mesh, axis_name: str = "data", shard_axis: int = 0, ndim: int = 2) -> NamedSharding:
+    """Class-axis blocks (confusion matrices, binned counts): dimension
+    ``shard_axis`` of an ``ndim``-rank leaf split over ``axis_name``, every
+    other dimension whole on each rank."""
+    spec = [None] * ndim
+    spec[shard_axis] = axis_name
+    return NamedSharding(mesh, tuple(spec))
+
+
+def sample_sharded(mesh: Mesh, axis_name: str = "data") -> NamedSharding:
+    """Sample-axis blocks (``CatBuffer`` payloads): rank ``r`` holds rows
+    ``[r * capacity / width, (r + 1) * capacity / width)``."""
+    return NamedSharding(mesh, (axis_name,))
+
+
+def grid_sharded(mesh: Mesh, axis_names: Tuple[str, ...], shard_axes: Tuple[int, ...], ndim: int) -> NamedSharding:
+    """Grid tiles (a tuple ``shard_axis``): each array axis in
+    ``shard_axes`` pairs positionally with a name in ``axis_names``."""
+    if len(shard_axes) > len(axis_names):
+        raise ValueError(
+            f"grid_sharded: {len(shard_axes)} shard axes but only {len(axis_names)} mesh axis name(s) {axis_names!r}"
+        )
+    ndim = max(ndim, 1)
+    spec = [None] * ndim
+    for name, axis in zip(axis_names, shard_axes):
+        spec[axis % ndim] = name
+    return NamedSharding(mesh, tuple(spec))
+
+
+def shard_spec(
+    mesh: Mesh,
+    shard_axis: Optional[Union[int, Tuple[int, ...]]],
+    ndim: int,
+    axis_name: AxisNames = "data",
+) -> NamedSharding:
+    """The placement of a leaf from its ``shard_axis`` declaration: None is
+    replicated, an int splits that dimension over ``axis_name`` (its first
+    name when a tuple), a tuple is a grid (:func:`grid_sharded`)."""
+    if shard_axis is None:
+        return replicated(mesh)
+    names = axis_name if isinstance(axis_name, tuple) else (axis_name,)
+    if isinstance(shard_axis, tuple):
+        return grid_sharded(mesh, names, shard_axis, ndim)
+    ndim = max(ndim, 1)
+    return class_sharded(mesh, names[0], shard_axis % ndim, ndim)

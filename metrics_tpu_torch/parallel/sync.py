@@ -49,8 +49,22 @@ An empty ``cat`` list or an unmaterialized ``CatBuffer`` passes through
 unchanged, as in the JAX package, so a rank that never appended to such a
 state must not sync it while others do.
 
-Not ported here: sharded and resharded state, whose ``kind="reshard"``
-bounds the gate already models (A17b); tenant-stacked sync (A19); the
+**Sharded state** (``Metric.shard_state``). A sharded leaf is one disjoint
+block per rank of the global state. Each update merges the rank's dense delta
+into the owners' blocks: one ``reduce_scatter`` per ``(dtype, reduction,
+shard dimension)`` bucket, coalesced with the shard axis in front
+(:func:`reduce_scatter_merge`; a grid leaf takes one per mesh axis). At
+``compute()`` a sharded leaf either re-materializes through the reshard
+bucket (:func:`_sync_resharded`, one tiled ``all_gather`` per bucket, ticked
+``"reshard"``, with the ``bf16``/``int8`` reshard codecs behind the gate's
+``kind="reshard"`` bounds) or, under ``keep_sharded=True``, stays a block for
+the metric's ``compute_sharded_state``, which combines only its result
+(:func:`psum_result`, :func:`gather_result`). Where the JAX package takes a
+tuple of axis names, the port takes a :class:`~metrics_tpu_torch.parallel.Mesh`:
+replicated leaves then sum over every rank of the mesh, and a leaf sharded
+along a tuple of array axes gathers over the mesh's axes in order.
+
+Not ported here: tenant-stacked sync (A19); the
 autotune controller that ``_resolve_transport`` and ``sync_cadence_default``
 consult in the JAX package, and the tracer, chaos and registry hooks (A20):
 they go where those functions now fall through to the global defaults.
@@ -67,11 +81,13 @@ import torch
 import torch.distributed as dist
 from torch import Tensor
 
-from metrics_tpu_torch.core.buffers import CatBuffer
+from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer
+from metrics_tpu_torch.parallel.mesh import Mesh
 from metrics_tpu_torch.sketches.base import is_sketch
 from metrics_tpu_torch.utils.compute import class_reduce, reduce  # noqa: F401  (the JAX package's home of both)
 
-Group = Optional[dist.ProcessGroup]
+Group = Optional[Union[dist.ProcessGroup, Mesh]]
+ShardAxis = Union[int, Tuple[int, ...]]
 Reduction = Optional[Union[str, Callable]]
 
 _REDUCTIONS = ("sum", "mean", "max", "min", "cat", None)
@@ -681,6 +697,119 @@ def sync_array(x: Tensor, reduction: Reduction, group: Group, name: str = "state
 
 
 # --------------------------------------------------------------------------- #
+# sharded state: the placement's groups, the update merge, the result combine
+# --------------------------------------------------------------------------- #
+def _axis_groups(group: Group) -> Tuple[Optional[dist.ProcessGroup], Tuple[dist.ProcessGroup, ...]]:
+    """``(the group replicated leaves reduce over, the groups of the sync's
+    axes in order)``: a process group is both; a mesh is every rank of it and
+    its axes' groups."""
+    if isinstance(group, Mesh):
+        return group.group(group.axis_names), tuple(group.group(name) for name in group.axis_names)
+    return group, (group,)
+
+
+def psum_result(x: Tensor, group: Group) -> Tensor:
+    """Cross-shard sum of a *result* (the sharded-compute combine): one
+    ``all_reduce`` ticked ``"psum"``, so :func:`count_collectives` shows that
+    the protocol moved result bytes and no ``"reshard"`` bytes."""
+    if group is None:
+        return x
+    wire = _to_wire(x)
+    _tick("psum", _nbytes(wire))
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=_axis_groups(group)[0])
+    return wire
+
+
+def gather_result(x: Tensor, group: Group, axis: int = 0) -> Tensor:
+    """Cross-shard concatenation of per-shard *result* blocks along ``axis``
+    (rank order): one ``all_gather`` ticked ``"all_gather"``."""
+    if group is None:
+        return x
+    return torch.cat(_all_gather(x, _axis_groups(group)[1][0]), dim=axis)
+
+
+def _reduce_scatter_rows(x: Tensor, reduction: str, group: dist.ProcessGroup) -> Tensor:
+    """This rank's ``1/width`` of ``x`` along dim 0, reduced over ``group``:
+    one ``reduce_scatter``. ``reduce_scatter_single`` where torch has it (its
+    older name warns from torch 2.13 on)."""
+    x = x.contiguous()
+    world = dist.get_world_size(group)
+    out = torch.empty((x.shape[0] // world, *x.shape[1:]), dtype=x.dtype, device=x.device)
+    _tick("reduce_scatter", _nbytes(x))
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    scatter(out, x, op=_REDUCE_OPS[reduction], group=group)
+    return out
+
+
+def _merge_block(block: Tensor, reduced: Tensor, reduction: str) -> Tensor:
+    reduced = reduced.to(block.dtype)
+    if reduction == "sum":
+        return block + reduced
+    return torch.maximum(block, reduced) if reduction == "max" else torch.minimum(block, reduced)
+
+
+def reduce_scatter_merge(
+    entries: Sequence[Tuple[str, Tensor, Tensor, ShardAxis, str]], group: Group
+) -> Dict[str, Tensor]:
+    """The sharded update's merge: each ``(name, block, delta, shard_axis,
+    reduction)`` leaf's dense ``delta`` (this rank's update run on an
+    identity copy of the whole leaf) reduced over every rank into this rank's
+    ``block``.
+
+    Leaves sharded along one axis bucket by ``(dtype, reduction, shard
+    dimension)``: shard axis to the front, ``(dim, -1)`` per leaf,
+    concatenated along dim 1, one ``reduce_scatter`` over the first axis's
+    group. A grid leaf takes one per mesh axis, left to right over its
+    axes. Over a mesh, the axes a leaf is not split along then reduce its
+    block with one ``all_reduce`` (blocks are replicated along them). For
+    ``sum`` the result is the global state bit for bit in any order for
+    integer counts; ``max``/``min`` take that op.
+    """
+    names: Tuple[Any, ...] = group.axis_names if isinstance(group, Mesh) else (None,)
+
+    def along(i: int) -> dist.ProcessGroup:
+        return group.group(names[i]) if isinstance(group, Mesh) else group
+
+    def rest(k: int) -> Optional[dist.ProcessGroup]:
+        if not isinstance(group, Mesh) or k >= len(names):
+            return None
+        return group.group(names[k:])
+
+    out: Dict[str, Tensor] = {}
+    buckets: Dict[Tuple[torch.dtype, str, int], List[Tuple[str, Tensor, Tensor, int]]] = {}
+    for name, block, delta, axis, red in entries:
+        if red not in ("sum", "max", "min"):
+            raise NotImplementedError(f"state {name!r}: a sharded leaf merges by sum, max or min, not {red!r}")
+        if not isinstance(axis, tuple):
+            a = axis % delta.ndim
+            buckets.setdefault((delta.dtype, red, delta.shape[a]), []).append((name, block, delta, a))
+            continue
+        if len(axis) > len(names):
+            raise ValueError(f"state {name!r} is sharded along {len(axis)} axes but the sync spans {len(names)}")
+        reduced = delta
+        for i, a in enumerate(axis):
+            a %= delta.ndim
+            reduced = _reduce_scatter_rows(reduced.movedim(a, 0), red, along(i)).movedim(0, a)
+        if rest(len(axis)) is not None:
+            reduced = _all_reduce(reduced, red, rest(len(axis)))
+        out[name] = _merge_block(block, reduced, red)
+    for (_, red, dim), items in buckets.items():
+        moved = [delta.movedim(a, 0) for _, _, delta, a in items]
+        flat = [m.reshape(dim, -1) for m in moved]
+        # a lone leaf split along its first axis goes as it is, uncopied
+        reduced = _reduce_scatter_rows(flat[0] if len(flat) == 1 else torch.cat(flat, dim=1), red, along(0))
+        if rest(1) is not None:
+            reduced = _all_reduce(reduced, red, rest(1))
+        offset = 0
+        for (name, block, _, a), m in zip(items, moved):
+            width = m[0].numel() if dim else 0
+            seg = reduced[:, offset : offset + width].reshape(reduced.shape[0], *m.shape[1:])
+            offset += width
+            out[name] = _merge_block(block, seg.movedim(0, a), red)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # the codecs: how a flat sum bucket crosses the wire
 # --------------------------------------------------------------------------- #
 def _sum_bf16(flat: Tensor, group: dist.ProcessGroup, dtype: torch.dtype) -> Tensor:
@@ -855,6 +984,93 @@ def _sync_bucketed_catbuffers(entries: List[Tuple[str, CatBuffer]], group: dist.
     return out
 
 
+def _sync_resharded(
+    entries: List[Tuple[str, Tensor, int]],
+    group: dist.ProcessGroup,
+    transports: Optional[Dict[str, str]] = None,
+    tolerances: Optional[Dict[str, float]] = None,
+) -> Dict[str, Tensor]:
+    """The reshard bucket: each ``(name, block, shard_axis)`` leaf is this
+    rank's disjoint block, so the sync is data movement only: one tiled
+    ``all_gather`` along the shard axis rebuilds the global leaf. Leaves of
+    one ``(dtype, shard dimension, transport)`` coalesce (shard axis to the
+    front, ``(dim, -1)`` each, concatenated along dim 1). Every collective
+    ticks ``"reshard"``.
+
+    Transports: ``bf16`` casts each way; ``int8`` quantizes against one
+    bucket-global max-abs scale (a MAX ``all_reduce`` of one float32,
+    ``logical=0``). Neither accumulates, so both pass the gate with
+    ``kind="reshard"`` bounds; ``sparse_count`` never applies here.
+    """
+    out: Dict[str, Tensor] = {}
+    buckets: Dict[Tuple[torch.dtype, int, str], List[Tuple[str, Tensor, int]]] = {}
+    for name, arr, axis in entries:
+        axis %= max(arr.ndim, 1)
+        buckets.setdefault((arr.dtype, int(arr.shape[axis]), _resolve_transport(name, transports)), []).append(
+            (name, arr, axis)
+        )
+    world = dist.get_world_size(group) if any(t != "exact" for _, _, t in buckets) else None
+    for (dtype, dim, requested), items in buckets.items():
+        transport = requested
+        if requested != "exact":
+            names = [n for n, _, _ in items]
+            nelems = sum(a.numel() for _, a, _ in items)
+            transport, refusal = _gate_transport(
+                requested, None, dtype, nelems, world, _bucket_tolerance(names, tolerances), kind="reshard"
+            )
+            if refusal is not None:
+                _tick_refusal(dict(refusal, reduction="reshard", dtype=_dtype_name(dtype), states=names))
+        if transport == "exact" and len(items) == 1:
+            name, arr, axis = items[0]
+            out[name] = torch.cat(_all_gather(arr, group, kind="reshard"), dim=axis)
+            continue
+        moved = [arr.movedim(axis, 0) for _, arr, axis in items]
+        flat = torch.cat([m.reshape(dim, -1) for m in moved], dim=1)
+        if transport == "bf16":
+            wire = flat.to(torch.bfloat16)
+            gathered = torch.cat(_all_gather(wire, group, kind="reshard", logical=_nbytes(flat), transport="bf16"))
+            gathered = torch.round(gathered.to(torch.float32)).to(dtype) if _is_integer(dtype) else gathered.to(dtype)
+        elif transport == "int8":
+            fl32 = flat.to(torch.float32)
+            gmax = fl32.abs().amax().reshape(1)
+            _tick("all_reduce", _nbytes(gmax), logical=0, transport="int8")
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=group)
+            scale = torch.where(gmax > 0.0, gmax / torch.full_like(gmax, 127.0), torch.ones_like(gmax))
+            q = torch.clamp(torch.round(fl32 / scale), -127.0, 127.0).to(torch.int8)
+            deq = torch.cat(_all_gather(q, group, kind="reshard", logical=_nbytes(flat), transport="int8"))
+            deq = deq.to(torch.float32) * scale
+            gathered = torch.round(deq).to(dtype) if _is_integer(dtype) else deq.to(dtype)
+        else:
+            gathered = torch.cat(_all_gather(flat, group, kind="reshard"))
+        offset = 0
+        for (name, _, axis), m in zip(items, moved):
+            width = m[0].numel() if dim else 0
+            seg = gathered[:, offset : offset + width]
+            offset += width
+            out[name] = seg.reshape(gathered.shape[0], *m.shape[1:]).movedim(0, axis)
+    return out
+
+
+def _sync_resharded_multi(
+    entries: List[Tuple[str, Tensor, Tuple[int, ...]]], groups: Sequence[dist.ProcessGroup]
+) -> Dict[str, Tensor]:
+    """Grid leaves (a tuple ``shard_axis``): one tiled ``all_gather`` per
+    sharded axis over the sync's axis groups, paired positionally, left to
+    right; each ticks ``"reshard"``."""
+    out: Dict[str, Tensor] = {}
+    for name, arr, axes in entries:
+        axes = tuple(a % max(arr.ndim, 1) for a in axes)
+        if len(axes) > len(groups):
+            raise ValueError(
+                f"state {name!r} is sharded along {len(axes)} axes but the sync spans only {len(groups)} mesh "
+                "axis group(s); sync over the placement's Mesh"
+            )
+        for group, axis in zip(groups, axes):
+            arr = torch.cat(_all_gather(arr, group, kind="reshard"), dim=axis)
+        out[name] = arr
+    return out
+
+
 def sync_state(
     state: Dict[str, Any],
     reductions: Dict[str, Reduction],
@@ -862,6 +1078,8 @@ def sync_state(
     bucketed: Optional[bool] = None,
     transports: Optional[Dict[str, str]] = None,
     tolerances: Optional[Dict[str, float]] = None,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
+    keep_sharded: bool = False,
 ) -> Dict[str, Any]:
     """Sync a whole state dict over ``group`` by each state's reduction tag.
 
@@ -876,13 +1094,27 @@ def sync_state(
     budget) pick each state's codec; undeclared states follow
     :func:`sync_transport_default`, and every quantized bucket passes the
     error-budget gate. ``group=None`` returns the state unchanged.
+
+    ``shard_axes`` (name -> axis or tuple of axes) names the leaves that are
+    sharded blocks (an active ``Metric.shard_state`` placement): they skip
+    the reduction buckets and re-materialize through the reshard bucket
+    (:func:`_sync_resharded`; tuple axes through :func:`_sync_resharded_multi`;
+    a sample-sharded ``CatBuffer`` through one ``all_gather`` of its blocks,
+    ticked ``"reshard"``). ``keep_sharded=True`` passes them through as
+    blocks (the sharded-compute protocol). ``group`` may be a
+    :class:`~metrics_tpu_torch.parallel.Mesh` (its axes in order): replicated
+    leaves then sum over every rank of it.
     """
     if group is None:
         return dict(state)
     if bucketed is None:
         bucketed = bucketed_sync_enabled()
+    shard_axes = shard_axes or {}
+    whole, axis_groups = _axis_groups(group)
     out: Dict[str, Any] = {}
     entries: List[Tuple[str, Tensor, Reduction]] = []
+    shard_entries: List[Tuple[str, Tensor, int]] = []
+    multi_entries: List[Tuple[str, Tensor, Tuple[int, ...]]] = []
     buf_entries: List[Tuple[str, CatBuffer]] = []
     rewrap: Dict[str, type] = {}
     sketches: Dict[str, Any] = {}
@@ -899,17 +1131,27 @@ def sync_state(
                 if bucketed:
                     entries.append((key, comp, fred))
                 else:
-                    out[key] = sync_array(comp, fred, group, key)
+                    out[key] = sync_array(comp, fred, whole, key)
             continue
         if isinstance(val, CatBuffer):
             if red not in ("cat", None):
                 raise ValueError(f"CatBuffer state {name!r} only supports dist_reduce_fx 'cat'/None, got {red!r}")
-            if not val.materialized:
+            if isinstance(val, ShardedCatBuffer):
+                out[name] = val if keep_sharded else val.gather(axis_groups[0], kind="reshard")
+            elif not val.materialized:
                 out[name] = val
             elif bucketed:
                 buf_entries.append((name, val))
             else:
-                out[name] = val.gather(group)
+                out[name] = val.gather(whole)
+            continue
+        if name in shard_axes and isinstance(val, Tensor):
+            if keep_sharded:
+                out[name] = val
+            elif isinstance(shard_axes[name], tuple):
+                multi_entries.append((name, val, shard_axes[name]))
+            else:
+                shard_entries.append((name, val, shard_axes[name]))
             continue
         if isinstance(val, (list, tuple)):
             if len(val) == 0:
@@ -927,11 +1169,15 @@ def sync_state(
         if bucketed and (red in _REDUCTIONS):
             entries.append((name, val, red))
         else:
-            out[name] = sync_array(val, red, group, name)
+            out[name] = sync_array(val, red, whole, name)
     if entries:
-        out.update(_sync_bucketed(entries, group, eff_transports, eff_tolerances))
+        out.update(_sync_bucketed(entries, whole, eff_transports, eff_tolerances))
+    if shard_entries:
+        out.update(_sync_resharded(shard_entries, axis_groups[0], transports, tolerances))
+    if multi_entries:
+        out.update(_sync_resharded_multi(multi_entries, axis_groups))
     if buf_entries:
-        out.update(_sync_bucketed_catbuffers(buf_entries, group))
+        out.update(_sync_bucketed_catbuffers(buf_entries, whole))
     for name, container in rewrap.items():
         out[name] = container((out[name],))
     for name, sketch in sketches.items():
@@ -945,13 +1191,17 @@ def sync_host_read(
     group: Group,
     transports: Optional[Dict[str, str]] = None,
     tolerances: Optional[Dict[str, float]] = None,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
 ) -> Optional[str]:
     """Why :func:`sync_state` of ``state`` would read a value back to the
     host (which a captured step cannot do), or None. Decided from the
     structure, the declarations and the group's size alone, before any
-    collective runs, so every rank refuses alike."""
+    collective runs, so every rank refuses alike. A sharded leaf reads
+    nothing: its blocks are of one size and its buffer count is global."""
     if group is None:
         return None
+    shard_axes = shard_axes or {}
+    state = {name: val for name, val in state.items() if name not in shard_axes}
     for name, val in state.items():
         red = reductions.get(name)
         if isinstance(val, CatBuffer) and val.materialized:
@@ -960,7 +1210,7 @@ def sync_host_read(
             return f"the sync of list state {name!r} exchanges its ranks' shapes through the host"
         if isinstance(val, Tensor) and red == "cat":
             return f"the ragged gather of cat state {name!r} exchanges its ranks' shapes through the host"
-    world = dist.get_world_size(group)
+    world = dist.get_world_size(_axis_groups(group)[0])
     for entry in transport_plan(state, reductions, world, transports, tolerances):
         if entry["transport"] == "sparse_count":
             return (f"the sparse_count sync of {entry['names']} reads its nonzero count back to the host to pick "
@@ -999,8 +1249,8 @@ def gather_all_arrays(x: Tensor, group: Group = None) -> List[Tensor]:
 #              re-syncs the live state.
 #
 # Everything else (cat/None/callable reductions, list and CatBuffer states,
-# and, once sharded state is ported, shard_axis leaves) is residue: the
-# ordinary deferred sync at finalize.
+# and the leaves of an active shard_axis placement) is residue: the ordinary
+# deferred sync at finalize, resharded or kept sharded.
 def _resolve_mode(name: str, modes: Optional[Dict[str, str]]) -> str:
     m = (modes or {}).get(name)
     if m is not None and m not in SYNC_MODES:
@@ -1020,8 +1270,8 @@ def incremental_plan(
     ``"replace"``, ``"sketch"`` or None; ``eligible`` says whether the leaf
     could take emissions (a dense tensor of an elementwise reduction, not
     sharded); ``reason`` explains a deferred routing. Reads only dtypes and
-    declarations. ``shard_axes`` names sharded leaves, which stay residue
-    (the port has none until sharded state is ported)."""
+    declarations. ``shard_axes`` names the leaves of an active placement,
+    which stay residue."""
     shard_axes = shard_axes or {}
     plan: Dict[str, Dict[str, Any]] = {}
     for name, val in state.items():
@@ -1104,6 +1354,7 @@ def init_incremental(
     modes: Optional[Dict[str, str]] = None,
     sync_every: Optional[int] = None,
     transports: Optional[Dict[str, str]] = None,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
 ) -> IncrementalCarry:
     """A fresh :class:`IncrementalCarry` around ``state``: zero accumulators
     for the covered leaves and zero delta bases for the ``fold`` ones (the
@@ -1112,7 +1363,7 @@ def init_incremental(
     k = sync_cadence_default() if sync_every is None else int(sync_every)
     if k < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    plan = incremental_plan(state, reductions, modes=modes)
+    plan = incremental_plan(state, reductions, modes=modes, shard_axes=shard_axes)
     acc: Dict[str, Tensor] = {}
     last: Dict[str, Tensor] = {}
     covered: List[str] = []
@@ -1145,12 +1396,13 @@ def _emission_entries(
     modes: Optional[Dict[str, str]],
     transports: Optional[Dict[str, str]],
     tolerances: Optional[Dict[str, float]],
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
 ) -> Tuple[List[Tuple[str, Tensor, Reduction]], List[Tuple[str, Tensor, Reduction]], Dict[str, Tensor],
            Dict[str, str], Dict[str, float]]:
     """The fold entries (deltas), the replace entries (live leaves), the live
     leaf of each, and the transports and tolerances with sketch components
     expanded, of one emission."""
-    plan = incremental_plan(state, reductions, modes=modes)
+    plan = incremental_plan(state, reductions, modes=modes, shard_axes=shard_axes)
     fold: List[Tuple[str, Tensor, Reduction]] = []
     replace: List[Tuple[str, Tensor, Reduction]] = []
     live: Dict[str, Tensor] = {}
@@ -1189,14 +1441,16 @@ def emit_incremental(
     transports: Optional[Dict[str, str]] = None,
     tolerances: Optional[Dict[str, float]] = None,
     emission: int = 1,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
     """One in-streak emission: the new ``(acc, last)``. ``fold`` leaves sync
     their delta since ``last`` (bucketed like the deferred path, gated at the
     ``emission``-th compounded bound) into ``acc``; ``replace`` leaves run
     their full bucket collective and replace ``acc``."""
     fold, replace, live, eff_transports, eff_tolerances = _emission_entries(
-        state, last, reductions, modes, transports, tolerances
+        state, last, reductions, modes, transports, tolerances, shard_axes
     )
+    group = _axis_groups(group)[0]
     new_acc = dict(acc)
     new_last = dict(last)
     if fold:
@@ -1228,6 +1482,8 @@ def finalize_incremental(
     tolerances: Optional[Dict[str, float]] = None,
     bucketed: Optional[bool] = None,
     emission: int = 1,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
+    keep_sharded: bool = False,
 ) -> Dict[str, Any]:
     """The synced state at the end of a streak, paying only the residue:
 
@@ -1237,11 +1493,12 @@ def finalize_incremental(
       bucket, folded in (still exact for integer sums);
     - covered ``replace`` with a tail, or a carry that never emitted: the
       live state through the deferred path;
-    - residue leaves: the ordinary :func:`sync_state`.
+    - residue leaves: the ordinary :func:`sync_state` (sharded leaves
+      resharded, or kept as blocks under ``keep_sharded``).
     """
     if group is None:
         return dict(state)
-    plan = incremental_plan(state, reductions, modes=modes)
+    plan = incremental_plan(state, reductions, modes=modes, shard_axes=shard_axes)
     out: Dict[str, Any] = {}
     residue: Dict[str, Any] = {}
     fold_tail: List[Tuple[str, Tensor, Reduction]] = []
@@ -1266,7 +1523,7 @@ def finalize_incremental(
         else:
             residue[name] = state[name]
     if fold_tail:
-        tail = _sync_bucketed(fold_tail, group, transports, tolerances, error_scale=float(emission))
+        tail = _sync_bucketed(fold_tail, _axis_groups(group)[0], transports, tolerances, error_scale=float(emission))
         for name, _, _ in fold_tail:
             out[name] = acc[name] + tail[name]
     if residue:
@@ -1274,6 +1531,7 @@ def finalize_incremental(
             residue, {n: reductions.get(n) for n in residue}, group, bucketed=bucketed,
             transports={n: t for n, t in (transports or {}).items() if n in residue},
             tolerances={n: t for n, t in (tolerances or {}).items() if n in residue},
+            shard_axes={n: a for n, a in (shard_axes or {}).items() if n in residue}, keep_sharded=keep_sharded,
         ))
     return {name: out[name] for name in state}
 
@@ -1300,6 +1558,7 @@ def advance_incremental(
     modes: Optional[Dict[str, str]] = None,
     transports: Optional[Dict[str, str]] = None,
     tolerances: Optional[Dict[str, float]] = None,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
 ) -> IncrementalCarry:
     """Fold one post-update state into the carry, emitting on cadence.
     ``group=None`` never emits: the carry tracks the live state and finalize
@@ -1309,7 +1568,7 @@ def advance_incremental(
     if emits:
         acc, last = emit_incremental(
             new_state, carry.acc, carry.last, reductions, group, modes=modes, transports=transports,
-            tolerances=tolerances, emission=carry.emissions + 1,
+            tolerances=tolerances, emission=carry.emissions + 1, shard_axes=shard_axes,
         )
     return IncrementalCarry(new_state, acc, last, carry.sync_every, pending, emissions, carry.track_emissions)
 
@@ -1322,6 +1581,7 @@ def emission_transports(
     modes: Optional[Dict[str, str]] = None,
     transports: Optional[Dict[str, str]] = None,
     tolerances: Optional[Dict[str, float]] = None,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
 ) -> Tuple[Tuple[Tuple[str, ...], str], ...]:
     """The gate's decision for each fold bucket at the carry's next
     emission (its names and final transport): what a captured emission
@@ -1330,7 +1590,7 @@ def emission_transports(
     if not carry.track_emissions:
         return ()
     fold, _, _, eff_transports, eff_tolerances = _emission_entries(
-        carry.state, carry.last, reductions, modes, transports, tolerances
+        carry.state, carry.last, reductions, modes, transports, tolerances, shard_axes
     )
     plan = transport_plan({n: x for n, x, _ in fold}, {n: "sum" for n, _, _ in fold}, world,
                           eff_transports, eff_tolerances, error_scale=float(carry.emissions + 1))
@@ -1346,10 +1606,12 @@ def finalize_incremental_state(
     transports: Optional[Dict[str, str]] = None,
     tolerances: Optional[Dict[str, float]] = None,
     bucketed: Optional[bool] = None,
+    shard_axes: Optional[Dict[str, ShardAxis]] = None,
+    keep_sharded: bool = False,
 ) -> Dict[str, Any]:
     """Carry-level wrapper over :func:`finalize_incremental`."""
     return finalize_incremental(
         carry.state, carry.acc, carry.last, reductions, group, pending=carry.pending, synced=carry.synced,
         modes=modes, transports=transports, tolerances=tolerances, bucketed=bucketed,
-        emission=carry.emissions + 1,
+        emission=carry.emissions + 1, shard_axes=shard_axes, keep_sharded=keep_sharded,
     )

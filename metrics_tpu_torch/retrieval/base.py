@@ -76,9 +76,11 @@ class RetrievalMetric(Metric, ABC):
         self.max_queries = max_queries
         self.max_docs_per_query = max_docs_per_query
 
-        self.add_state("indexes", default=[], dist_reduce_fx=None, bufferable=True)
-        self.add_state("preds", default=[], dist_reduce_fx=None, bufferable=True)
-        self.add_state("target", default=[], dist_reduce_fx=None, bufferable=True)
+        # buffers under buffer_capacity, shardable along the sample axis
+        shard_axis = 0 if self.buffer_capacity is not None else None
+        self.add_state("indexes", default=[], dist_reduce_fx=None, bufferable=True, shard_axis=shard_axis)
+        self.add_state("preds", default=[], dist_reduce_fx=None, bufferable=True, shard_axis=shard_axis)
+        self.add_state("target", default=[], dist_reduce_fx=None, bufferable=True, shard_axis=shard_axis)
 
     def update(self, preds: Tensor, target: Tensor, indexes: Tensor) -> None:  # type: ignore[override]
         if indexes is None:

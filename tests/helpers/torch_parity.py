@@ -18,9 +18,11 @@ CPU tensors, and compares:
 - (c) the ``buffered`` factory under (a) and (b), its update captured where
   the entry's ``buffered_level`` says the JAX update compiles.
 
-The synced case (d) runs in the gloo world of ``tests/helpers/torch_dist.py``
-(``tests/test_torch_parity.py``). :data:`UNTWINNED` lists the entries that
-have no twin yet.
+The synced case (d) runs in the gloo world of ``tests/helpers/torch_dist.py``.
+The checks are here as functions; ``tests/test_torch_parity.py`` and
+``tests/test_torch_parity_part2.py`` parametrize them over the two halves of
+:data:`PARITY_PARTS`, so that ``--dist loadfile`` runs the halves on two
+workers. :data:`UNTWINNED` lists the entries that have no twin yet.
 """
 from __future__ import annotations
 
@@ -368,3 +370,134 @@ def run_engines(name: str, buffered: bool = False, rounds: int = 4) -> Dict[str,
         update_both(ref, port, calls)
         results.append((ref.compute(), port.compute()))
     return {"ref": ref, "twin": port, "results": results, "calls": calls}
+
+
+# --------------------------------------------------------------------------- #
+# the checks the two test modules parametrize
+# --------------------------------------------------------------------------- #
+# the twins in alphabetical order, cut where the measured time of their tests
+# halves (through MultiScaleStructuralSimilarityIndexMeasure, 51 entries)
+_ALL = sorted(TWINS)
+_CUT = _ALL.index("MultiScaleStructuralSimilarityIndexMeasure") + 1
+PARITY_PARTS = (_ALL[:_CUT], _ALL[_CUT:])
+WORLD = 4
+
+
+def check_eager(name: str, buffered: bool) -> None:
+    """(a), or (c)'s eager half."""
+    ref, port, want, got = run_eager(name, buffered)
+    if name in COMPARE_STATES:
+        assert_same_states(ref, port, name)
+    assert_same_result(name, got, want, msg=name)
+
+
+def check_engines(name: str, buffered: bool) -> Tuple[Dict[str, Tuple[str, str]], Any]:
+    """(b), or (c)'s captured half: the partition, the counters, each
+    round's result and states; the engines change no bit of the port's own
+    eager run."""
+    run = run_engines(name, buffered)
+    ref, port = run["ref"], run["twin"]
+    part = same_partition(ref, port, name)
+    assert counters(port) == counters(ref), name
+    for k, (want, got) in enumerate(run["results"]):
+        assert_same_result(name, got, want, msg=f"{name} round {k}")
+    if name in COMPARE_STATES:
+        assert_same_states(ref, port, name)
+    eager = twin(name, buffered, compiled_update=False, compiled_compute=False)
+    for _ in run["results"]:
+        for args, kwargs in run["calls"]:
+            eager.update(*to_torch(args), **to_torch(kwargs))
+    assert_same_result(name, run["results"][-1][1], eager.compute(), bitwise=True, msg=f"{name} against eager")
+    return part, port
+
+
+def check_buffered_capture(name: str) -> None:
+    """(c): the buffered update captured where the JAX update compiles."""
+    part, port = check_engines(name, True)
+    assert INVENTORY[name].buffered_level in ("update_sync", "full")
+    # one captured step per signature: KID's `real` routes each batch through
+    # its own (bucketed path), so its two values are two captures
+    statics = {tuple(sorted(kwargs.items())) for _, kwargs in batches(name)}
+    assert part["update"] == (("fused", "compilable") if len(statics) == 1 else (
+        "bucketed", "static update kwargs (real) close over per-value jit variants in the per-metric engine"))
+    stats = port.engine_stats()["update"]
+    assert stats.cache_misses == len(statics) and stats.cache_hits >= 1
+
+
+def _holds_array(tree: Any) -> bool:
+    if isinstance(tree, np.ndarray):
+        return True
+    if isinstance(tree, dict):
+        return any(_holds_array(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_holds_array(v) for v in tree)
+    return False
+
+
+def _host_inputs(name: str) -> bool:
+    """An entry whose calls hold no array anywhere (text corpora, SQuAD's
+    dicts): each rank is fed the whole call, and the oracle every rank's copy
+    in turn. BERTScore's synced compute is tested in tests/test_torch_bert.py."""
+    return name != "BERTScore" and not _holds_array(batches(name))
+
+
+def _splittable(name: str) -> bool:
+    """Every positional argument an array whose rows split evenly; keyword
+    arguments arrays too, or Python scalars (FID's and KID's ``real``),
+    which every rank gets as they are."""
+    if _host_inputs(name):
+        return True
+    for args, kwargs in batches(name):
+        arrays = [a for a in (*args, *kwargs.values()) if isinstance(a, np.ndarray)]
+        scalars = [v for v in kwargs.values() if isinstance(v, (bool, int, float))]
+        if not arrays or len(arrays) + len(scalars) != len(args) + len(kwargs) or arrays[0].shape[0] % WORLD:
+            return False
+    return True
+
+
+def sync_cases(names: List[str]) -> List[Tuple[str, bool]]:
+    return [(n, False) for n in names if _splittable(n)] + [(n, True) for n in names if has_buffered(n) and _splittable(n)]
+
+
+def rank_calls(name: str) -> List[List[Tuple[tuple, dict]]]:
+    """Each rank's calls: the rows of every call in WORLD consecutive parts."""
+    per_rank: List[List[Tuple[tuple, dict]]] = [[] for _ in range(WORLD)]
+    for args, kwargs in batches(name):
+        split = lambda a: np.split(a, WORLD) if isinstance(a, np.ndarray) else [a] * WORLD  # noqa: E731
+        parts = [split(a) for a in args]
+        kparts = {k: split(v) for k, v in kwargs.items()}
+        for r in range(WORLD):
+            per_rank[r].append((tuple(p[r] for p in parts), {k: v[r] for k, v in kparts.items()}))
+    return per_rank
+
+
+def rank_seed(name: str, rank: int) -> Optional[int]:
+    """The seed of rank ``rank``'s generator for a ``SEEDED`` entry, else None."""
+    return SEEDED[name] + rank if name in SEEDED else None
+
+
+def oracle(name: str, buffered: bool, per_rank: List[List[Tuple[tuple, dict]]], **kwargs: Any) -> Any:
+    metric = make_twin(name, buffered, **kwargs)
+    for rank, calls in enumerate(per_rank):
+        # each rank's resampling comes from its own generator
+        seed_generator(name, metric, rank_seed(name, rank))
+        for args, kw in calls:
+            metric.update(*to_torch(args), **to_torch(kw))
+    return metric.compute()
+
+
+def check_synced(world: Any, name: str, buffered: bool) -> None:
+    """(d): the synced compute on every rank against the rank-major oracle."""
+    from tests.helpers import torch_dist as td
+
+    per_rank = rank_calls(name)
+    # a compute that draws host indices draws them from the same seed on every rank
+    kwargs = {"seed": SEEDED_COMPUTE[name]} if name in SEEDED_COMPUTE else None
+    results = world.run(td.twin_synced_compute,
+                        [(name, buffered, calls, kwargs, rank_seed(name, r)) for r, calls in enumerate(per_rank)])
+    want = oracle(name, buffered, per_rank, **(kwargs or {}))
+    # a float32 sum state adds the ranks' partial sums in the collective's
+    # order, not the oracle's batch order: equal within the bound
+    bitwise = name not in FLOAT_SUM_STATES
+    for rank, got in enumerate(results):
+        assert_same_result(name, got, want, bitwise=bitwise, msg=f"{name} rank {rank}")

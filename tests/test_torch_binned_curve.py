@@ -66,7 +66,9 @@ LAYOUTS = [("binary", 1), ("multiclass", 6), ("multilabel", 4)]
 
 def _run_pair(name, layout, num_classes, thresholds, **kwargs):
     jax_thr, torch_thr = THRESHOLDS[thresholds]
-    jax_metric = getattr(mt_jax, name)(num_classes=num_classes, thresholds=jax_thr, **kwargs)
+    # the JAX reference eager: its engines would compile each instance anew
+    jax_metric = getattr(mt_jax, name)(num_classes=num_classes, thresholds=jax_thr, compiled_update=False,
+                                       compiled_compute=False, **kwargs)
     torch_metric = getattr(mt_torch, name)(num_classes=num_classes, thresholds=torch_thr, device="cpu", **kwargs)
     for preds, target in _batches(len(name) + num_classes, num_classes, layout):
         jax_metric.update(jnp.asarray(preds), jnp.asarray(target))

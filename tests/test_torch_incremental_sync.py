@@ -1,9 +1,9 @@
 """The port's incremental sync and its captured steps against the JAX package's.
 
-Mirrors ``tests/core/test_incremental_sync.py`` case for case, apart from the
-sharded cases, which wait for sharded state. The port's side runs in one
-gloo world of 4 CPU ranks for the module (``tests/helpers/torch_dist.py``),
-each rank on its own seeded batches; the JAX side runs the same batches on 4
+Mirrors ``tests/core/test_incremental_sync.py`` case for case (its sharded
+cases since the port's sharded state). The port's side runs in one gloo
+world of 4 CPU ranks for the module (``tests/helpers/torch_dist.py``), each
+rank on its own seeded batches; the JAX side runs the same batches on 4
 of the 8 CPU devices through ``shard_map``, the module's references in one
 jitted function (the ``jax_refs`` fixture). Stated tolerances:
 
@@ -36,6 +36,7 @@ from metrics_tpu.parallel import sync as jax_sync
 from metrics_tpu_torch.core import engine as port_engine
 from metrics_tpu_torch.parallel import sync as port_sync
 from tests.helpers import torch_dist as td
+from tests.helpers import torch_shard as ts
 from tests.helpers.torch_port import assert_bitwise, assert_close, one_torch_thread  # noqa: F401  (the module fixture)
 
 try:
@@ -371,6 +372,27 @@ class TestResidueRouting:
         assert "not mergeable-elementwise" in port["rows"]["reason"]
         assert "per-device layout" in port["chunks"]["reason"]
         assert "resharded at finalize" in port["tiles"]["reason"]
+
+    def test_sharded_leaf_reshards_at_finalize_only(self, world):
+        """A shard_axis leaf under incremental mode is residue: the step
+        emits only the replicated fold bucket, and finalize reshards the
+        sharded leaf as the deferred sync does, bit for bit (float tiles in
+        integer steps, exact in any order)."""
+        tiles = [np.arange(WORLD * 3, dtype=np.float32).reshape(WORLD, 3) * (r + 1) for r in range(WORLD)]
+        hits = [np.arange(4, dtype=np.int32) * (r + 1) for r in range(WORLD)]
+        reports = world.run(ts.sharded_incremental, list(zip(tiles, hits)))
+        want_tiles = np.concatenate([2.0 * t for t in tiles])
+        want_hits = np.sum([h + 1 for h in hits], axis=0, dtype=np.int32)
+        for report in reports:
+            for got in (report["finalized"], report["deferred"]):
+                assert_bitwise(got["tiles"], want_tiles)
+                assert_bitwise(got["hits"], want_hits)
+
+    def test_sharded_emission_excludes_reshard_buckets(self, world):
+        zeros = (np.zeros((WORLD, 3), np.float32), np.zeros(4, np.int32))
+        for report in world.run(ts.sharded_incremental, [zeros] * WORLD):
+            assert report["acc"] == ["hits"]  # the sharded leaf is residue
+            assert report["advance"]["count"] == 1  # the int-sum fold bucket only
 
     def test_catbuffer_and_sketch_routing(self):
         from metrics_tpu_torch import sketches

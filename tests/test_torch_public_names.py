@@ -28,7 +28,6 @@ import metrics_tpu_torch as mt_torch
 pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
-    "A17b": "sharded state: the mesh specs and the sharded-compute combine",
     "A18": "checkpoint",
     "A19": "tenancy, serve and cluster",
     "A20": "observability, resilience, autotune and the kernel registry's telemetry",
@@ -49,13 +48,7 @@ MISSING = {
     },
     "core": {},
     "utils": {"httpd": "A19"},  # the stdlib HTTP lifecycle of the serve and scrape servers
-    "parallel": {
-        **_items("A17b", [
-            "batch_sharded", "class_sharded", "data_parallel_mesh", "gather_result", "grid_sharded", "psum_result",
-            "replicated", "sample_sharded", "shard_spec",
-        ]),
-        "ANALYSIS_MODULE_SPECS": "A21",
-    },
+    "parallel": {"ANALYSIS_MODULE_SPECS": "A21"},
     "functional": {},
     "ops": {},
     "ops.audio": {},
@@ -128,10 +121,10 @@ def test_missing_names_are_the_unported_items(sub, fresh_names):
 
 def test_every_listed_item_is_unported():
     # the wrappers (A11b), text (A13), the rest of detection (A12), image
-    # (A14), audio (A15) and the sketches (A16) are ported: none of their
-    # names may be missing
+    # (A14), audio (A15), the sketches (A16) and sharded state (A17b) are
+    # ported: none of their names may be missing
     for sub, names in MISSING.items():
-        assert not {"A11b", "A12", "A13", "A14", "A15", "A16"} & set(names.values()), sub
+        assert not {"A11b", "A12", "A13", "A14", "A15", "A16", "A17b"} & set(names.values()), sub
     for name in ("BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
                  "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance",
                  "CharErrorRate", "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",

@@ -264,7 +264,9 @@ def _states_close(ref, twin):
 @pytest.mark.parametrize("name,kwargs,shape", CLASSES, ids=ID)
 def test_classes(name, kwargs, shape, compiled):
     flags = {} if compiled else {"compiled_update": False, "compiled_compute": False}
-    ref = getattr(mt_jax, name)(**kwargs)
+    # the JAX reference eager (its engines would compile each instance anew);
+    # the port's engines are what ``compiled`` switches
+    ref = getattr(mt_jax, name)(compiled_update=False, compiled_compute=False, **kwargs)
     twin = getattr(mt_torch, name)(device="cpu", **flags, **kwargs)
     for b in range(BATCHES):
         ja, ta = _both(*_data(20 + b, shape, positive=name != "CosineSimilarity"))

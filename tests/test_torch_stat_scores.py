@@ -144,7 +144,10 @@ AVERAGES = ["micro", "macro", "weighted", "none"]
 
 
 def _metric_pair(name, **kwargs):
-    return getattr(mt_jax, name)(**kwargs), getattr(mt_torch, name)(device="cpu", **kwargs)
+    # the JAX reference eager: its engines would compile each instance anew
+    # (the port's engines are at their defaults, under test)
+    ref = getattr(mt_jax, name)(compiled_update=False, compiled_compute=False, **kwargs)
+    return ref, getattr(mt_torch, name)(device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("name", ["Accuracy", "Precision", "Recall", "F1Score"])

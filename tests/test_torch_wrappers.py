@@ -80,19 +80,39 @@ def test_bootstrapper_rejects_non_metric():
         mt.BootStrapper(lambda x: x)
 
 
+def _accuracy_bootstrap_calls():
+    rng = _rng(7)
+    return [(rng.dirichlet(np.ones(6), size=n).astype(np.float32), rng.integers(0, 6, n).astype(np.int32))
+            for n in (40, 33, 1)]
+
+
+@pytest.fixture(scope="module")
+def jax_bootstraps():
+    """The JAX BootStrapper updated over ``_accuracy_bootstrap_calls``, once
+    per strategy for the module: the quantile is read only by the compute,
+    so the three quantile cases of a strategy share its updates (the JAX
+    package's per-length vmapped updates were most of their time); each
+    case computes on its own copy with its quantile set."""
+    out = {}
+    for strategy in ("poisson", "multinomial"):
+        ref = M.BootStrapper(M.Accuracy(num_classes=6), num_bootstraps=8, sampling_strategy=strategy, seed=13,
+                             raw=True)
+        for p, t in _accuracy_bootstrap_calls():
+            ref.update(_j(p), _j(t))
+        out[strategy] = ref
+    return out
+
+
 @pytest.mark.parametrize("strategy", ["poisson", "multinomial"])
 @pytest.mark.parametrize("quantile", [None, 0.5, [0.025, 0.975]])
-def test_bootstrapper_over_accuracy_is_bitwise(strategy, quantile):
+def test_bootstrapper_over_accuracy_is_bitwise(strategy, quantile, jax_bootstraps):
     """The same seed draws the same rows in both packages: every replica's
     integer counts agree bit for bit, and the statistics within 1e-6."""
-    rng = _rng(7)
-    calls = [(rng.dirichlet(np.ones(6), size=n).astype(np.float32), rng.integers(0, 6, n).astype(np.int32))
-             for n in (40, 33, 1)]
     kw = dict(num_bootstraps=8, sampling_strategy=strategy, seed=13, raw=True)
-    ref = M.BootStrapper(M.Accuracy(num_classes=6), quantile=None if quantile is None else jnp.asarray(quantile), **kw)
+    ref = deepcopy(jax_bootstraps[strategy])
+    ref.quantile = None if quantile is None else jnp.asarray(quantile)
     port = mt.BootStrapper(mt.Accuracy(num_classes=6, device="cpu"), quantile=quantile, **kw)
-    for p, t in calls:
-        ref.update(_j(p), _j(t))
+    for p, t in _accuracy_bootstrap_calls():
         port.update(_t(p), _t(t))
     assert port._vmap_update is True
     for key in ref._defaults:
