@@ -30,9 +30,10 @@ is missing. Phases:
    640x480, 80 classes, 100 detections and about 7.4 ground truths per
    image), generated on the card from a seed: MeanAveragePrecision updated
    16 images at a time with no synchronisation allowed, then computed with
-   per-class values; then the same stream with the IoU and matcher kernels
-   forced onto their plain versions. Every result must match bit for bit,
-   each kernel must have launched once per 256-image chunk, and the
+   per-class values; then every image's evaluation again with the IoU and
+   matcher kernels forced onto their plain versions, which must match bit
+   for bit (the host curves are a deterministic function of them), each
+   kernel must have launched once per 256-image chunk, and the
    metric's docstring example must give its documented values on the card.
 3c. The text path: BERTScore at roberta-large width (an encoder with
    roberta-large's published configuration and seeded random weights, passed
@@ -999,19 +1000,31 @@ def detection_phase(torch, mt, kernels_mod):
           f" compute {compute_s:.2f} s; launches {launches}")
     for kname in DETECTION_KERNELS:
         check(launches[kname] == n_chunks, f"{kname} launched {launches[kname]} times for {n_chunks} chunks of 256 images")
-    _, results_plain, _, compute_plain_s, _ = run_coco(torch, mt, stream, plain=True)
-    check(set(results) == set(results_plain), "result keys differ from the plain-kernel run")
+    # the plain-kernel run's evaluations: _calculate is a deterministic function
+    # of them, so equal evaluations give equal results (its host curve loop,
+    # 25-40 s, stays unspent; the update launches no kernel)
+    import numpy as np
+
+    classes = metric._get_classes()
+    t0 = time.perf_counter()
+    evals = metric._evaluate_images(classes)
+    metric._plain_kernels = True
+    before = kernels_mod.launch_counts()
+    evals_plain = metric._evaluate_images(classes)
+    torch.cuda.synchronize()
+    eval_plain_s = time.perf_counter() - t0
+    check(kernels_mod.launch_counts() == before, "the plain-kernel evaluation launched a kernel")
+    metric._plain_kernels = False
+    same_evals(np, "3b kernels against their plain versions", evals_plain, evals)
     for key, value in results.items():
-        check(bool(torch.isfinite(value).all()), f"result {key} is not finite")
-        check(value.dtype == torch.float32 and torch.equal(value, results_plain[key]),
-              f"result {key} differs from the plain-kernel run")
+        check(value.dtype == torch.float32 and bool(torch.isfinite(value).all()), f"result {key} is not finite float32")
     check(results["map_per_class"].shape == (COCO_CLASSES,), f"map_per_class has shape {tuple(results['map_per_class'].shape)}")
     check(0.0 < float(results["map"]) < 1.0, f"map {float(results['map'])} is not in (0, 1)")
     for key in ("map_small", "map_medium", "map_large"):
         check(float(results[key]) >= 0.0, f"{key} is {float(results[key])}: an area range is empty")
     state_bytes = sum(v.data.numel() * v.data.element_size() for v in metric.get_state().values())
-    print(f"  results bitwise equal to the plain-kernel run (compute {compute_plain_s:.2f} s there): "
-          + ", ".join(f"{k}={float(v):.6f}" for k, v in results.items() if v.ndim == 0))
+    print(f"  every image's evaluation (what _calculate reads) bitwise equal to the plain-kernel run's (both"
+          f" evaluations {eval_plain_s:.2f} s): " + ", ".join(f"{k}={float(v):.6f}" for k, v in results.items() if v.ndim == 0))
     print(f"  state: {state_bytes / 1e6:.1f} MB at capacity {metric.det_counts.capacity} images;"
           f" compute's peak device memory above the state: {peak_extra / 1e6:.1f} MB")
     check_map_docstring_example(torch, mt)
@@ -1664,6 +1677,7 @@ def compiled_slice(torch, mt, kernels_mod, stream, reference, buckets: bool) -> 
     sizes = [int(target.shape[0]) for _, _, target in stream]
     steady = range(2, len(stream) - 1)  # past the warmup and the capture, before the ragged batch
     kernels_mod.reset_launch_counts()
+    gc.collect()  # garbage of earlier phases would otherwise be freed inside the window
     mem = []
     for i, (logits, probs, target) in enumerate(stream):
         if i >= steady.start:  # before each steady step, and after the last one
@@ -6122,6 +6136,425 @@ def phase_fifteen(torch, mt, np, kernels_mod, sync, binned, smi) -> dict:
             "launches": {**{k: 0 for k in launches}, "binned_counts": b1}}
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: observability and resilience on the captured main path
+# --------------------------------------------------------------------------- #
+PHASE16_LIMIT_S = 60.0
+PHASE16_BATCHES = 8  # of phase 3's stream: the traced, profiled, faulted and scraped runs
+PHASE16_REPLAYS = 200
+# one steady-state update fault (a replay) and one at a synced compute's probe
+CHAOS_SPECS = (("engine/dispatch", 3), ("sync/bucket_build", 3))
+DISPATCH_EVENTS = ("dispatch/eager", "dispatch/compile", "dispatch/cached", "dispatch/fallback")
+
+
+def slice_run(torch, mt, stream, device=None) -> tuple:
+    """The slice at the engine defaults (config2 and the binned AP) over
+    ``stream``, then three computes (eager, captured, replayed)."""
+    coll, binned = build_slice(mt, compiled=True, device=device)
+    for logits, probs, target in stream:
+        coll.update(logits, target)
+        binned.update(probs, target)
+    results = []
+    for _ in range(3):
+        for m in (*coll.values(), binned):
+            m._computed = None
+        results.append((coll.compute(), torch.stack(binned.compute())))
+    return coll, binned, results
+
+
+def event_counts(events) -> tuple:
+    """(name, category) multiset and the dispatch events' counts of a run."""
+    pairs = {}
+    for e in events:
+        pairs[(e.name, e.cat)] = pairs.get((e.name, e.cat), 0) + 1
+    return pairs, {name: sum(n for (k, _), n in pairs.items() if k == name) for name in DISPATCH_EVENTS}
+
+
+def same_slice_results(torch, label: str, got: list, want: list) -> None:
+    for n, ((res, ap), (res_w, ap_w)) in enumerate(zip(got, want)):
+        for key, value in res_w.items():
+            check(same_bits(torch, res[key], value), f"{label}: compute {n + 1} result {key} differs")
+        check(same_bits(torch, ap, ap_w), f"{label}: compute {n + 1} binned AP differs")
+
+
+def captured_everywhere(label: str, coll, binned) -> None:
+    for name, engine in (("collection update", coll._update_engine), ("collection compute", coll._compute_engine),
+                         ("binned update", binned._update_engine), ("binned compute", binned._compute_engine)):
+        check(engine is not None and engine.broken is None and engine.stats.cache_hits >= 1
+              and all(step.graph is not None for step in engine._steps.values()),
+              f"{label}: the {name} engine is not replaying graphs ({getattr(engine, 'broken', None)})")
+
+
+def phase_sixteen_a(torch, mt, obs, kernels_mod, stream, out_dir, smi) -> dict:
+    """16(a): the captured slice under the tracer: the events of the CPU's
+    run of the same calls, a valid Chrome export, B1's untraced launches, the
+    untraced results bit for bit, the tracer-on replays under
+    set_sync_debug_mode("error")."""
+    kernels_mod.reset_launch_counts()
+    _, _, plain = slice_run(torch, mt, stream)
+    torch.cuda.synchronize()
+    untraced = kernels_mod.launch_counts()["binned_counts"]
+    kernels_mod.reset_launch_counts()
+    coll, binned = build_slice(mt, compiled=True)
+    with obs.trace() as tracer:
+        for i, (logits, probs, target) in enumerate(stream):
+            if i >= 2:  # the replays: no device sync with the tracer on either
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                coll.update(logits, target)
+                binned.update(probs, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        results = []
+        for _ in range(3):
+            for m in (*coll.values(), binned):
+                m._computed = None
+            results.append((coll.compute(), torch.stack(binned.compute())))
+        torch.cuda.synchronize()
+    traced = kernels_mod.launch_counts()["binned_counts"]
+    card_pairs, card_dispatch = event_counts(tracer.events())
+    with obs.trace() as cpu_tracer:
+        slice_run(torch, mt, [tuple(x.cpu() for x in batch) for batch in stream], device="cpu")
+    cpu_pairs, cpu_dispatch = event_counts(cpu_tracer.events())
+    check(card_pairs == cpu_pairs and card_dispatch == cpu_dispatch,
+          f"16(a): the card's events {card_pairs} differ from the CPU's {cpu_pairs}")
+    check(traced == untraced == len(stream), f"16(a): B1 launched {traced} times traced, {untraced} untraced, for"
+                                             f" {len(stream)} binned updates")
+    same_slice_results(torch, "16(a) traced", results, plain)
+    captured_everywhere("16(a)", coll, binned)
+    doc = obs.to_chrome_trace(tracer)
+    problems = obs.validate_chrome_trace(doc)
+    check(not problems, f"16(a): the Chrome export is invalid: {problems[:3]}")
+    path = obs.write_chrome_trace(f"{out_dir}/host.trace.json", tracer)
+    print(f"phase 16(a) ({smi}): {len(stream)} captured slice updates and 3 computes under the tracer: events"
+          f" {dict(sorted((f'{k}/{c}', n) for (k, c), n in card_pairs.items()))} equal to the CPU run's; dispatch"
+          f" {card_dispatch}; B1 launched {traced} times traced and {untraced} untraced; results bitwise equal to the"
+          f" untraced run; replays under sync debug mode 'error'; Chrome export valid ({obs.load_trace(path)['otherData']['producer']})")
+    return {"events": {f"{k}|{c}": n for (k, c), n in card_pairs.items()}, "dispatch": card_dispatch,
+            "launches": traced, "untraced_launches": untraced, "results": results}
+
+
+def phase_sixteen_b(torch, mt, obs, stream, reference, out_dir, smi) -> dict:
+    """16(b): the same run under torch.profiler, correlated with the host
+    spans through the record_function names."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with obs.trace() as tracer, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        coll, binned, results = slice_run(torch, mt, stream)
+        torch.cuda.synchronize()
+    same_slice_results(torch, "16(b) profiled", results, reference)
+    captured_everywhere("16(b)", coll, binned)
+    path = f"{out_dir}/device.trace.json"
+    prof.export_chrome_trace(path)
+    device_doc = obs.load_trace(path)
+    annotations = {}
+    for rec in device_doc.get("traceEvents", []):
+        if isinstance(rec, dict) and obs.parse_dispatch_annotation(str(rec.get("name", ""))) is not None:
+            annotations[rec.get("cat")] = annotations.get(rec.get("cat"), 0) + 1
+    combined = obs.correlate_device_trace(obs.to_chrome_trace(tracer), device_doc)
+    corr = combined["otherData"]["correlation"]
+    problems = obs.validate_chrome_trace(combined)
+    check(not problems, f"16(b): the correlated trace is invalid: {problems[:3]}")
+    check(corr["host_dispatches"] > 0, "16(b): no host dispatch span to correlate")
+    by_kind = {}
+    for rec in combined["traceEvents"]:
+        if rec.get("ph") == "X" and str(rec.get("name", "")).startswith("dispatch/"):
+            key = rec["name"]
+            hit = "annotation" in rec.get("args", {})
+            by_kind.setdefault(key, [0, 0])[0 if hit else 1] += 1
+    print(f"phase 16(b) ({smi}): torch.profiler over the same run: bridge annotations by category {annotations};"
+          f" {corr['matched']} of {corr['host_dispatches']} host dispatch spans matched,"
+          f" {corr['host_dispatches'] - corr['matched']} unmatched (matched, unmatched by event: {by_kind}); offset"
+          f" {corr['offset_us']:.1f} us; {corr['device_events']} device events; results bitwise equal to 16(a)'s")
+    return {"matched": corr["matched"], "unmatched": corr["host_dispatches"] - corr["matched"],
+            "host_dispatches": corr["host_dispatches"], "annotations": annotations, "by_event": by_kind}
+
+
+def chaos_run(torch, mt, obs, chaos, sync, stream, group, specs, device=None) -> tuple:
+    """16(c): config2 at the engine defaults over ``stream``, then five
+    synced computes over ``group``, under ``specs`` (none: fault-free) and
+    the tracer, with a probation cooldown of one dispatch."""
+    import contextlib
+
+    mt.set_probation(1)
+    try:
+        coll, _ = build_slice(mt, compiled=True, device=device)
+        plan_ctx = chaos.plan([chaos.FaultSpec(site, nth=n) for site, n in specs], seed=SEED) if specs else \
+            contextlib.nullcontext()
+        with obs.trace() as tracer, plan_ctx as plan, sync.sync_axes(group):
+            for logits, _, target in stream:
+                coll.update(logits, target)
+            results = []
+            for _ in range(5):
+                for m in coll.values():
+                    m._computed = None
+                results.append(dict(coll.compute()))
+    finally:
+        mt.set_probation(None)
+    log = [(e.site, e.kind, e.call, e.spec_index) for e in plan.log] if specs else []
+    return coll, results, log, tracer.events()
+
+
+def replays_after_faults(events) -> dict:
+    """Per kind, the collection's replays after the last fault at its site."""
+    sites = {"update": "engine/dispatch", "compute": "sync/bucket_build"}
+    out = {}
+    for kind, site in sites.items():
+        last = max((i for i, e in enumerate(events) if e.name == "chaos/fault" and e.args["site"] == site), default=-1)
+        out[kind] = sum(1 for e in events[last + 1:] if e.name == "dispatch/cached"
+                        and e.args["owner"] == "MetricCollection" and e.args["kind"] == kind)
+    return out
+
+
+def phase_sixteen_c(torch, mt, obs, stream, sync, smi) -> dict:
+    """16(c): a chaos plan in a world of one NCCL rank (the CPU twin's sync
+    over a gloo group of the same rank): the same FaultEvent list, computes
+    bitwise equal to the fault-free card run, graphs replaying after the
+    faults and no capture left open."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.resilience import chaos
+
+    world = dist.group.WORLD
+    gloo = dist.new_group(ranks=[0], backend="gloo")
+    cpu_stream = [tuple(x.cpu() for x in batch) for batch in stream]
+    _, clean, _, _ = chaos_run(torch, mt, obs, chaos, sync, stream, world, ())
+    coll, faulted, log, events = chaos_run(torch, mt, obs, chaos, sync, stream, world, CHAOS_SPECS)
+    torch.cuda.synchronize()
+    check(not torch.cuda.is_current_stream_capturing(), "16(c): a capture was left open")
+    cpu_coll, cpu_results, cpu_log, cpu_events = chaos_run(torch, mt, obs, chaos, sync, cpu_stream, gloo, CHAOS_SPECS,
+                                                           device="cpu")
+    check(log == cpu_log and len(log) == len(CHAOS_SPECS), f"16(c): the card's faults {log} differ from the CPU's {cpu_log}")
+    check(event_counts(events) == event_counts(cpu_events), "16(c): the card's events differ from the CPU's")
+    for n, res in enumerate(faulted):
+        for key, value in clean[-1].items():
+            check(same_bits(torch, res[key], value), f"16(c): compute {n + 1} {key} differs from the fault-free run")
+            # the card's and the CPU's float arithmetic may differ in the last place
+            check(torch.allclose(res[key].cpu(), cpu_results[n][key], rtol=1e-6, atol=0.0),
+                  f"16(c): compute {n + 1} {key} is not within 1e-6 of the CPU's")
+    stats = coll._dispatcher.stats
+    check(vars(stats) == vars(cpu_coll._dispatcher.stats), f"16(c): partition {stats} differs from the CPU's")
+    after = replays_after_faults(events)
+    engine = coll._compute_engine
+    check(min(after.values()) >= 1 and engine is not None and engine.broken is None
+          and all(step.graph is not None for step in engine._steps.values()),
+          f"16(c): graph replays after the faults {after}, compute engine {engine}")
+    print(f"phase 16(c) ({smi}): chaos plan {list(CHAOS_SPECS)} over {len(stream)} config2 updates and 5 synced"
+          f" computes in a world of one NCCL rank: faults {log}, and the events, equal to the CPU twin's; partition"
+          f" {vars(stats)}; every compute bitwise equal to the fault-free card run; collection replays after the"
+          f" faults {after}; no capture left open")
+    return {"log": log, "partition": vars(stats), "replays_after_faults": after}
+
+
+def warned(torch, fn) -> list:
+    """The warnings ``fn`` raises, with each device sync it makes as one
+    (``set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught]
+
+
+def phase_sixteen_d(torch, mt, stream, smi) -> dict:
+    """16(d): the guard's quarantine on a NaN batch of a captured
+    MeanSquaredError: the state bit for bit the clean run's, one device sync
+    per guarded update and none in the unguarded replays."""
+    from metrics_tpu_torch.resilience import guard
+
+    pairs = [(probs.max(dim=1).values, (target == probs.argmax(dim=1)).float()) for _, probs, target in stream]
+    poisoned = pairs[4][0].clone()
+    poisoned[7] = float("nan")
+    clean = mt.MeanSquaredError()
+    for i, (p, t) in enumerate(pairs):
+        if i != 4:
+            clean.update(p, t)
+    guarded = mt.MeanSquaredError()
+    syncs, quarantined = [], 0
+    with guard.guarded("quarantine"):
+        for i, (p, t) in enumerate(pairs):
+            messages = warned(torch, lambda p=poisoned if i == 4 else p, t=t: guarded.update(p, t))
+            syncs.append(sum("synchronizing" in m for m in messages))
+            quarantined += sum("quarantined" in m for m in messages)
+    unguarded = mt.MeanSquaredError()
+    plain_syncs = [sum("synchronizing" in m for m in warned(torch, lambda p=p, t=t: unguarded.update(p, t)))
+                   for p, t in pairs]
+    torch.cuda.synchronize()
+    for key, value in clean.get_state().items():
+        check(same_bits(torch, guarded.get_state()[key], value), f"16(d): state {key} differs from the clean run")
+    check(quarantined == 1 and guarded._update_count == len(pairs) - 1, f"16(d): {quarantined} quarantines")
+    # the replays (from the third call): one read of the guard's flags each, none unguarded
+    check(all(n == 1 for n in syncs[2:]) and all(n == 0 for n in plain_syncs[2:]),
+          f"16(d): guarded updates made {syncs} device syncs, unguarded {plain_syncs}")
+    stats = guarded._update_engine.stats
+    print(f"phase 16(d) ({smi}): the guard quarantined the NaN batch of a captured MeanSquaredError: state bitwise"
+          f" equal to the run without it; device syncs per guarded update {syncs} (unguarded {plain_syncs});"
+          f" engine eager/captures/replays {stats.eager_calls}/{stats.cache_misses}/{stats.cache_hits},"
+          f" in place {stats.donated_calls} (the guard's snapshot turns in-place updates off)")
+    return {"syncs": syncs, "unguarded_syncs": plain_syncs}
+
+
+_PROM_NAME = r"[a-zA-Z_:][a-zA-Z0-9_:]*"
+
+
+def strict_prometheus(text: str) -> dict:
+    """An unforgiving reader of the text exposition format: every line a
+    HELP/TYPE header or a sample, families contiguous, labels well formed.
+    Returns ``{family: [(name, labels, value), ...]}``."""
+    import re
+
+    sample_re = re.compile(rf"^(?P<name>{_PROM_NAME})(?:\{{(?P<labels>.*)\}})? (?P<value>[^ ]+)$")
+    label_re = re.compile(rf'(?P<key>{_PROM_NAME})="(?P<value>(?:[^"\\]|\\.)*)"(?:,|$)')
+    header_re = re.compile(rf"^# (?P<kw>HELP|TYPE) (?P<name>{_PROM_NAME}) (?P<rest>.+)$")
+    check(text.endswith("\n"), "16(e): the exposition must end with a newline")
+    families, current, closed, types = {}, None, set(), {}
+    for n, line in enumerate(text.splitlines(), start=1):
+        header = header_re.match(line)
+        if header:
+            fam = header.group("name")
+            check(fam not in closed, f"16(e): line {n}: family {fam} reopened")
+            if header.group("kw") == "HELP":
+                if current is not None:
+                    closed.add(current)
+                current = fam
+                families[fam] = []
+            else:
+                check(fam == current and header.group("rest") in ("counter", "gauge", "histogram"),
+                      f"16(e): line {n}: {line!r}")
+                types[fam] = header.group("rest")
+            continue
+        m = sample_re.match(line)
+        check(m is not None and current is not None, f"16(e): line {n}: unparseable {line!r}")
+        name = m.group("name")
+        check(name == current or (types.get(current) == "histogram" and name in (
+            f"{current}_bucket", f"{current}_sum", f"{current}_count")), f"16(e): line {n}: {name} outside {current}")
+        labels, consumed = {}, 0
+        for lm in label_re.finditer(m.group("labels") or ""):
+            labels[lm.group("key")] = lm.group("value")
+            consumed = lm.end()
+        check(consumed == len(m.group("labels") or ""), f"16(e): line {n}: trailing label junk")
+        families[current].append((name, labels, float(m.group("value").replace("Inf", "inf"))))
+    return families
+
+
+def phase_sixteen_e(torch, mt, obs, stream, smi) -> dict:
+    """16(e): ``/metrics`` scraped from 127.0.0.1 after every update of a
+    captured streak, each body parsed strictly; the streak goes on."""
+    import urllib.request
+
+    server = obs.serve(port=0)
+    try:
+        check(server.kind == "http" and server.host == "127.0.0.1", f"16(e): the server is {server.kind} on {server.host}")
+        coll, binned = build_slice(mt, compiled=True)
+        hits, scrape_ms = [], []
+        for i, (logits, probs, target) in enumerate(stream):
+            if i >= 2:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                coll.update(logits, target)
+                binned.update(probs, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(server.url + "/metrics", timeout=30) as resp:
+                check(resp.status == 200, f"16(e): /metrics answered {resp.status}")
+                body = resp.read().decode()
+            scrape_ms.append((time.perf_counter() - t0) * 1e3)
+            families = strict_prometheus(body)
+            seen = [v for _, labels, v in families["metrics_tpu_engine_cache_hits"]
+                    if labels == {"kind": "update", "owner": "MetricCollection"}]
+            replays = coll._update_engine.stats.cache_hits
+            check(replays in seen, f"16(e): scrape {i + 1} shows collection replays {seen}, not {replays}")
+            hits.append(replays)
+        check(coll._members_stale and hits[-1] == len(stream) - 2, f"16(e): the streak broke or replays {hits}")
+    finally:
+        obs.shutdown()
+    print(f"phase 16(e) ({smi}): /metrics scraped from 127.0.0.1 after each of {len(stream)} captured updates, every"
+          f" body strictly parsed ({len(families)} families); collection replays seen {hits}; scrape"
+          f" {statistics.median(scrape_ms):.2f} ms median (host clock); the streak kept its detached members")
+    return {"families": len(families), "scrape_ms": statistics.median(scrape_ms)}
+
+
+def replay_ms(torch, coll, binned, stream, steps: int) -> float:
+    """Median CUDA-event time of one captured slice update step over ``steps`` replays."""
+    times = []
+    for i in range(steps):
+        logits, probs, target = stream[i % len(stream)]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        coll.update(logits, target)
+        binned.update(probs, target)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_sixteen_f(torch, mt, obs, stream, smi) -> dict:
+    """16(f): the captured slice update step, tracer off, on, on, off, over
+    PHASE16_REPLAYS replays each."""
+    coll, binned = build_slice(mt, compiled=True)
+    for logits, probs, target in stream[:3]:  # eager, capture, replay
+        coll.update(logits, target)
+        binned.update(probs, target)
+    full = [b for b in stream if b[2].shape[0] == BATCH]
+    times = {"off": [], "on": []}
+    for label in ("off", "on", "on", "off"):
+        if label == "on":
+            with obs.trace():
+                times[label].append(replay_ms(torch, coll, binned, full, PHASE16_REPLAYS))
+        else:
+            times[label].append(replay_ms(torch, coll, binned, full, PHASE16_REPLAYS))
+    check(coll._update_engine.stats.cache_hits == 4 * PHASE16_REPLAYS + 1, "16(f): a timed step did not replay")
+    print(f"phase 16(f) ({smi}): captured slice update step (config2 + binned AP), median of {PHASE16_REPLAYS}"
+          f" replays by CUDA events: tracer off {times['off'][0] * 1e3:.1f}, {times['off'][1] * 1e3:.1f} us; on"
+          f" {times['on'][0] * 1e3:.1f}, {times['on'][1] * 1e3:.1f} us (order off, on, on, off)")
+    return {"off_us": [t * 1e3 for t in times["off"]], "on_us": [t * 1e3 for t in times["on"]]}
+
+
+def phase_sixteen(torch, mt, np, kernels_mod, sync, smi) -> dict:
+    import tempfile
+
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import observability as obs
+
+    t0 = time.perf_counter()
+    stream = list(batches(torch))
+    head = stream[:PHASE16_BATCHES]
+    torch.cuda.synchronize()
+    kernels_mod.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase16_") as out_dir:  # the two traces
+        a = phase_sixteen_a(torch, mt, obs, kernels_mod, head, out_dir, smi)
+        b = phase_sixteen_b(torch, mt, obs, head, a["results"], out_dir, smi)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        c = phase_sixteen_c(torch, mt, obs, head, sync, smi)
+    finally:
+        dist.destroy_process_group()
+    d = phase_sixteen_d(torch, mt, head, smi)
+    gc.collect()  # the registry then lists only the live engines
+    e = phase_sixteen_e(torch, mt, obs, head, smi)
+    f = phase_sixteen_f(torch, mt, obs, stream, smi)
+    launches = kernels_mod.launch_counts()
+    elapsed = time.perf_counter() - t0
+    check(launches["pairwise_iou"] == launches["greedy_match"] == launches["maxsim_tf32x3"] == 0,
+          f"phase 16 launched a detection or text kernel: {launches}")
+    check(launches["binned_counts"] > 0, "phase 16: B1 was never launched")
+    check(not obs.enabled(), "phase 16 left the tracer on")
+    print(f"phase 16 ({smi}): {elapsed:.1f} s in all (limit {PHASE16_LIMIT_S:.0f} s); B1 launched"
+          f" {launches['binned_counts']} times on the traced, profiled, scraped and timed slice runs")
+    check(elapsed < PHASE16_LIMIT_S, f"phase 16 took {elapsed:.1f} s, over its {PHASE16_LIMIT_S:.0f} s")
+    del stream
+    return {"a": {k: v for k, v in a.items() if k != "results"}, "b": b, "c": c, "d": d, "e": e, "f": f,
+            "seconds": elapsed, "launches": launches}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -6328,6 +6761,9 @@ def main() -> None:
     # ---- phase 15: sharded state (B1 on the sharded binned and grid paths)
     fifteen = phase_fifteen(torch, mt, np, kernels_mod, sync, binned, smi)
 
+    # ---- phase 16: observability and resilience on the captured main path (B1 traced, profiled, timed)
+    sixteen = phase_sixteen(torch, mt, np, kernels_mod, sync, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -6351,6 +6787,7 @@ def main() -> None:
             "phase13_launches": thirteen["launches"][kname],
             "phase14_launches": fourteen["launches"][kname],
             "phase15_launches": fifteen["launches"][kname],
+            "phase16_launches": sixteen["launches"][kname],
             **us,
             **extra,
         }
@@ -6383,7 +6820,9 @@ def main() -> None:
                phase15_confmat_update_ms={"captured": fifteen["a"]["captured_ms"], "eager": fifteen["a"]["eager_ms"]},
                phase15_confmat_eager_update_peak_mib=fifteen["a"]["peak_eager_mib"],
                phase15_binned_update_ms={k: r["update_ms"] for k, r in fifteen["b"].items()},
-               phase15_grid_update_ms=fifteen["d"]["update_ms"]),
+               phase15_grid_update_ms=fifteen["d"]["update_ms"],
+               phase16_step_us={"tracer_off": sixteen["f"]["off_us"], "tracer_on": sixteen["f"]["on_us"]},
+               phase16_correlation={k: sixteen["b"][k] for k in ("matched", "unmatched", "host_dispatches")}),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],

@@ -6,7 +6,10 @@ lives on CUDA unless a metric is built with ``device="cpu"``; the TPU's
 Pallas kernels become hand-written CUDA kernels under ``csrc/``, built with
 ``nvcc`` at first use. ``update()`` and ``compute()`` replay a captured CUDA
 graph from the second call of each input signature (``core/engine.py``; the
-switches below turn that off).
+switches below turn that off). ``observability`` traces, counts and serves
+what the engines do and ``resilience`` injects seeded faults, retries and
+guards state against NaN, as the JAX package's subpackages of those names
+do; all are off by default.
 """
 from metrics_tpu_torch.__about__ import __version__
 from metrics_tpu_torch import functional
@@ -89,6 +92,8 @@ from metrics_tpu_torch.image import (
     StructuralSimilarityIndexMeasure,
     UniversalImageQualityIndex,
 )
+from metrics_tpu_torch import observability  # noqa: F401
+from metrics_tpu_torch import resilience  # noqa: F401
 from metrics_tpu_torch.parallel import (
     bucketed_sync_enabled,
     set_bucketed_sync,
@@ -229,6 +234,10 @@ __all__ = [
     "KernelInceptionDistance", "LearnedPerceptualImagePatchSimilarity", "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio", "SpectralAngleMapper", "SpectralDistortionIndex", "StructuralSimilarityIndexMeasure",
     "UniversalImageQualityIndex",
+    # observability (event tracer, instrument registry, exporters, scrape server)
+    "observability",
+    # resilience (chaos harness, retry policies, non-finite guard)
+    "resilience",
     "CatBuffer",
     "bucketed_sync_enabled",
     "compiled_compute_enabled",

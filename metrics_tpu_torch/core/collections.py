@@ -14,7 +14,8 @@ dispatcher of ``core/engine.py``: the fused groups run as one captured step
 their own bucketed engines, the rest eagerly. While fused updates advance only
 the leaders, the members are detached, and they take the leader's state again
 at the next observation (``compute()``, ``items()``, ``values()``, ``[]``), so
-they see every replay's counts. A synced compute is captured too, its
+they see every replay's counts (the tracer records ``streak/realias``
+there). A synced compute is captured too, its
 collectives inside the graph, unless its sync reads a value back to the host.
 The incremental sync protocol keeps one carry per compute group.
 ``shard_state`` places the members' sharded states (``Metric.shard_state``).
@@ -28,6 +29,8 @@ import torch.distributed as dist
 import torch.utils._pytree as pytree
 
 from metrics_tpu_torch.core.metric import Metric, StateDict
+from metrics_tpu_torch.observability import instruments as _instruments
+from metrics_tpu_torch.observability import tracer as _otrace
 
 
 class MetricCollection:
@@ -158,6 +161,9 @@ class MetricCollection:
         if not self._members_stale:
             return
         self._members_stale = False
+        if _otrace.active:
+            _otrace.emit_instant("streak/realias", "streak", owner=type(self).__name__,
+                                 members=sum(len(g) - 1 for g in self._groups))
         for group in self._groups:
             if len(group) > 1:
                 self._share_leader_state(group)
@@ -293,21 +299,18 @@ class MetricCollection:
         until built), ``members`` each member's :meth:`Metric.engine_stats`,
         ``fallback_reasons`` every recorded reason (members' keyed
         ``"<member>.<kind>:<Class>"``), ``partition`` the dispatcher's view."""
-        from metrics_tpu_torch.core import engine as _engine
-
-        stats = _engine.engine_stats_view(self._update_engine, self._compute_engine)
+        stats = _instruments.engine_stats_view(self._update_engine, self._compute_engine)
         reasons: Dict[str, str] = stats["fallback_reasons"]
         members: Dict[str, Any] = {}
         for name in self._metrics:
             member_stats = self[name].engine_stats()
             members[name] = member_stats
-            for key, why in member_stats["fallback_reasons"].items():
-                reasons[f"{name}.{key}"] = why
+            _instruments.merge_member_reasons(reasons, name, member_stats["fallback_reasons"])
         stats["members"] = members
         if self._dispatcher is not None:
             for key, why in self._dispatcher._retired_reasons.items():
                 reasons.setdefault(key, why)
-        stats["partition"] = _engine.collection_partition_view(self)
+        stats["partition"] = _instruments.collection_partition_view(self)
         return stats
 
     def update(self, *args: Any, **kwargs: Any) -> None:

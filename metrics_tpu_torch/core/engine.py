@@ -91,12 +91,30 @@ through the host, so the update engine declines it before any collective,
 on every rank alike, with the reason in ``fallback_reasons``; the
 collection dispatcher classifies such a leader eager for the same reason.
 
-**Errors.** Only :class:`Uncapturable` and the errors torch raises for an
-operation a capture refuses revert a member. A kernel build or launch error
-propagates, as it does eagerly.
+**Errors.** Only :class:`Uncapturable`, the errors torch raises for an
+operation a capture refuses, and an injected
+:class:`~metrics_tpu_torch.resilience.chaos.ChaosError` revert a member: the
+fault takes the real fallback path, and in a collection the migration and
+probation path. A kernel build or launch error propagates, as it does
+eagerly.
+
+**Observability.** Every engine registers with the instrument registry
+(``metrics_tpu_engine_*{kind,owner}``) and every dispatcher with its
+partition bridge. While the tracer is on, the dispatch records
+``dispatch/eager`` (warmup), ``dispatch/compile`` (the probe and capture,
+with the probe's collective tallies), ``dispatch/cached`` (a replay) and
+``dispatch/fallback``, and, while a ``torch.profiler`` session records,
+runs the probe and each replay under a ``torch.profiler.record_function``
+named ``metrics_tpu/<Owner>.<kind>`` (``observability.shards.dispatch_annotation``);
+the fused streak records ``streak/detach``, the dispatcher
+``partition/build``, ``partition/rebuild``, ``partition/migrate`` and
+``partition/repromote``. The chaos sites ``engine/compile`` and
+``engine/dispatch`` fire before the probe or the replay touches anything, so
+the eager rerun of the call is bit for bit. Off, each hook is one flag check
+and reads nothing from the card.
 
 Not here, and queued elsewhere: tenant classification and ``PATH_TENANT``
-(A19), and the tracer, chaos and guard hooks and the autotune token (A20).
+(A19), and the autotune token (A20b).
 
 Global switches: ``set_compiled_update``, ``set_compiled_compute`` and
 ``set_fused_update`` (environment variables ``METRICS_TPU_COMPILED_UPDATE``,
@@ -106,6 +124,8 @@ set to ``0``); per instance ``compiled_update=`` / ``compiled_compute=`` /
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import inspect
 import os
 import sys
@@ -120,8 +140,13 @@ from torch import Tensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer, buffers_in, writes_in_place
+from metrics_tpu_torch.observability import instruments as _instruments
+from metrics_tpu_torch.observability import tracer as _otrace
+from metrics_tpu_torch.observability.shards import dispatch_annotation as _dispatch_annotation
 from metrics_tpu_torch.ops import kernels as _kernels
 from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.resilience import chaos as _chaos
+from metrics_tpu_torch.resilience import guard as _guard
 from metrics_tpu_torch.utils.checks import _capturing, _checks_off
 from metrics_tpu_torch.utils.exceptions import Uncapturable
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -694,6 +719,13 @@ class CapturedStep:
     def _capture(self, side: "torch.cuda.Stream") -> None:
         graph = torch.cuda.CUDAGraph()
         before = _kernels.launch_counts()
+        # no garbage collection inside the capture: a collection there can
+        # free another engine's graph (engines and metrics form reference
+        # cycles), whose destruction the capturing stream refuses, and the
+        # capture fails ("operation not permitted when stream is capturing");
+        # torch.cuda.graph no longer collects on entry
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with _steady(), _sync._muted(), torch.cuda.graph(graph, pool=self.pool, stream=side):
                 self._body()
@@ -706,6 +738,8 @@ class CapturedStep:
                 raise
             raise Uncapturable(f"the CUDA graph capture refused the step: {first}") from err
         finally:
+            if collecting:
+                gc.enable()
             # a capture records launches; it makes none
             self.launch_delta = _sub_counts(_kernels.launch_counts(), before)
             _kernels.add_launches({k: -n for k, n in self.launch_delta.items()})
@@ -731,8 +765,8 @@ class CapturedStep:
         is held by nobody outside the engine, so it may be overwritten without
         a backup. Returns the new state tree."""
         hand_out_statics = donate and all(free)
-        if self.graph is None:  # the CPU: run the step, no graph
-            with _steady():
+        if self.graph is None:  # the CPU: run the step, no graph; quiet, as a replay
+            with _steady(), _sync._quiet():
                 out = tree_leaves(self.fn(state, args, kwargs))
             if hand_out_statics:
                 for dst, src in zip(self.state_static, out):
@@ -757,7 +791,7 @@ class CapturedStep:
     def run_compute(self, state: Any, leaves: list, args: Tuple = (), kwargs: Optional[Dict] = None) -> Any:
         """A steady-state compute; returns fresh tensors."""
         if self.graph is None:
-            with _steady():
+            with _steady(), _sync._quiet():
                 return self.fn(state, args, kwargs or {})
         for s, x in zip(self.state_static, leaves):
             s.copy_(x)
@@ -814,6 +848,9 @@ class _EngineBase:
         self._state_sig = _SigCache()
         self._out_sigs: Dict[Any, Tuple] = {}
         self._fast_lane: Optional[Tuple] = None
+        # weakly tracked by the instrument registry: this engine's stats show
+        # up in snapshots as metrics_tpu_engine_*{kind,owner}
+        _instruments.register_engine(self)
 
     def __deepcopy__(self, memo: Dict) -> None:
         # clones and pickles rebuild their engine lazily: graphs bind device
@@ -838,6 +875,17 @@ class _EngineBase:
 
     def _step_fn(self) -> Callable:
         raise NotImplementedError
+
+    def _bridge(self) -> Any:
+        """The ``record_function`` a dispatch runs under while the tracer is
+        on, so a ``torch.profiler`` trace of the same run correlates with the
+        host spans (``observability.correlate_device_trace``). It is opened
+        only while a profiler records: like the JAX package's
+        ``TraceAnnotation`` without an active trace, it then costs nothing,
+        where a ``record_function`` makes two dispatcher calls either way."""
+        if not torch.autograd._profiler_enabled():
+            return _NO_BRIDGE
+        return torch.profiler.record_function(_dispatch_annotation(self._owner_name(), self._kind))
 
     def _new_step(self) -> CapturedStep:
         pool = None
@@ -884,6 +932,8 @@ class _EngineBase:
                 self._fast_lane = (args_sig, state_sig, key)
         if count < _WARMUP_CALLS:
             self.stats.eager_calls += 1
+            if _otrace.active:
+                _otrace.emit_instant("dispatch/eager", "engine", owner=self._owner_name(), kind=self._kind)
             return False, None
 
         donate_ok = self._donate and count > _WARMUP_CALLS  # the first compiled call probes
@@ -908,32 +958,56 @@ class _EngineBase:
                     break
             del buffers
         try:
+            if _chaos.active:
+                # before the probe or the replay touches anything: the fault
+                # takes the fallback (or migration) path a refused capture
+                # takes, and the eager rerun of this call is bit for bit
+                _chaos.maybe_fail("engine/compile" if count == _WARMUP_CALLS else "engine/dispatch",
+                                  owner=self._owner_name(), kind=self._kind)
             if count == _WARMUP_CALLS or step is None:
                 t0 = time.perf_counter()
                 step = self._new_step()
                 try:
-                    result = step.probe(state, args, kwargs)
+                    with self._bridge() if _otrace.active else _NO_BRIDGE:
+                        result = step.probe(state, args, kwargs)
                 finally:
                     _add_collectives(self.stats, step.collectives)
                 self._steps[key] = step
                 self._static_ids.update(id(x) for x in step.state_static)
-                self.stats.compile_seconds += time.perf_counter() - t0
+                compile_s = time.perf_counter() - t0
+                self.stats.compile_seconds += compile_s
                 if self._result_is_state and self._donate:
                     # the next call finds the statics as its state and
                     # updates them in place
                     for dst, src in zip(step.state_static, tree_leaves(result)):
                         dst.copy_(src)
                     result = tree_unflatten(list(step.state_static), step._state_spec)
-            elif self._result_is_state:
-                free = self._statics_free(step, leaves, donate_ok)
-                result = step.run_update(state, leaves, args, kwargs, arg_leaves, donate_ok, free)
+                if _otrace.active:
+                    box = step.collectives or _sync._new_box()
+                    compile_us = int(compile_s * 1e6)
+                    _otrace.emit_complete(
+                        "dispatch/compile", "engine", _otrace._now_us() - compile_us, compile_us,
+                        owner=self._owner_name(), kind=self._kind, compile_s=compile_s,
+                        collectives=dict(box["by_kind"]), collective_bytes=dict(box["bytes_by_kind"]),
+                        bytes_by_transport={k: dict(v) for k, v in box["bytes_by_transport"].items()},
+                        transport_refusals=len(box["refusals"]),
+                    )
+            elif _otrace.active:
+                t0_us = _otrace._now_us()
+                with self._bridge():
+                    result = self._run(step, state, leaves, args, kwargs, arg_leaves, donate_ok)
+                _otrace.emit_complete("dispatch/cached", "engine", t0_us, _otrace._now_us() - t0_us,
+                                      owner=self._owner_name(), kind=self._kind, donated=donate_ok)
             else:
-                result = step.run_compute(state, leaves, args, kwargs)
-        except Uncapturable as err:
+                result = self._run(step, state, leaves, args, kwargs, arg_leaves, donate_ok)
+        except (Uncapturable, _chaos.ChaosError) as err:
             self._broken = _first_line(err, 400)
             self.stats.fallback_reasons[self._owner_name()] = self._broken
             self.stats.last_fallback_step = self.stats.eager_calls + self.stats.compiled_calls + 1
             self.stats.last_fallback_exception = _first_line(err, 160)
+            if _otrace.active:
+                _otrace.emit_instant("dispatch/fallback", "engine", owner=self._owner_name(), kind=self._kind,
+                                     reason=self._broken.splitlines()[0][:200], step=self.stats.last_fallback_step)
             rank_zero_warn(
                 f"compiled-{self._kind} engine disabled for {self._owner_name()} ({type(self).__name__}) target: "
                 f"{self._target} cannot be captured ({self._broken[:200]}). "
@@ -959,6 +1033,17 @@ class _EngineBase:
         else:
             result = _fresh_outputs(result, leaves)
         return True, result
+
+    def _run(self, step: CapturedStep, state: Any, leaves: list, args: Tuple, kwargs: Dict, arg_leaves: list,
+             donate_ok: bool) -> Any:
+        """A steady-state call of a captured step."""
+        if self._result_is_state:
+            free = self._statics_free(step, leaves, donate_ok)
+            return step.run_update(state, leaves, args, kwargs, arg_leaves, donate_ok, free)
+        return step.run_compute(state, leaves, args, kwargs)
+
+
+_NO_BRIDGE = contextlib.nullcontext()
 
 
 def _add_collectives(stats: EngineStats, box: Optional[Dict[str, Any]]) -> None:
@@ -1286,6 +1371,9 @@ class CollectionUpdateEngine(_EngineBase):
                 for name in group[1:]:
                     coll._metrics[name]._detach_states()
             coll._members_stale = True
+            if _otrace.active:
+                _otrace.emit_instant("streak/detach", "streak", owner=self._owner_name(),
+                                     members=sum(len(g) - 1 for g in self._subset_groups))
         states = {g[0]: coll._metrics[g[0]].get_state() for g in self._subset_groups}
         handled, new_states = self._dispatch(states, args, kwargs, _protected_leaf_ids(*self._leaders(), include_shared=False))
         if not handled:
@@ -1609,6 +1697,9 @@ class CollectionDispatcher:
         self._reprobing: Dict[str, set] = {"update": set(), "compute": set()}
         self._dispatch_count = 0
         self._last_fallback_exception: Optional[str] = None
+        # the partition counters show up in snapshots as
+        # metrics_tpu_partition_*{owner}
+        _instruments.register_dispatcher(self)
 
     def __deepcopy__(self, memo: Dict) -> None:
         return None
@@ -1675,6 +1766,13 @@ class CollectionDispatcher:
         self.stats.builds += 1
         if rebuild:
             self.stats.repartitions += 1
+        if _otrace.active:
+            _otrace.emit_instant(
+                "partition/rebuild" if rebuild else "partition/build", "partition",
+                owner=type(coll).__name__,
+                fused=len(u_fused), bucketed=len(u_bucketed), eager=len(u_eager),
+                compute_fused=len(c_fused), compute_eager=len(c_eager),
+            )
         return part
 
     def _ensure_update_engine(self, part: CollectionPartition) -> Optional[CollectionUpdateEngine]:
@@ -1713,6 +1811,11 @@ class CollectionDispatcher:
                 # the probe named the culprit: it cannot be captured, so a
                 # re-probe would fail the same way
                 entry["next_retry"] = None
+        if _otrace.active:
+            _otrace.emit_instant(
+                "partition/migrate", "partition", owner=type(self.collection).__name__, kind=kind,
+                members=sorted(culprits), reason=next(iter(culprits.values()))[:200],
+            )
         return self._build_partition()
 
     def _migrate_update(self, engine: CollectionUpdateEngine, args: Tuple, kwargs: Dict) -> CollectionPartition:
@@ -1776,10 +1879,15 @@ class CollectionDispatcher:
 
     def _confirm_repromotions(self, kind: str, fused: Tuple[str, ...]) -> None:
         promoted = sorted(l for l in self._reprobing[kind] if l in fused)
+        if not promoted:
+            return
         for lname in promoted:
             self._reprobing[kind].discard(lname)
             self._probation.pop((kind, lname), None)
         self.stats.repromotions += len(promoted)
+        if _otrace.active:
+            _otrace.emit_instant("partition/repromote", "partition", owner=type(self.collection).__name__,
+                                 kind=kind, members=promoted)
 
     # ------------------------------------------------------------------ #
     # dispatch
@@ -1841,6 +1949,8 @@ class CollectionDispatcher:
                     res[key] = m._computed
                 elif key in eager_res:
                     res[key] = eager_res[key]
+        if _guard.active and not _guard.capturing():
+            _guard.inspect(type(coll).__name__, "compute", res)
         return res
 
     # ------------------------------------------------------------------ #
@@ -1909,18 +2019,3 @@ def metric_partition_view(metric: Any) -> Dict[str, Any]:
         "last_fallback_exception": last_exc,
     }
 
-
-def engine_stats_view(update_engine: Any, compute_engine: Any) -> Dict[str, Any]:
-    """``{"update": EngineStats|None, "compute": EngineStats|None,
-    "fallback_reasons": {"<kind>:<Owner>": why}}``."""
-    stats: Dict[str, Any] = {
-        "update": update_engine.stats if update_engine is not None else None,
-        "compute": compute_engine.stats if compute_engine is not None else None,
-    }
-    reasons: Dict[str, str] = {}
-    for kind, s in stats.items():
-        if s is not None:
-            for owner, why in s.fallback_reasons.items():
-                reasons[f"{kind}:{owner}"] = why
-    stats["fallback_reasons"] = reasons
-    return stats

@@ -19,8 +19,12 @@ the engines. Sharded state (``add_state(shard_axis=)``, ``shard_state`` /
 ``unshard_state``): each rank holds one disjoint block of a declared leaf,
 every update merges the rank's dense delta into the owners' blocks with one
 ``reduce_scatter`` per bucket, and ``compute()`` runs the metric's
-``compute_sharded_state`` on the blocks or reshards them. The JAX package's
-tracer and resilience guard have no counterpart here yet.
+``compute_sharded_state`` on the blocks or reshards them. The observability
+and resilience hooks of the JAX package sit at its sites: ``shard/place`` and
+``shard/unshard`` tracer spans, the ``buffer/overflow`` event with the
+``metrics_tpu_catbuffer_overflows_total`` counter, and the opt-in non-finite
+guard (``resilience.guard``) after ``update()`` (quarantine rolls the state
+back), after ``sync()`` and on the ``compute()`` result.
 
 State lives on one explicit device. ``device=None`` means CUDA; without a
 card the constructor raises instead of quietly running on the CPU, so CPU
@@ -50,8 +54,11 @@ import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer, in_place_writes
+from metrics_tpu_torch.observability import instruments as _instruments
+from metrics_tpu_torch.observability import tracer as _otrace
 from metrics_tpu_torch.parallel import mesh as _meshlib
 from metrics_tpu_torch.parallel import sync as _sync
+from metrics_tpu_torch.resilience import guard as _guard
 from metrics_tpu_torch.sketches.base import MergeableSketch
 from metrics_tpu_torch.sketches.base import is_sketch as _is_sketch
 from metrics_tpu_torch.utils.data import _flatten, _squeeze_if_scalar
@@ -507,6 +514,7 @@ class Metric:
             )
         if self._state_sharding is not None:
             self.unshard_state()
+        t0_us = _otrace._now_us() if _otrace.active else 0
         placement = (mesh, axis_name)
         for name in self._shard_axes:
             default, red = self._defaults[name], self._reductions[name]
@@ -546,6 +554,9 @@ class Metric:
             for name, block in _sync.reduce_scatter_merge(dense, self._sync_placement).items():
                 setattr(self, name, block)
         self._after_placement()
+        if _otrace.active:
+            _otrace.emit_complete("shard/place", "shard", t0_us, _otrace._now_us() - t0_us,
+                                  owner=type(self).__name__, leaves=len(self._shard_axes), axis=axis_name)
         return self
 
     def unshard_state(self) -> "Metric":
@@ -558,6 +569,7 @@ class Metric:
         returns what it returned before."""
         if self._state_sharding is None:
             return self
+        t0_us = _otrace._now_us() if _otrace.active else 0
         whole = _sync._axis_groups(self._sync_placement)[0]
         keeper = dist.get_rank(whole) == 0
         for name in self._shard_axes:
@@ -578,6 +590,9 @@ class Metric:
         self._sync_placement = None
         self._shard_templates = {}
         self._after_placement()
+        if _otrace.active:
+            _otrace.emit_complete("shard/unshard", "shard", t0_us, _otrace._now_us() - t0_us,
+                                  owner=type(self).__name__, leaves=len(self._shard_axes))
         return self
 
     def _after_placement(self) -> None:
@@ -1093,10 +1108,8 @@ class Metric:
         ``bucketed``, ``eager``) a collection would assign each kind, with the
         reason.
         """
-        from metrics_tpu_torch.core import engine as _engine
-
-        stats = _engine.engine_stats_view(self._update_engine, self._compute_engine)
-        stats["partition"] = _engine.metric_partition_view(self)
+        stats = _instruments.engine_stats_view(self._update_engine, self._compute_engine)
+        stats["partition"] = _instruments.metric_partition_view(self)
         return stats
 
     def _wrap_update(self, update: Callable) -> Callable:
@@ -1105,9 +1118,18 @@ class Metric:
             self._check_input_devices(args, kwargs)
             self._computed = None
             self._update_count += 1
+            # the opt-in guard's snapshot holds the state's tensors, so the
+            # engine's alias guard refuses the in-place update: the cost of
+            # arming it; off, this is the one flag read
+            guard_on = _guard.active and not _guard.capturing()
+            prev = self.get_state() if guard_on else None
             engine = self._maybe_engine()
             if engine is None or not engine.dispatch(args, kwargs):
                 self._eager_update(*args, **kwargs)
+            if guard_on and _guard.inspect(type(self).__name__, "update", self.get_state()):
+                # quarantine: drop the poisoned batch wholesale
+                self.set_state(prev)
+                self._update_count -= 1
             if self._buffer_states:
                 self._surface_buffer_overflows()
             if self.compute_on_cpu:
@@ -1144,27 +1166,40 @@ class Metric:
                     handled, value = engine.dispatch()
                     if handled:
                         self._computed = _squeeze_if_scalar(value)
+                        if _guard.active:
+                            self._guard_compute()
                         return self._computed
                 if self._sharded and self.dist_sync_fn is None and not self._is_synced:
                     # the blocks are not the value: the protocol, or a reshard,
                     # whatever ``sync_on_compute``/``dist_sync_on_step`` say
                     value = self.sync_compute_state(self.get_state(), self._sync_group())
                     self._computed = _squeeze_if_scalar(value)
+                    if _guard.active:
+                        self._guard_compute()
                     return self._computed
             should_sync = self._to_sync or (self._sharded and not self._is_synced)
             with self.sync_context(
                 dist_sync_fn=self.dist_sync_fn, should_sync=should_sync, should_unsync=self._should_unsync
             ):
                 self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            if _guard.active:
+                self._guard_compute()
             return self._computed
 
         self._compute = compute  # unwrapped, used by the pure protocol
         return wrapped_func
 
+    def _guard_compute(self) -> None:
+        """The armed guard's check of the compute result (callers gate on
+        ``_guard.active``)."""
+        if not _guard.capturing():
+            _guard.inspect(type(self).__name__, "compute", self._computed)
+
     def _surface_buffer_overflows(self) -> None:
-        """Warn once per buffer state, at the update whose captured append
-        went past its capacity. Reads the host mirror of the sticky flag, so
-        it costs no read from the device."""
+        """Once per buffer state, at the update whose captured append went
+        past its capacity: bump ``metrics_tpu_catbuffer_overflows_total{owner}``,
+        warn, and record a ``buffer/overflow`` tracer instant. Reads the host
+        mirror of the sticky flag, so it costs no read from the device."""
         for name in self._buffer_states:
             if name in self._overflow_reported:
                 continue
@@ -1172,13 +1207,22 @@ class Metric:
             if not isinstance(buf, CatBuffer) or not buf.overflow_seen:
                 continue
             self._overflow_reported.add(name)
+            owner = f"{type(self).__name__}.{name}"
+            _instruments.get_registry().counter(
+                "catbuffer_overflows_total",
+                help="CatBuffer states whose sticky overflow flag flipped "
+                "(compiled appends beyond capacity overwrote the buffer tail)",
+                owner=owner,
+            ).inc()
             rank_zero_warn(
-                f"CatBuffer state `{type(self).__name__}.{name}` overflowed its capacity of "
+                f"CatBuffer state `{owner}` overflowed its capacity of "
                 f"{buf.capacity} inside a compiled program: the overflowing appends overwrote the "
                 "buffer tail and compute() will raise. Raise `buffer_capacity` to at least the "
                 "per-device sample count.",
                 UserWarning,
             )
+            if _otrace.active:
+                _otrace.emit_instant("buffer/overflow", "buffer", owner=owner, capacity=buf.capacity)
 
     def _move_list_states_to_cpu(self) -> None:
         """Host offload of the list and buffer states (``compute_on_cpu``)."""
@@ -1230,6 +1274,8 @@ class Metric:
             return
         self._cache = self.get_state()
         self._sync_dist(dist_sync_fn or self.dist_sync_fn, process_group=process_group)
+        if _guard.active and not _guard.capturing():
+            _guard.inspect(type(self).__name__, "sync", self.get_state())
         self._is_synced = True
 
     def unsync(self, should_unsync: bool = True) -> None:

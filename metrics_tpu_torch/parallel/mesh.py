@@ -42,6 +42,8 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch.distributed as dist
 
+from metrics_tpu_torch.observability import tracer as _otrace
+
 AxisNames = Union[str, Tuple[str, ...]]
 
 
@@ -103,8 +105,18 @@ class Mesh:
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str], backend: Optional[str] = None) -> Mesh:
-    """Lay out the ranks of the default process group as a named mesh."""
-    return Mesh(axis_sizes, axis_names, backend)
+    """Lay out the ranks of the default process group as a named mesh.
+
+    While the tracer is on, records a ``mesh/build`` instant: the axes, the
+    number of ranks and the platform (``cuda`` for an NCCL mesh, else
+    ``cpu``; the JAX package names its devices' platform)."""
+    mesh = Mesh(axis_sizes, axis_names, backend)
+    if _otrace.active:
+        _otrace.emit_instant(
+            "mesh/build", "shard", axes=dict(mesh.shape), devices=int(mesh.ranks.size),
+            platform="cuda" if (backend or dist.get_backend()) == "nccl" else "cpu",
+        )
+    return mesh
 
 
 def data_parallel_mesh(axis_name: str = "data") -> Mesh:

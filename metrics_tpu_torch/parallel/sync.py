@@ -64,10 +64,24 @@ tuple of axis names, the port takes a :class:`~metrics_tpu_torch.parallel.Mesh`:
 replicated leaves then sum over every rank of the mesh, and a leaf sharded
 along a tuple of array axes gathers over the mesh's axes in order.
 
-Not ported here: tenant-stacked sync (A19); the
-autotune controller that ``_resolve_transport`` and ``sync_cadence_default``
-consult in the JAX package, and the tracer, chaos and registry hooks (A20):
-they go where those functions now fall through to the global defaults.
+**Observability and chaos.** ``sync_state`` records one
+``sync/bucket_build`` span (with its collective tallies) and is the
+``sync/bucket_build`` chaos site; an emission is the ``sync/incremental``
+site and records ``sync/incremental_emit``; a gate refusal records
+``sync/transport_refused``. The registry's ``metrics_tpu_sync_wire_bytes_total``,
+``metrics_tpu_sync_logical_bytes_total`` and
+``metrics_tpu_sync_transport_refusals_total`` tick per collective and
+refusal, ``metrics_tpu_engine_incremental_emissions_total`` per emission,
+and a finalize sets ``metrics_tpu_engine_incremental_deferred_residue_buckets``.
+The JAX package runs these sites at trace time, once per compiled program;
+here they run where the step's Python runs eagerly or at the engine's probe,
+and go quiet (:func:`_quiet`) in a capture's second run of the step and in
+the CPU's stand-in for a replay, so the card and the CPU record the same
+events, fire the same faults and tally the same bytes.
+
+Not ported here: tenant-stacked sync (A19), and the autotune controller that
+``_resolve_transport`` and ``sync_cadence_default`` consult in the JAX
+package (A20b): they fall through to the global defaults.
 """
 from __future__ import annotations
 
@@ -82,7 +96,10 @@ import torch.distributed as dist
 from torch import Tensor
 
 from metrics_tpu_torch.core.buffers import CatBuffer, ShardedCatBuffer
+from metrics_tpu_torch.observability import tracer as _otrace
+from metrics_tpu_torch.observability.instruments import REGISTRY as _REGISTRY
 from metrics_tpu_torch.parallel.mesh import Mesh
+from metrics_tpu_torch.resilience import chaos as _chaos
 from metrics_tpu_torch.sketches.base import is_sketch
 from metrics_tpu_torch.utils.compute import class_reduce, reduce  # noqa: F401  (the JAX package's home of both)
 
@@ -513,14 +530,34 @@ def count_collectives() -> Iterator[Dict[str, Any]]:
 
 @contextlib.contextmanager
 def _muted() -> Iterator[None]:
-    """No collective or refusal counts while the block runs (a capture,
-    which records the collectives it does not run)."""
+    """No collective or refusal counts, and quiet (:func:`_quiet`), while
+    the block runs (a capture, which records the collectives it does not
+    run)."""
     prev = getattr(_counter, "muted", False)
     _counter.muted = True
     try:
-        yield
+        with _quiet():
+            yield
     finally:
         _counter.muted = prev
+
+
+@contextlib.contextmanager
+def _quiet() -> Iterator[None]:
+    """No tracer event, chaos site or registry tally of this module while
+    the block runs: a capture's second run of a step the engine has probed,
+    and the CPU's run of a captured step in place of a replay. The JAX
+    package runs them once per compiled program, at trace time."""
+    prev = getattr(_counter, "quiet", False)
+    _counter.quiet = True
+    try:
+        yield
+    finally:
+        _counter.quiet = prev
+
+
+def _hooks_quiet() -> bool:
+    return getattr(_counter, "quiet", False)
 
 
 def _open_boxes() -> Sequence[Dict[str, Any]]:
@@ -533,6 +570,17 @@ def _tick(kind: str, nbytes: int, logical: Optional[int] = None, transport: str 
     """Count one collective of ``nbytes`` on the wire; ``logical`` is what
     the exact path would move for it (default: the wire bytes)."""
     logical = nbytes if logical is None else logical
+    if not _hooks_quiet():
+        _REGISTRY.counter(
+            "sync_wire_bytes_total",
+            "Per-device sync collective payload bytes as sent on the wire, by transport.",
+            transport=transport,
+        ).inc(nbytes)
+        _REGISTRY.counter(
+            "sync_logical_bytes_total",
+            "Per-device sync collective payload bytes at the buckets' logical dtypes, by transport.",
+            transport=transport,
+        ).inc(logical)
     for box in _open_boxes():
         box["count"] += 1
         box["by_kind"][kind] = box["by_kind"].get(kind, 0) + 1
@@ -544,8 +592,20 @@ def _tick(kind: str, nbytes: int, logical: Optional[int] = None, transport: str 
 
 
 def _tick_refusal(refusal: Dict[str, Any]) -> None:
+    """Record one error-budget refusal: into every open counting box, the
+    tracer (``sync/transport_refused``) and the registry's refusal counter."""
     for box in _open_boxes():
         box["refusals"].append(dict(refusal))
+    if _hooks_quiet():
+        return
+    if _otrace.active:
+        _otrace.emit_instant("sync/transport_refused", "sync", **refusal)
+    _REGISTRY.counter(
+        "sync_transport_refusals_total",
+        "Buckets whose requested quantized transport the error-budget gate refused back to exact.",
+        transport=str(refusal.get("transport")),
+        reason=str(refusal.get("reason")),
+    ).inc()
 
 
 def replay_ticks(box: Dict[str, Any]) -> None:
@@ -1104,9 +1164,50 @@ def sync_state(
     blocks (the sharded-compute protocol). ``group`` may be a
     :class:`~metrics_tpu_torch.parallel.Mesh` (its axes in order): replicated
     leaves then sum over every rank of it.
+
+    While the tracer is on, each call records one ``sync/bucket_build`` span
+    with its own collective tallies (a nested :func:`count_collectives` box:
+    the caller's boxes still see every collective); each call is the
+    ``sync/bucket_build`` chaos site.
     """
     if group is None:
         return dict(state)
+    args = (state, reductions, group, bucketed, transports, tolerances, shard_axes, keep_sharded)
+    if not _otrace.active or _hooks_quiet():
+        return _sync_state_impl(*args)
+    t0_us = _otrace._now_us()
+    with count_collectives() as box:
+        out = _sync_state_impl(*args)
+    _otrace.emit_complete(
+        "sync/bucket_build", "sync", t0_us, _otrace._now_us() - t0_us,
+        axis=_group_label(group), leaves=len(state),
+        collectives=dict(box["by_kind"]),
+        collective_bytes=dict(box["bytes_by_kind"]),
+        bytes_by_transport={k: dict(v) for k, v in box["bytes_by_transport"].items()},
+        transport_refusals=len(box["refusals"]),
+    )
+    return out
+
+
+def _group_label(group: Group) -> str:
+    """A group's name in the tracer's args: a mesh's axes, else the group's size."""
+    if isinstance(group, Mesh):
+        return ",".join(group.axis_names)
+    return f"group[{dist.get_world_size(group)}]"
+
+
+def _sync_state_impl(
+    state: Dict[str, Any],
+    reductions: Dict[str, Reduction],
+    group: Group,
+    bucketed: Optional[bool],
+    transports: Optional[Dict[str, str]],
+    tolerances: Optional[Dict[str, float]],
+    shard_axes: Optional[Dict[str, ShardAxis]],
+    keep_sharded: bool,
+) -> Dict[str, Any]:
+    if _chaos.active and not _hooks_quiet():
+        _chaos.maybe_fail("sync/bucket_build", leaves=len(state))
     if bucketed is None:
         bucketed = bucketed_sync_enabled()
     shard_axes = shard_axes or {}
@@ -1446,25 +1547,44 @@ def emit_incremental(
     """One in-streak emission: the new ``(acc, last)``. ``fold`` leaves sync
     their delta since ``last`` (bucketed like the deferred path, gated at the
     ``emission``-th compounded bound) into ``acc``; ``replace`` leaves run
-    their full bucket collective and replace ``acc``."""
+    their full bucket collective and replace ``acc``. Each emission is the
+    ``sync/incremental`` chaos site, records a ``sync/incremental_emit``
+    span and ticks ``metrics_tpu_engine_incremental_emissions_total``."""
+    quiet = _hooks_quiet()
+    if _chaos.active and not quiet:
+        _chaos.maybe_fail("sync/incremental", covered=len(acc), emission=int(emission))
     fold, replace, live, eff_transports, eff_tolerances = _emission_entries(
         state, last, reductions, modes, transports, tolerances, shard_axes
     )
+    axis = _group_label(group) if _otrace.active and not quiet else ""
     group = _axis_groups(group)[0]
+    t0_us = _otrace._now_us() if _otrace.active else 0
     new_acc = dict(acc)
     new_last = dict(last)
-    if fold:
-        # fold and replace leaves never share a bucket (fold is exactly the
-        # integer sums), so two calls bucket as one would
-        synced = _sync_bucketed(fold, group, eff_transports, eff_tolerances, error_scale=float(emission))
-        for name, _, _ in fold:
-            new_acc[name] = acc[name] + synced[name]
-            new_last[name] = live[name]
-    if replace:
-        # a full collective each time: its error does not compound
-        synced = _sync_bucketed(replace, group, eff_transports, eff_tolerances)
-        for name, _, _ in replace:
-            new_acc[name] = synced[name]
+    with count_collectives() as box:
+        if fold:
+            # fold and replace leaves never share a bucket (fold is exactly the
+            # integer sums), so two calls bucket as one would
+            synced = _sync_bucketed(fold, group, eff_transports, eff_tolerances, error_scale=float(emission))
+            for name, _, _ in fold:
+                new_acc[name] = acc[name] + synced[name]
+                new_last[name] = live[name]
+        if replace:
+            # a full collective each time: its error does not compound
+            synced = _sync_bucketed(replace, group, eff_transports, eff_tolerances)
+            for name, _, _ in replace:
+                new_acc[name] = synced[name]
+    if not quiet:
+        if _otrace.active:
+            _otrace.emit_complete(
+                "sync/incremental_emit", "sync", t0_us, _otrace._now_us() - t0_us,
+                axis=axis, emission=int(emission), fold_leaves=len(fold), replace_leaves=len(replace),
+                collectives=dict(box["by_kind"]), collective_bytes=dict(box["bytes_by_kind"]),
+            )
+        _REGISTRY.counter(
+            "engine_incremental_emissions_total",
+            "In-streak incremental sync emissions (counted where the step's Python runs: eagerly or at the probe).",
+        ).inc()
     return new_acc, new_last
 
 
@@ -1495,6 +1615,9 @@ def finalize_incremental(
       live state through the deferred path;
     - residue leaves: the ordinary :func:`sync_state` (sharded leaves
       resharded, or kept as blocks under ``keep_sharded``).
+
+    Sets the ``metrics_tpu_engine_incremental_deferred_residue_buckets``
+    gauge to the number of collectives this finalize paid.
     """
     if group is None:
         return dict(state)
@@ -1522,17 +1645,24 @@ def finalize_incremental(
             fold_tail.append((name, state[name] - last[name], "sum"))
         else:
             residue[name] = state[name]
-    if fold_tail:
-        tail = _sync_bucketed(fold_tail, _axis_groups(group)[0], transports, tolerances, error_scale=float(emission))
-        for name, _, _ in fold_tail:
-            out[name] = acc[name] + tail[name]
-    if residue:
-        out.update(sync_state(
-            residue, {n: reductions.get(n) for n in residue}, group, bucketed=bucketed,
-            transports={n: t for n, t in (transports or {}).items() if n in residue},
-            tolerances={n: t for n, t in (tolerances or {}).items() if n in residue},
-            shard_axes={n: a for n, a in (shard_axes or {}).items() if n in residue}, keep_sharded=keep_sharded,
-        ))
+    with count_collectives() as box:
+        if fold_tail:
+            tail = _sync_bucketed(fold_tail, _axis_groups(group)[0], transports, tolerances,
+                                  error_scale=float(emission))
+            for name, _, _ in fold_tail:
+                out[name] = acc[name] + tail[name]
+        if residue:
+            out.update(sync_state(
+                residue, {n: reductions.get(n) for n in residue}, group, bucketed=bucketed,
+                transports={n: t for n, t in (transports or {}).items() if n in residue},
+                tolerances={n: t for n, t in (tolerances or {}).items() if n in residue},
+                shard_axes={n: a for n, a in (shard_axes or {}).items() if n in residue}, keep_sharded=keep_sharded,
+            ))
+    if not _hooks_quiet():
+        _REGISTRY.gauge(
+            "engine_incremental_deferred_residue_buckets",
+            "Collectives the last incremental finalize still paid (cadence tails + non-incremental residue).",
+        ).set(float(box["count"]))
     return {name: out[name] for name in state}
 
 

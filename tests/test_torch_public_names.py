@@ -30,7 +30,7 @@ pytestmark = pytest.mark.filterwarnings("ignore")
 ITEMS = {
     "A18": "checkpoint",
     "A19": "tenancy, serve and cluster",
-    "A20": "observability, resilience, autotune and the kernel registry's telemetry",
+    "A20": "autotune and the kernel registry's telemetry (A20b; observability and resilience, A20a, are ported)",
     "A21": "analysis (ANALYSIS_SPECS and the analyzer surfaces)",
     "B1": "the Pallas module of B1, whose port is ops/classification/binned_counts.py",
 }
@@ -44,10 +44,12 @@ MISSING = {
         **_items("A18", ["checkpoint", "restore_checkpoint", "save_checkpoint", "verify_checkpoint"]),
         **_items("A19", ["TenantSet", "serve", "tenancy"]),
         **_items("A20", ["PolicyConfig", "TunedPlan", "autotune", "autotune_enabled", "export_tuned_plan",
-                         "observability", "resilience", "set_autotune"]),
+                         "set_autotune"]),
     },
     "core": {},
-    "utils": {"httpd": "A19"},  # the stdlib HTTP lifecycle of the serve and scrape servers
+    "utils": {},
+    "observability": {"ANALYSIS_MODULE_SPECS": "A21"},
+    "resilience": {},
     "parallel": {"ANALYSIS_MODULE_SPECS": "A21"},
     "functional": {},
     "ops": {},
@@ -131,7 +133,8 @@ def test_every_listed_item_is_unported():
                  "ROUGEScore", "SQuAD", "CatBuffer", "functional", "__version__",
                  "Quantile", "Median", "DistinctCount", "HeavyHitters", "sketches",
                  "FrechetInceptionDistance", "PeakSignalNoiseRatio", "image", "nets",
-                 "SignalNoiseRatio", "PermutationInvariantTraining", "PerceptualEvaluationSpeechQuality", "audio"):
+                 "SignalNoiseRatio", "PermutationInvariantTraining", "PerceptualEvaluationSpeechQuality", "audio",
+                 "observability", "resilience"):
         assert hasattr(mt_torch, name), name
 
 

@@ -282,6 +282,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import metrics_tpu_torch.core.buffers, metrics_tpu_torch.core.metric, metrics_tpu_torch.ops.classification._ratio\n"
         "import metrics_tpu_torch.ops.classification.matthews_corrcoef, metrics_tpu_torch.classification.confusion_matrix\n"
         "from metrics_tpu_torch.parallel import psum_result, gather_result, shard_spec, grid_sharded  # sharded state\n"
+        "import metrics_tpu_torch.observability, metrics_tpu_torch.observability.__main__, metrics_tpu_torch.resilience\n"
+        "import metrics_tpu_torch.utils.httpd, metrics_tpu_torch.utils.profiling, metrics_tpu_torch.observability.regress\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
