@@ -340,8 +340,41 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    checks the engine's flattener only) and ``unshard_state``. The phase
    stays under 60 s.
 
+17. Checkpoint and tenancy, in a world of one NCCL rank. (a) The config2
+   collection (10 classes, 64-row batches) beside the dry run's
+   BinnedAveragePrecision (8 classes, 21 thresholds) on captured engines: a
+   blocking save after 10 batches, an ``overlap_copy`` async save after 15
+   while 5 more captured steps replay, the objects dropped, a restore into
+   fresh metrics on the card and the rest of the 40 batches: states of each
+   snapshot and final results bitwise those of an uninterrupted run, B1
+   once an update after the restore; a snapshot written by the port on the
+   CPU at the same seed restores onto the card, bitwise. (b) The 4,096-class
+   ConfusionMatrix (64 MiB int32), plain and placed: save, verify and
+   restore under a temporary directory with their bytes and seconds, then a
+   4 -> 1 ``merge_shards`` of four explicit shards (their sum, bitwise).
+   (c) A chaos plan on ``storage/write`` and ``ckpt/commit`` under a
+   RetryPolicy: the save commits, the restore is bitwise; a corrupt newest
+   step falls back to the older one with a ``checkpoint/restore/fallback``
+   event. (d) 1,024-slot TenantSets of config2 and of the binned AP, 1,024
+   tenants x 64 rows: every tenant bitwise its own stream, one batched B1
+   launch (``binned_counts_batched``) a stacked update, bitwise a set on B1's
+   plain version; ragged occupancy (37, 38, 5 of 1,024) keeps one captured
+   step a bucket width with none new across admit, evict and reset; a
+   TenantSet save and restore, bitwise; the stacked sync's collectives the
+   same at N = 1,024 and N = 16; the per-tenant microseconds of one stacked
+   update against N independent dispatches at N = 16, 256, 1,024. The
+   launch counts are set to 0 before (a) and read after (d). Then the
+   batched B1 launch at (1,024, 64, 8, 21) beside its plain version and its
+   bound, its device time by the profiler and by CUDA events around a
+   captured graph of 20 launches; and the unbatched B1 wrapper at phase 3's
+   shape by its two routes, the direct launch and the
+   ``metrics_tpu::binned_counts`` operator. The phase stays under 60 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
-versions, the matcher also on every staging path (D in double-buffered slabs,
+versions (B1's tenant-batched launch also against B unbatched launches, at
+the tenancy shape, unaligned rows, labels out of range, one tenant, the
+beyond-shared-memory path, empty rows, and 70,000 tenants in two launches),
+the matcher also on every staging path (D in double-buffered slabs,
 bulk copies and plain loads) and argmax path up to G = 38,741; the 3xTF32
 maxsim kernel (2c, on shapes TMA describes as they are and on padded copies
 of the others) sums in another order than the plain version's matrix
@@ -354,8 +387,10 @@ is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -601,6 +636,65 @@ def check_binned_kernel(torch, kernels_mod, binned):
                 worst = max(worst, err)
         print(f"  binned_counts [{label}] shape {tuple(preds.shape)} target {tuple(target.shape)} {target.dtype}"
               f" T={thresholds.numel()}: bitwise equal" + (f" in {calls} calls in a row" if calls > 1 else ""))
+    return worst
+
+
+def check_batched_binned_kernel(torch, kernels_mod, binned):
+    """B1's tenant-batched launch: one launch for B tenants, bitwise equal to
+    the batched plain version and to B unbatched launches."""
+    kernel = kernels_mod.KERNELS["binned_counts_batched"]
+    lib = kernel.lib()
+    max_t = lib.binned_counts_max_shared_t()
+    check(lib.binned_counts_batched_workspace_len(5, 3, max_t + 1) == 5 * lib.binned_counts_workspace_len(3, max_t + 1),
+          "the batched global path should take one workspace slice a tenant")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 171)
+    dev = "cuda"
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def labels(b, n, c, dtype=torch.int64, low=0, high=None):
+        return torch.randint(low, c if high is None else high, (b, n), generator=gen, device=dev, dtype=dtype)
+
+    lin = lambda t: torch.linspace(0, 1, t, device=dev)  # noqa: E731
+    cases = [
+        (f"labels the tenancy shape {TENANTS}x{TENANT_ROWS}x{DRY_CLASSES}x{DRY_THRESHOLDS}",
+         uniform(TENANTS, TENANT_ROWS, DRY_CLASSES), labels(TENANTS, TENANT_ROWS, DRY_CLASSES), lin(DRY_THRESHOLDS)),
+        ("dense 16x257x7x21, unaligned rows", uniform(16, 257, 7), uniform(16, 257, 7) < 0.5, lin(21)),
+        ("labels int32 4x1024x1000x100", uniform(4, 1024, 1000), labels(4, 1024, 1000, torch.int32), lin(100)),
+        ("labels at -1 and C 3x513x12x21", uniform(3, 513, 12), labels(3, 513, 12, low=-1, high=13), lin(21)),
+        ("labels one tenant 1x300x5x13", uniform(1, 300, 5), labels(1, 300, 5), lin(13)),
+        (f"labels T={max_t + 1000}, beyond shared memory, 5 tenants", uniform(5, 600, 3), labels(5, 600, 3),
+         torch.rand(max_t + 1000, generator=gen, device=dev)),
+        ("labels empty rows 7x0x6x11", uniform(7, 0, 6), labels(7, 0, 6), lin(11)),
+        # more tenants than the grid's z dimension holds: one launch a slice
+        ("labels 70000x4x3x5, two slices of tenants", uniform(70000, 4, 3), labels(70000, 4, 3), lin(5)),
+    ]
+    worst = 0.0
+    for label, preds, target, thresholds in cases:
+        b, n = preds.shape[:2]
+        grid = binned.sort_thresholds(thresholds)
+        want = binned.binned_counts_batched(preds, target, grid, plain=True)
+        # B unbatched launches where B is small enough to loop over
+        unbatched = torch.stack([torch.stack(binned.binned_counts(p, y, grid)) for p, y in zip(preds, target)]) \
+            if b <= TENANTS else None
+        torch.cuda.synchronize()
+        expected = 0 if n == 0 else -(-b // binned.MAX_TENANTS_PER_LAUNCH)  # one launch a slice of tenants
+        for call in range(2):  # twice: a workspace left unclean would show
+            before = kernel.launches
+            got = binned.binned_counts_batched(preds, target, grid)
+            torch.cuda.synchronize()
+            check(kernel.launches - before == expected, f"binned_counts_batched [{label}]: launches {kernel.launches - before}")
+            check(got.shape == want.shape and got.dtype == want.dtype, f"binned_counts_batched [{label}]: shape/dtype")
+            err = float((got - want).abs().max()) if got.numel() else 0.0
+            check(torch.equal(got, want), f"binned_counts_batched [{label}] call {call + 1}: kernel differs from plain,"
+                                          f" max abs err {err}")
+            check(unbatched is None or torch.equal(got, unbatched),
+                  f"binned_counts_batched [{label}]: differs from unbatched launches")
+            worst = max(worst, err)
+        print(f"  binned_counts_batched [{label}]: bitwise equal to the plain version"
+              + (f" and to {b} unbatched launches" if unbatched is not None else "")
+              + f", {expected} launch{'' if expected == 1 else 'es'} a call")
     return worst
 
 
@@ -6555,6 +6649,557 @@ def phase_sixteen(torch, mt, np, kernels_mod, sync, smi) -> dict:
             "seconds": elapsed, "launches": launches}
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: checkpoint and tenancy (B1's tenant-batched launch on the path)
+# --------------------------------------------------------------------------- #
+PHASE17_LIMIT_S = 60.0
+# config2 (bench.py's collection: 10 classes, 64-row batches) beside the dry
+# run's BinnedAveragePrecision(num_classes=8, thresholds=21)
+CKPT_CLASSES, CKPT_ROWS, CKPT_BATCHES = 10, 64, 40
+CKPT_BLOCKING_AT, CKPT_OVERLAP_AT, CKPT_CRASH_AT = 10, 15, 20
+DRY_CLASSES, DRY_THRESHOLDS = 8, 21
+TENANTS, TENANT_ROWS, TENANT_STEPS = 1024, 64, 3
+RAGGED = (37, 38, 5)  # active tenants of 1,024 in three dispatches
+TENANCY_SWEEP, TENANCY_TIMED_STEPS = (16, 256, 1024), 3
+MERGE_SHARDS = 4
+
+
+def config2_pair(mt, device=None):
+    """The config2 collection and the dry run's binned AP, with the engines at
+    their defaults (captured on the card)."""
+    coll = mt.MetricCollection({
+        "acc": mt.Accuracy(num_classes=CKPT_CLASSES, average="micro", device=device),
+        "f1": mt.F1Score(num_classes=CKPT_CLASSES, average="macro", device=device),
+        "precision": mt.Precision(num_classes=CKPT_CLASSES, average="macro", device=device),
+        "recall": mt.Recall(num_classes=CKPT_CLASSES, average="macro", device=device),
+    })
+    return coll, mt.BinnedAveragePrecision(num_classes=DRY_CLASSES, thresholds=DRY_THRESHOLDS, device=device)
+
+
+def ckpt_stream(torch):
+    """CKPT_BATCHES seeded (logits, target, scores, labels) batches on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+    out = []
+    for _ in range(CKPT_BATCHES):
+        target = torch.randint(0, CKPT_CLASSES, (CKPT_ROWS,), generator=gen, device="cuda")
+        logits = torch.randn((CKPT_ROWS, CKPT_CLASSES), generator=gen, device="cuda")
+        logits[torch.arange(CKPT_ROWS, device="cuda"), target] += 1.0
+        scores = torch.rand((CKPT_ROWS, DRY_CLASSES), generator=gen, device="cuda")
+        labels = torch.randint(0, DRY_CLASSES, (CKPT_ROWS,), generator=gen, device="cuda")
+        out.append((logits, target, scores, labels))
+    return out
+
+
+def feed_ckpt(coll, binned, batches) -> None:
+    for logits, target, scores, labels in batches:
+        coll.update(logits, target)
+        binned.update(scores, labels)
+
+
+def pair_states(torch, coll, binned) -> dict:
+    """Copies of every state leaf (on the card)."""
+    states = slice_states(coll, binned)
+    return {k: v.clone() for k, v in states.items()}
+
+
+def coll_states(coll) -> dict:
+    """Copies of a collection's state leaves."""
+    return {f"{k}.{s}": v.clone() for k, m in coll.items(keep_base=True) for s, v in m.get_state().items()}
+
+
+def pair_results(torch, coll, binned) -> dict:
+    return {**coll.compute(), "binned": torch.stack(binned.compute())}
+
+
+def same_dicts(torch, label: str, got: dict, want: dict) -> None:
+    check(got.keys() == want.keys(), f"{label}: keys {sorted(got)} != {sorted(want)}")
+    for k in want:
+        check(got[k].device == want[k].device and same_bits(torch, got[k], want[k]), f"{label}: {k} differs")
+
+
+def save_pair(ckpt, coll, binned, root: str, **kw) -> list:
+    return [ckpt.save_checkpoint(coll, f"{root}/coll", **kw), ckpt.save_checkpoint(binned, f"{root}/binned", **kw)]
+
+
+def restore_pair(ckpt, mt, root: str, step=None) -> tuple:
+    coll, binned = config2_pair(mt)
+    infos = [ckpt.restore_checkpoint(coll, f"{root}/coll", step), ckpt.restore_checkpoint(binned, f"{root}/binned", step)]
+    return coll, binned, infos
+
+
+def phase_seventeen_a(torch, mt, ckpt, kernels_mod, stream, tmp, smi) -> dict:
+    """17(a): save, crash and restore on the captured main path."""
+    ref_coll, ref_bin = config2_pair(mt)
+    before = kernels_mod.launch_counts()["binned_counts"]
+    feed_ckpt(ref_coll, ref_bin, stream[:CKPT_BLOCKING_AT])
+    at_blocking = pair_states(torch, ref_coll, ref_bin)
+    feed_ckpt(ref_coll, ref_bin, stream[CKPT_BLOCKING_AT:CKPT_OVERLAP_AT])
+    at_overlap = pair_states(torch, ref_coll, ref_bin)
+    feed_ckpt(ref_coll, ref_bin, stream[CKPT_OVERLAP_AT:])
+    want = pair_results(torch, ref_coll, ref_bin)
+    ref_launches = kernels_mod.launch_counts()["binned_counts"] - before
+    check(ref_launches == CKPT_BATCHES, f"17(a): the uninterrupted run launched B1 {ref_launches} times")
+    check(ref_bin._update_engine is not None and ref_bin._update_engine.broken is None, "17(a): the binned update fell back")
+
+    root = f"{tmp}/main"
+    coll, binned = config2_pair(mt)
+    feed_ckpt(coll, binned, stream[:CKPT_BLOCKING_AT])
+    blocking = save_pair(ckpt, coll, binned, root)
+    check(all(h.committed for h in blocking), "17(a): the blocking save did not commit")
+    feed_ckpt(coll, binned, stream[CKPT_BLOCKING_AT:CKPT_OVERLAP_AT])
+    overlap = save_pair(ckpt, coll, binned, root, blocking=False, overlap_copy=True)
+    feed_ckpt(coll, binned, stream[CKPT_OVERLAP_AT:CKPT_CRASH_AT])  # captured replays while the copies drain
+    for h in overlap:
+        h.wait()
+    check(all(h.committed for h in overlap), "17(a): the overlapped save did not commit")
+    engines = [m._update_engine for m in (binned,)] + [coll._update_engine]
+    check(all(e is not None and e.broken is None and e.stats.cache_hits > 0 for e in engines),
+          "17(a): the saved run's updates were not replays of captured steps")
+    del coll, binned, engines  # the crash
+    gc.collect()
+
+    early_c, early_b, _ = restore_pair(ckpt, mt, root, step=0)
+    same_dicts(torch, "17(a) blocking snapshot", pair_states(torch, early_c, early_b), at_blocking)
+    coll, binned, infos = restore_pair(ckpt, mt, root)
+    check(all(i.step == 1 and i.fallback_from is None for i in infos), f"17(a): restored steps {[i.step for i in infos]}")
+    same_dicts(torch, "17(a) overlapped snapshot", pair_states(torch, coll, binned), at_overlap)
+    check(all(v.device.type == "cuda" for v in pair_states(torch, coll, binned).values()), "17(a): a leaf left the card")
+    before = kernels_mod.launch_counts()["binned_counts"]
+    feed_ckpt(coll, binned, stream[CKPT_OVERLAP_AT:])
+    launches = kernels_mod.launch_counts()["binned_counts"] - before
+    check(launches == CKPT_BATCHES - CKPT_OVERLAP_AT, f"17(a): the restored run launched B1 {launches} times")
+    same_dicts(torch, "17(a) results after restore", pair_results(torch, coll, binned), want)
+
+    # a snapshot written by the port on the CPU, at the same seed, onto the card
+    cpu_coll, cpu_bin = config2_pair(mt, device="cpu")
+    feed_ckpt(cpu_coll, cpu_bin, [tuple(x.cpu() for x in b) for b in stream[:CKPT_OVERLAP_AT]])
+    save_pair(ckpt, cpu_coll, cpu_bin, f"{tmp}/cpu")
+    card_c, card_b, _ = restore_pair(ckpt, mt, f"{tmp}/cpu")
+    same_dicts(torch, "17(a) CPU snapshot on the card", pair_states(torch, card_c, card_b), at_overlap)
+    feed_ckpt(card_c, card_b, stream[CKPT_OVERLAP_AT:])
+    same_dicts(torch, "17(a) results from the CPU snapshot", pair_results(torch, card_c, card_b), want)
+    timings = {"blocking": blocking[0].timings, "overlap": overlap[0].timings, "restore": infos[0].timings}
+    for label, t in timings.items():
+        print(f"phase 17(a) ({smi}): config2 {label}: " + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in t.items()))
+    print(f"phase 17(a) ({smi}): save at {CKPT_BLOCKING_AT}, overlapped save at {CKPT_OVERLAP_AT} while {CKPT_CRASH_AT - CKPT_OVERLAP_AT}"
+          f" captured steps replayed, crash at {CKPT_CRASH_AT}, restore, {CKPT_BATCHES - CKPT_OVERLAP_AT} more: results bitwise"
+          f" equal to the uninterrupted run; B1 launched {launches} times after the restore; the CPU snapshot restores"
+          " onto the card bitwise")
+    return {"timings": timings, "launches_after_restore": launches}
+
+
+def ckpt_bytes(ckpt, root: str) -> int:
+    from metrics_tpu_torch.checkpoint import io as ckpt_io
+
+    manifest = ckpt_io.read_manifest(root, ckpt_io.latest_step(root))
+    return sum(int(s["bytes"]) for s in manifest["shards"])
+
+
+def phase_seventeen_b(torch, mt, ckpt, mesh, tmp, smi) -> dict:
+    """17(b): the 4,096-class ConfusionMatrix (a 64 MiB int32 state), plain and
+    placed, through save, verify and restore; then a 4 -> 1 merge."""
+    stream = list(itertools.islice(confmat_stream(torch, dense=True), 2))
+    out = {}
+    for label, make in (("plain", lambda: mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES)),
+                        ("placed", lambda: mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES).shard_state(mesh))):
+        metric = make()
+        for preds, target in stream:
+            metric.update(preds, target)
+        torch.cuda.synchronize()
+        root = f"{tmp}/confmat_{label}"
+        handle = ckpt.save_checkpoint(metric, root)
+        t0 = time.perf_counter()
+        report = ckpt.verify_checkpoint(root)
+        verify_s = time.perf_counter() - t0
+        check(handle.committed and report.ok, f"17(b) {label}: committed {handle.committed}, verify {report.issues}")
+        fresh = make()
+        info = ckpt.restore_checkpoint(fresh, root)
+        torch.cuda.synchronize()
+        check(fresh.confmat.device.type == "cuda" and same_bits(torch, fresh.confmat, metric.confmat),
+              f"17(b) {label}: the restored state differs")
+        check(same_bits(torch, fresh.compute(), metric.compute()), f"17(b) {label}: the restored compute differs")
+        nbytes = ckpt_bytes(ckpt, root)
+        out[label] = {"bytes": nbytes, "save": handle.timings, "verify_s": verify_s, "restore": info.timings}
+        print(f"phase 17(b) ({smi}): confmat {CONFMAT_CLASSES} classes, {label}: {nbytes} bytes on disk; save "
+              + ", ".join(f"{k} {v:.4f} s" for k, v in handle.timings.items())
+              + f"; verify {verify_s:.4f} s; restore " + ", ".join(f"{k} {v:.4f} s" for k, v in info.timings.items()))
+    plain = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES)
+    for preds, target in stream:
+        plain.update(preds, target)
+    root4, merged = f"{tmp}/four", f"{tmp}/merged"
+    handles = [ckpt.save_checkpoint(plain, root4, step=0, shard_index=i, world_size=MERGE_SHARDS)
+               for i in range(MERGE_SHARDS)]
+    check([h.committed for h in handles] == [False] * (MERGE_SHARDS - 1) + [True],
+          f"17(b): commits {[h.committed for h in handles]} (only the last shard commits)")
+    t0 = time.perf_counter()
+    ckpt.merge_shards(root4, merged)
+    merge_s = time.perf_counter() - t0
+    fresh = mt.ConfusionMatrix(num_classes=CONFMAT_CLASSES)
+    ckpt.restore_checkpoint(fresh, merged)
+    check(same_bits(torch, fresh.confmat, plain.confmat * MERGE_SHARDS), "17(b): the merged state is not the shards' sum")
+    out["merge"] = {"shards": MERGE_SHARDS, "bytes_in": ckpt_bytes(ckpt, root4), "bytes_out": ckpt_bytes(ckpt, merged),
+                    "seconds": merge_s}
+    print(f"phase 17(b) ({smi}): merge_shards {MERGE_SHARDS} -> 1: {out['merge']['bytes_in']} bytes in,"
+          f" {out['merge']['bytes_out']} out, {merge_s:.4f} s; the merged state is the shards' sum, bitwise")
+    return out
+
+
+def phase_seventeen_c(torch, mt, ckpt, stream, tmp, smi) -> dict:
+    """17(c): storage and commit faults under a RetryPolicy, then a corrupt
+    newest step that the restore falls back from."""
+    import warnings
+
+    from metrics_tpu_torch import observability as obs
+    from metrics_tpu_torch.resilience import FaultSpec, RetryPolicy, call_with_retry, chaos
+
+    root = f"{tmp}/faults"
+    coll, _ = config2_pair(mt)
+    for logits, target, _, _ in stream[:CKPT_BLOCKING_AT]:
+        coll.update(logits, target)
+    want = coll_states(coll)
+    policy = RetryPolicy(backoff_base_s=0.0, backoff_max_s=0.0, jitter=0.0, seed=0)
+    specs = [FaultSpec("storage/write", every=3, times=4), FaultSpec("ckpt/commit", nth=1, times=1)]
+    with ckpt.use_retry_policy(policy), chaos.plan(specs, seed=0) as plan:
+        handle = call_with_retry(lambda: ckpt.save_checkpoint(coll, root, step=0), policy, op="save")
+        fired = {site: plan.fired(site) for site in ("storage/write", "ckpt/commit")}
+    check(handle.committed and fired["storage/write"] >= 1 and fired["ckpt/commit"] == 1,
+          f"17(c): committed {handle.committed}, faults fired {fired}")
+    fresh, _ = config2_pair(mt)
+    ckpt.restore_checkpoint(fresh, root)
+    same_dicts(torch, "17(c) restore after faults", coll_states(fresh), want)
+
+    for logits, target, _, _ in stream[CKPT_BLOCKING_AT:CKPT_OVERLAP_AT]:
+        coll.update(logits, target)
+    ckpt.save_checkpoint(coll, root, step=1)
+    from metrics_tpu_torch.checkpoint import io as ckpt_io
+
+    step_dir = ckpt_io.step_dir(root, 1)
+    npz = next(n for n in sorted(os.listdir(step_dir)) if n.endswith(".npz"))
+    with open(os.path.join(step_dir, npz), "r+b") as fh:
+        data = bytearray(fh.read())
+        data[len(data) // 2] ^= 0xFF
+        fh.seek(0)
+        fh.write(bytes(data))
+    fallback, _ = config2_pair(mt)
+    with obs.trace() as tracer, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        info = ckpt.restore_checkpoint(fallback, root)
+        events = tracer.counts_by_name()
+    check(info.fallback_from == 1 and info.step == 0, f"17(c): fallback_from {info.fallback_from}, step {info.step}")
+    check(events.get("checkpoint/restore/fallback") == 1, f"17(c): fallback events {events.get('checkpoint/restore/fallback')}")
+    same_dicts(torch, "17(c) fallback restore", coll_states(fallback), want)
+    print(f"phase 17(c) ({smi}): faults fired {fired}; the save committed through retries, the restore bitwise;"
+          " a corrupt newest step fell back to step 0 with one checkpoint/restore/fallback event")
+    return {"fired": fired, "fallback_from": info.fallback_from}
+
+
+def tenant_batches(torch, n: int, gen):
+    logits = torch.randn((n, TENANT_ROWS, CKPT_CLASSES), generator=gen, device="cuda")
+    target = torch.randint(0, CKPT_CLASSES, (n, TENANT_ROWS), generator=gen, device="cuda")
+    scores = torch.rand((n, TENANT_ROWS, DRY_CLASSES), generator=gen, device="cuda")
+    labels = torch.randint(0, DRY_CLASSES, (n, TENANT_ROWS), generator=gen, device="cuda")
+    return logits, target, scores, labels
+
+
+def stacked_rows_equal(torch, label: str, ts, states: list) -> None:
+    """Every tenant's stacked rows against its own reference state, bitwise."""
+    for lname, st in ts.stacked_states.items():
+        for k, leaf in st.items():
+            ref = torch.stack([s[lname][k] if lname in s else s[k] for s in states])
+            check(same_bits(torch, leaf[: len(states)], ref), f"{label}: stacked {lname}.{k} differs from the tenants' own")
+
+
+def tenancy_timing(torch, mt, gen, smi) -> dict:
+    """Per-tenant microseconds of one stacked update against N independent
+    dispatches of one shared captured step of the same collection (a state
+    copied in, the graph replayed, the state copied out, per tenant), at
+    each N: the pair the JAX package's bench_tenancy measures, with its one
+    shared jitted program. Both end at the same states, bitwise."""
+    from metrics_tpu_torch.core import engine
+
+    out = {}
+    for n in TENANCY_SWEEP:
+        logits, target, _, _ = tenant_batches(torch, n, gen)
+        coll, _ = config2_pair(mt)
+        ts = mt.TenantSet(coll, capacity=n, name=f"sweep-{n}")
+        ids = [f"t{i}" for i in range(n)]
+        for tid in ids:
+            ts.admit(tid)
+        for _ in range(2):  # the probe and capture, then a replay
+            ts.update(ids, logits, target)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TENANCY_TIMED_STEPS):
+            ts.update(ids, logits, target)
+        torch.cuda.synchronize()
+        stacked_us = (time.perf_counter() - t0) / TENANCY_TIMED_STEPS * 1e6
+
+        ref, _ = config2_pair(mt)
+        step = engine.CapturedStep(lambda st, a, kw: ref.update_state(st, *a), writes_state=True,
+                                   pool=torch.cuda.graph_pool_handle())
+        states = [ref.init_state() for _ in range(n)]
+
+        def dispatch(i):
+            leaves = engine.tree_leaves(states[i])
+            states[i] = step.run_update(states[i], leaves, (logits[i], target[i]), {}, [logits[i], target[i]],
+                                        False, [True] * len(leaves))
+
+        states[0] = step.probe(states[0], (logits[0], target[0]), {})
+        dispatch(0)
+        for i in range(1, n):  # every state through the shared step twice, as the stacked warm-up
+            dispatch(i)
+            dispatch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TENANCY_TIMED_STEPS):
+            for i in range(n):
+                dispatch(i)
+        torch.cuda.synchronize()
+        loop_us = (time.perf_counter() - t0) / TENANCY_TIMED_STEPS * 1e6
+        stacked_rows_equal(torch, f"17(d) timing at N={n}", ts, states)
+        out[n] = {"stacked_us_per_tenant": stacked_us / n, "loop_us_per_tenant": loop_us / n,
+                  "stacked_us_per_step": stacked_us, "loop_us_per_step": loop_us}
+        print(f"phase 17(d) ({smi}): config2 at N={n} tenants x {TENANT_ROWS} rows: stacked update"
+              f" {stacked_us / n:.3f} us/tenant ({stacked_us:.1f} us a step), {n} dispatches of one shared"
+              f" captured step {loop_us / n:.3f} us/tenant ({loop_us:.1f} us a step), {loop_us / stacked_us:.1f}x;"
+              " the states bitwise equal")
+    return out
+
+
+def phase_seventeen_d(torch, mt, kernels_mod, sync, binned_mod, world, tmp, smi) -> dict:
+    """17(d): 1,024-slot TenantSets of config2 and of the dry run's binned AP."""
+    from metrics_tpu_torch import checkpoint as ckpt
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 172)
+    template_c, template_b = config2_pair(mt)
+    ts_c = mt.TenantSet(template_c, capacity=TENANTS, name="config2")
+    ts_b = mt.TenantSet(template_b, capacity=TENANTS, name="dryrun-binned")
+    plain_template = config2_pair(mt)[1]
+    plain_template._plain_counts = True
+    ts_p = mt.TenantSet(plain_template, capacity=TENANTS, name="dryrun-binned-plain")
+    for ts in (ts_c, ts_b, ts_p):
+        paths = {info["path"] for info in ts.partition_view()["tenant"].values()}
+        check(paths == {"tenant_stacked"}, f"17(d): {ts.name} members {paths}")
+    ids = [f"t{i}" for i in range(TENANTS)]
+    for ts in (ts_c, ts_b, ts_p):
+        for tid in ids:
+            ts.admit(tid)
+    ref_c, ref_b = config2_pair(mt)
+    states_c = [ref_c.init_state() for _ in ids]
+    states_b = [ref_b.init_state() for _ in ids]
+    stacked_launches = []
+    main_launches = 0
+    for _ in range(TENANT_STEPS):
+        logits, target, scores, labels = tenant_batches(torch, TENANTS, gen)
+        torch.cuda.synchronize()
+        before = kernels_mod.launch_counts()
+        ts_c.update(ids, logits, target)
+        ts_b.update(ids, scores, labels)
+        launches = {k: v - before[k] for k, v in kernels_mod.launch_counts().items()}
+        main_launches += launches["binned_counts_batched"]
+        stacked_launches.append(dict(launches))
+        check(launches["binned_counts_batched"] == 1 and launches["binned_counts"] == 0,
+              f"17(d): a stacked update of {TENANTS} tenants launched {launches}")
+        ts_p.update(ids, scores, labels)
+        for i in range(TENANTS):
+            states_c[i] = ref_c.update_state(states_c[i], logits[i], target[i])
+            states_b[i] = ref_b.update_state(states_b[i], scores[i], labels[i])
+    torch.cuda.synchronize()
+    stacked_rows_equal(torch, "17(d) config2", ts_c, states_c)
+    stacked_rows_equal(torch, "17(d) binned", ts_b, states_b)
+    same_dicts(torch, "17(d) batched B1 against its plain version", ts_b.stacked_states[ts_b.template._groups[0][0]],
+               ts_p.stacked_states[ts_p.template._groups[0][0]])
+    out_c, out_b = ts_c.compute(), ts_b.compute()
+    for i, tid in enumerate(ids):
+        want = ref_c.compute_state(states_c[i])
+        for name, value in want.items():
+            check(same_bits(torch, out_c[tid][name], value), f"17(d): tenant {tid} {name} differs from its own stream")
+        check(same_bits(torch, torch.stack(out_b[tid]["BinnedAveragePrecision"]), torch.stack(ref_b.compute_state(states_b[i]))),
+              f"17(d): tenant {tid} binned AP differs from its own stream")
+    step_graphs = {ts.name: [k[:2] for k, st in ts._steps.items() if st.graph is not None] for ts in (ts_c, ts_b)}
+    check(all(len(v) == 2 for v in step_graphs.values()), f"17(d): captured steps {step_graphs}")
+
+    # ragged occupancy: one captured step per bucket width, none new across admit, evict and reset
+    def ragged_round(offset: int) -> None:
+        for r, k in enumerate(RAGGED):
+            start = (offset + 211 * r) % (TENANTS - k)
+            sel = ids[start:start + k]
+            logits, target, scores, labels = tenant_batches(torch, k, gen)
+            before = {ln: {n: v.clone() for n, v in st.items()} for ln, st in ts_b.stacked_states.items()}
+            ts_c.update(sel, logits, target)
+            ts_b.update(sel, scores, labels)
+            slots = {ts_b._slot_of[t] for t in sel}
+            rest = torch.tensor([s for s in range(TENANTS) if s not in slots], device="cuda")
+            for ln, st in ts_b.stacked_states.items():
+                for n, v in st.items():
+                    check(same_bits(torch, v[rest], before[ln][n][rest]), f"17(d): an inactive tenant's {ln}.{n} moved")
+        ts_c.reset(ids[10:15])
+        ts_b.reset(ids[10:15])
+        for ts in (ts_c, ts_b):
+            ts.evict(ids[3])
+            ts.admit(ids[3])
+
+    ragged_round(0)
+    warm = {ts.name: (ts.stats.compiles, len(ts._steps)) for ts in (ts_c, ts_b)}
+    for offset in (101, 500):
+        ragged_round(offset)
+    after = {ts.name: (ts.stats.compiles, len(ts._steps)) for ts in (ts_c, ts_b)}
+    check(after == warm, f"17(d): ragged rounds captured anew: {warm} -> {after}")
+    check(ts_c._dispatcher.stats.builds == 1 and ts_c._dispatcher.stats.repartitions == 0, "17(d): the partition was rebuilt")
+    widths = sorted({k[1] for k in ts_c._steps if k[0] == "update"})
+    check(widths == [8, 64, TENANTS], f"17(d): update widths {widths}")
+
+    # a TenantSet save and restore, bitwise
+    root = f"{tmp}/tenants"
+    handle = ckpt.save_checkpoint(ts_c, root)
+    fresh = mt.TenantSet(config2_pair(mt)[0], capacity=TENANTS, name="config2-restored")
+    info = ckpt.restore_checkpoint(fresh, root)
+    check(handle.committed and fresh.tenant_ids() == ts_c.tenant_ids()
+          and fresh.tenant_update_counts() == ts_c.tenant_update_counts(), "17(d): the restored slot table differs")
+    for ln, st in ts_c.stacked_states.items():
+        for n, v in st.items():
+            check(same_bits(torch, fresh.stacked_states[ln][n], v), f"17(d): restored {ln}.{n} differs")
+
+    # stacked sync in a world of one NCCL rank: one collective a bucket, whatever N
+    small = mt.TenantSet(config2_pair(mt)[0], capacity=16, name="config2-16")
+    counts = {}
+    for ts in (ts_c, small):
+        with sync.count_collectives() as box:
+            synced = ts.sync_states(ts.stacked_states, world)
+        torch.cuda.synchronize()
+        counts[ts.capacity] = dict(box["by_kind"])
+        for ln, st in ts.stacked_states.items():
+            for n, v in st.items():
+                check(same_bits(torch, synced[ln][n], v), f"17(d): synced {ln}.{n} of a world of one differs")
+    check(counts[TENANTS] == counts[16] and sum(counts[16].values()) >= 1, f"17(d): stacked sync collectives {counts}")
+    timing = tenancy_timing(torch, mt, gen, smi)
+    print(f"phase 17(d) ({smi}): {TENANTS} tenants x {TENANT_ROWS} rows, {TENANT_STEPS} stacked updates: every tenant"
+          f" bitwise its own stream; B1 batched launches {main_launches} (one a stacked update), bitwise its plain"
+          f" version; ragged {RAGGED} reuse widths {widths}; save/restore bitwise ({info.timings['total_s']:.3f} s);"
+          f" stacked sync collectives {counts[TENANTS]} at N={TENANTS} and N=16")
+    return {"main_launches": main_launches, "widths": widths, "sync_collectives": counts[TENANTS], "timing": timing,
+            "save_s": handle.timings["total_s"], "restore_s": info.timings["total_s"]}
+
+
+def graph_device_us(torch, fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, the replay timed by CUDA events, so no host work sits between
+    the launches (median of ``rounds`` replays, in microseconds)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # anything made on first use is made outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) * 1e3 / reps)
+    del graph
+    return statistics.median(times)
+
+
+def batched_kernel_timing(torch, binned_mod, name: str, smi) -> dict:
+    """The batched B1 launch at the tenancy shape: kernel, plain version, bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 173)
+    b, n, c, t = TENANTS, TENANT_ROWS, DRY_CLASSES, DRY_THRESHOLDS
+    scores = torch.rand((b, n, c), generator=gen, device="cuda")
+    labels = torch.randint(0, c, (b, n), generator=gen, device="cuda")
+    grid = binned_mod.sort_thresholds(torch.linspace(0, 1, t, device="cuda"))
+    call = lambda: binned_mod.binned_counts_batched(scores, labels, grid)  # noqa: E731
+    ms = time_ms(torch, call)
+    plain_ms = time_ms(torch, lambda: binned_mod.binned_counts_batched(scores, labels, grid, plain=True))
+    prof = profile_window(torch, call, reps=20)
+    device_us = sum(us for k, us in prof["per_launch_us"].items() if "binned_" in k) or None
+    if device_us is None:  # say what the window did record
+        print(f"  profile [binned_counts_batched]: no binned_* record; {len(prof['device_us'])} device kernels recorded"
+              f" {sorted(prof['recorded'].items())[:6]}")
+    graph_us = graph_device_us(torch, call)
+    # scores and labels read once, thresholds and order once, the counts written once
+    bytes_moved = b * n * c * 4 + b * n * labels.element_size() + t * 8 + b * 3 * c * t * 4
+    ops = b * n * c * math.ceil(math.log2(t + 1))  # one compare per binary-search step
+    bound_ms, bound_by = bound(bytes_moved, ops, name)
+    print(f"phase 17 ({smi}): binned_counts_batched at ({b}, {n}, {c}, {t}): {ms * 1e3:.2f} us/call (device"
+          f" {device_us} us by the profiler, {graph_us:.2f} us a launch in a captured graph of 20), plain"
+          f" {plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}, {bytes_moved} bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "device_us": device_us, "graph_device_us": graph_us, "shape": [b, n, c, t], "bytes": bytes_moved}
+
+
+def b1_route_timing(torch, binned_mod, smi, rounds: int = 4) -> dict:
+    """The unbatched B1 wrapper at phase 3's shape (labels), by its two
+    routes on the card: the direct launch it takes outside ``vmap``, and the
+    ``metrics_tpu::binned_counts`` operator it takes inside. Microseconds a
+    call, the median of 30 calls by CUDA events, in the order direct, op,
+    op, direct, ``rounds`` times."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 174)
+    preds = torch.rand((BATCH, N_CLASSES), generator=gen, device="cuda")
+    labels = torch.randint(0, N_CLASSES, (BATCH,), generator=gen, device="cuda")
+    grid = binned_mod.sort_thresholds(torch.linspace(0, 1, N_THRESHOLDS, device="cuda"))
+    want = binned_mod.binned_counts(preds, labels, grid)
+    via_op = torch.ops.metrics_tpu.binned_counts(preds, labels, grid.values, grid.order)
+    check(all(torch.equal(g, w) for g, w in zip(via_op.unbind(0), want)), "B1 routes: the operator's counts differ")
+    routes = {
+        "direct": lambda: binned_mod.binned_counts(preds, labels, grid),
+        "op": lambda: torch.ops.metrics_tpu.binned_counts(preds, labels, grid.values, grid.order),
+    }
+    us = {k: [] for k in routes}
+    for _ in range(rounds):
+        for key in ("direct", "op", "op", "direct"):
+            us[key].append(time_ms(torch, routes[key]) * 1e3)
+    med = {k: statistics.median(v) for k, v in us.items()}
+    print(f"phase 17 ({smi}): B1 wrapper at ({BATCH}, {N_CLASSES}, {N_THRESHOLDS}) labels, us a call by route"
+          f" (direct, op, op, direct x {rounds}): direct {[round(x, 2) for x in us['direct']]}, op"
+          f" {[round(x, 2) for x in us['op']]}; medians {med['direct']:.2f} / {med['op']:.2f} us")
+    return {"us": us, "median_us": med, "shape": [BATCH, N_CLASSES, N_THRESHOLDS]}
+
+
+def phase_seventeen(torch, mt, np, kernels_mod, sync, binned_mod, smi) -> dict:
+    import tempfile
+
+    import torch.distributed as dist
+
+    import metrics_tpu_torch.parallel as par
+    from metrics_tpu_torch import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    stream = ckpt_stream(torch)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    kernels_mod.reset_launch_counts()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_phase17_") as tmp:
+            a = phase_seventeen_a(torch, mt, ckpt, kernels_mod, stream, tmp, smi)
+            mesh = par.make_mesh([1], ["data"])
+            b = phase_seventeen_b(torch, mt, ckpt, mesh, tmp, smi)
+            c = phase_seventeen_c(torch, mt, ckpt, stream, tmp, smi)
+            d = phase_seventeen_d(torch, mt, kernels_mod, sync, binned_mod, dist.group.WORLD, tmp, smi)
+    finally:
+        dist.destroy_process_group()
+    # every launch of 17(a)-(d), the per-tenant reference streams of 17(d) included
+    launches = kernels_mod.launch_counts()
+    kernel = batched_kernel_timing(torch, binned_mod, torch.cuda.get_device_name(0), smi)
+    routes = b1_route_timing(torch, binned_mod, smi)
+    elapsed = time.perf_counter() - t0
+    print(f"phase 17 ({smi}): {elapsed:.1f} s in all (limit {PHASE17_LIMIT_S:.0f} s); kernel launches {launches};"
+          f" the batched B1 launch ran {d['main_launches']} times on the stacked updates, B1 {a['launches_after_restore']}"
+          " times on the restored run")
+    check(d["main_launches"] == TENANT_STEPS, f"phase 17: batched launches {d['main_launches']}")
+    check(launches["binned_counts_batched"] >= d["main_launches"] and launches["binned_counts"] > 0,
+          f"phase 17: kernel launches {launches}")
+    check(elapsed < PHASE17_LIMIT_S, f"phase 17 took {elapsed:.1f} s, over its {PHASE17_LIMIT_S:.0f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "kernel": kernel, "routes": routes, "seconds": elapsed,
+            "launches": launches}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -6596,6 +7241,7 @@ def main() -> None:
         "pairwise_iou": check_iou_kernel(torch, kernels_mod, im),
         "greedy_match": check_match_kernel(torch, kernels_mod, im),
         "maxsim_tf32x3": check_maxsim_kernel(torch, kernels_mod, cm),
+        "binned_counts_batched": check_batched_binned_kernel(torch, kernels_mod, binned),
     }
 
     # ---- phase 3: the classification path, kernel against plain
@@ -6764,6 +7410,9 @@ def main() -> None:
     # ---- phase 16: observability and resilience on the captured main path (B1 traced, profiled, timed)
     sixteen = phase_sixteen(torch, mt, np, kernels_mod, sync, smi)
 
+    # ---- phase 17: checkpoint and tenancy (B1's tenant-batched launch on the stacked updates)
+    seventeen = phase_seventeen(torch, mt, np, kernels_mod, sync, binned, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -6788,6 +7437,7 @@ def main() -> None:
             "phase14_launches": fourteen["launches"][kname],
             "phase15_launches": fifteen["launches"][kname],
             "phase16_launches": sixteen["launches"][kname],
+            "phase17_launches": seventeen["launches"][kname],
             **us,
             **extra,
         }
@@ -6822,7 +7472,9 @@ def main() -> None:
                phase15_binned_update_ms={k: r["update_ms"] for k, r in fifteen["b"].items()},
                phase15_grid_update_ms=fifteen["d"]["update_ms"],
                phase16_step_us={"tracer_off": sixteen["f"]["off_us"], "tracer_on": sixteen["f"]["on_us"]},
-               phase16_correlation={k: sixteen["b"][k] for k in ("matched", "unmatched", "host_dispatches")}),
+               phase16_correlation={k: sixteen["b"][k] for k in ("matched", "unmatched", "host_dispatches")},
+               phase17_restored_run_launches=seventeen["a"]["launches_after_restore"],
+               phase17_route_us=seventeen["routes"]),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],
@@ -6847,6 +7499,27 @@ def main() -> None:
                bert_compute_split_ms=text["split_ms"], bert_compute_device_busy_ms=text["device_busy_ms"],
                bert_compute_idle_share=text["idle_share"]),
     ]
+    batched = seventeen["kernel"]
+    kernels.append({
+        "name": "binned_counts_batched",
+        "route": "cuda",
+        "source": f"metrics_tpu_torch/csrc/{kernels_mod.KERNELS['binned_counts_batched'].source}",
+        "replaces": kernels_mod.KERNELS["binned_counts_batched"].replaces,
+        "launches": seventeen["launches"]["binned_counts_batched"],
+        "max_abs_err": worst_err["binned_counts_batched"],
+        **{k: batched[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "ok": True,
+        "library_note": "none: no single PyTorch call computes per-class counts at every threshold, batched or not",
+        "entry": "binned_counts_batched_launch, B1's tenant-batched launch (one launch for every tenant)",
+        "shape": batched["shape"], "device_us": batched["device_us"], "graph_device_us": batched["graph_device_us"],
+        **{f"phase{p}_launches": r["launches"].get("binned_counts_batched", 0)
+           for p, r in ((8, eight), (9, nine), (10, ten), (11, eleven), (12, twelve), (13, thirteen), (14, fourteen),
+                        (15, fifteen), (16, sixteen), (17, seventeen))},
+        "phase17_stacked_update_launches": seventeen["d"]["main_launches"],
+        "phase17_checkpoint": {"a": seventeen["a"]["timings"], "b": seventeen["b"]},
+        "phase17_tenancy_us": {str(n): r for n, r in seventeen["d"]["timing"].items()},
+        "us": batched["ms"] * 1e3, "plain_us": batched["plain_ms"] * 1e3, "bound_us": batched["bound_ms"] * 1e3,
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

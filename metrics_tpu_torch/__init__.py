@@ -9,7 +9,9 @@ graph from the second call of each input signature (``core/engine.py``; the
 switches below turn that off). ``observability`` traces, counts and serves
 what the engines do and ``resilience`` injects seeded faults, retries and
 guards state against NaN, as the JAX package's subpackages of those names
-do; all are off by default.
+do; all are off by default. ``checkpoint`` saves and restores state in the
+JAX package's on-disk format, and ``tenancy`` stacks many tenants' states
+behind one captured step a bucket.
 """
 from metrics_tpu_torch.__about__ import __version__
 from metrics_tpu_torch import functional
@@ -94,6 +96,14 @@ from metrics_tpu_torch.image import (
 )
 from metrics_tpu_torch import observability  # noqa: F401
 from metrics_tpu_torch import resilience  # noqa: F401
+from metrics_tpu_torch import checkpoint  # noqa: F401
+from metrics_tpu_torch.checkpoint import (  # noqa: F401
+    restore_checkpoint,
+    save_checkpoint,
+    verify_checkpoint,
+)
+from metrics_tpu_torch import tenancy  # noqa: F401
+from metrics_tpu_torch.tenancy import TenantSet  # noqa: F401
 from metrics_tpu_torch.parallel import (
     bucketed_sync_enabled,
     set_bucketed_sync,
@@ -238,6 +248,10 @@ __all__ = [
     "observability",
     # resilience (chaos harness, retry policies, non-finite guard)
     "resilience",
+    # checkpoint
+    "checkpoint", "save_checkpoint", "restore_checkpoint", "verify_checkpoint",
+    # multi-tenant stacked state
+    "tenancy", "TenantSet",
     "CatBuffer",
     "bucketed_sync_enabled",
     "compiled_compute_enabled",

@@ -39,6 +39,7 @@ class Accuracy(StatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    _ckpt_aux_attrs = ("mode", "subset_accuracy")
 
     def __init__(
         self,

@@ -46,6 +46,7 @@ class AUROC(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update: bool = False
+    _ckpt_aux_attrs = ("mode",)
 
     def __init__(
         self,

@@ -29,6 +29,7 @@ class AveragePrecision(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update: bool = False
+    _ckpt_aux_attrs = ("num_classes", "pos_label")
 
     def __init__(
         self,

@@ -42,6 +42,7 @@ class PrecisionRecallCurve(Metric):
     is_differentiable = False
     higher_is_better = None
     full_state_update: bool = False
+    _ckpt_aux_attrs = ("num_classes", "pos_label")
 
     def __init__(self, num_classes: Optional[int] = None, pos_label: Optional[int] = None, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -26,6 +26,7 @@ from metrics_tpu_torch.ops.classification.ranking import (
 class _RankingBase(Metric):
     is_differentiable = False
     full_state_update: bool = False
+    _ckpt_aux_attrs = ("_has_weight",)
     _update_fn: Callable
     _compute_fn: Callable
 

@@ -437,6 +437,12 @@ class MetricCollection:
         self._realias_members()
         for k, m in self._metrics.items():
             m.load_state_dict(state_dict, prefix=f"{k}.", strict=strict)
+        self._invalidate_dispatch()
+
+    def _invalidate_dispatch(self) -> None:
+        """Reset the fused engines' id-keyed signature memos after an
+        out-of-band state replacement (``load_state_dict``, a checkpoint
+        restore); see :meth:`Metric._invalidate_dispatch`."""
         for engine in (self._update_engine, self._compute_engine):
             if engine is not None:
                 engine.reset_signature_memos()
@@ -461,8 +467,9 @@ class MetricCollection:
         return {g[0]: self._metrics[g[0]].init_state() for g in self._groups}
 
     def reset_state(self, states: Dict[str, StateDict], mask: Optional[Any] = None) -> Dict[str, StateDict]:
-        """Pure reset: every group's state restored to its leader's defaults
-        (:meth:`Metric.reset_state`; a ``mask`` raises there)."""
+        """Pure reset: every group's state restored to its leader's defaults.
+        With a 1-D bool ``mask`` the states are tenant-stacked and only the
+        masked rows reset (see :meth:`Metric.reset_state`)."""
         return {g[0]: self._metrics[g[0]].reset_state(states[g[0]], mask) for g in self._groups}
 
     def update_state(self, states: Dict[str, StateDict], *args: Any, **kwargs: Any) -> Dict[str, StateDict]:

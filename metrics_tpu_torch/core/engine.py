@@ -113,8 +113,15 @@ the fused streak records ``streak/detach``, the dispatcher
 the eager rerun of the call is bit for bit. Off, each hook is one flag check
 and reads nothing from the card.
 
-Not here, and queued elsewhere: tenant classification and ``PATH_TENANT``
-(A19), and the autotune token (A20b).
+**Tenancy.** :func:`classify_tenant_member` decides which members a
+:class:`~metrics_tpu_torch.tenancy.TenantSet` stacks on a leading tenant
+axis (``PATH_TENANT``), with the JAX engine's rules and reasons; a
+dispatcher built with ``tenant_context`` carries that class in its
+partition and grows a ``tenant`` section in its view. The TenantSet owns
+the stacked state and its captured steps (one ``torch.func.vmap`` of the
+members' pure protocol per bucket width, a :class:`CapturedStep` each).
+
+Not here, and queued elsewhere: the autotune token (A20b).
 
 Global switches: ``set_compiled_update``, ``set_compiled_compute`` and
 ``set_fused_update`` (environment variables ``METRICS_TPU_COMPILED_UPDATE``,
@@ -1196,6 +1203,12 @@ class CompiledUpdateEngine(_EngineBase):
 PATH_FUSED = "fused"
 PATH_BUCKETED = "bucketed"
 PATH_EAGER = "eager"
+PATH_TENANT = "tenant_stacked"
+
+# reductions whose tenant axis folds into the flat sync buckets (an
+# elementwise reduce of a stacked buffer is the stacked elementwise reduce);
+# cat/None/callable reductions change layout per tenant and cannot stack.
+_TENANT_STACKABLE_REDUCTIONS = ("sum", "mean", "max", "min", "sketch")
 
 
 def classify_update_member(metric: Any) -> Tuple[str, str]:
@@ -1237,6 +1250,73 @@ def classify_compute_member(metric: Any) -> Tuple[str, str]:
     if metric.dist_sync_fn is not None:
         return PATH_EAGER, "custom dist_sync_fn"
     return PATH_FUSED, "compilable"
+
+
+def classify_tenant_member(metric: Any) -> Tuple[str, str]:
+    """Whether a member can join a :class:`~metrics_tpu_torch.tenancy.TenantSet`'s
+    stacked leading-axis state, and why (not).
+
+    ``"tenant_stacked"`` members run N tenants through one vmapped captured
+    step a bucket; everything else falls back to per-tenant eager clones.
+    Stacking needs more than fusing: the member must be fused-classifiable
+    for both dispatch kinds, every registered state a dense fixed-shape
+    tensor (a ``CatBuffer``'s fill count makes compaction and compute
+    value-dependent per tenant; list states have data-dependent shape),
+    every reduction elementwise (so the tenant-batched sync folds the tenant
+    axis into the flat buckets), and the state not placed by
+    :meth:`~metrics_tpu_torch.Metric.shard_state` (the tenant axis would
+    fight the placement). The JAX engine's rules and reasons."""
+    path, reason = classify_update_member(metric)
+    if path != PATH_FUSED:
+        return PATH_EAGER, f"update not stackable: {reason}"
+    cpath, creason = classify_compute_member(metric)
+    if cpath != PATH_FUSED:
+        return PATH_EAGER, f"compute not stackable: {creason}"
+    for name, default in metric._defaults.items():
+        if isinstance(default, CatBuffer):
+            return PATH_EAGER, (
+                f"state {name!r} is a CatBuffer: its fill count makes compaction and "
+                "compute value-dependent per tenant"
+            )
+        if isinstance(default, (list, tuple)):
+            return PATH_EAGER, f"state {name!r} is a {type(default).__name__}: data-dependent state shape"
+    for name, red in metric._reductions.items():
+        if red not in _TENANT_STACKABLE_REDUCTIONS:
+            tag = red if isinstance(red, str) or red is None else "callable"
+            return PATH_EAGER, (
+                f"state {name!r} dist_reduce_fx {tag!r} is not elementwise: the "
+                "tenant-batched sync cannot fold its tenant axis into a flat bucket"
+            )
+    if metric._state_sharding is not None:
+        return PATH_EAGER, "sharded state: the tenant axis would conflict with the mesh placement"
+    return PATH_TENANT, "stackable (fused update/compute, dense states, elementwise reductions)"
+
+
+def _classify_tenant_groups(coll: Any):
+    """Partition the compute groups for tenant-stacked dispatch: a group
+    stacks only when every member is tenant-stackable (one member's
+    value-dependent compute would poison the group's shared vmapped step).
+    Returns ``(stacked, eager)`` leader names plus the per-member map. No
+    member migrates at runtime: a stacked step that vmap or the capture
+    refuses raises."""
+    stacked, eager = [], []
+    members: Dict[str, Dict[str, str]] = {}
+    for group in coll._groups:
+        lname = group[0]
+        infos = {name: classify_tenant_member(coll._metrics[name]) for name in group}
+        stragglers = [n for n, (p, _) in infos.items() if p != PATH_TENANT]
+        if stragglers:
+            eager.append(lname)
+            for name in group:
+                path, reason = infos[name]
+                if path == PATH_TENANT:
+                    reason = f"group demoted by {stragglers[0]!r}: {infos[stragglers[0]][1]}"
+                members[name] = {"path": PATH_EAGER, "reason": reason}
+        else:
+            stacked.append(lname)
+            for name in group:
+                members[name] = {"path": PATH_TENANT, "reason": infos[name][1]}
+    return tuple(stacked), tuple(eager), members
 
 
 def classify_incremental_member(metric: Any) -> Tuple[str, str]:
@@ -1671,6 +1751,12 @@ class CollectionPartition:
     incremental_members: Dict[str, Dict[str, str]] = field(default_factory=dict)
     update_rest: Tuple[Tuple[str, ...], ...] = ()
     compute_rest: Tuple[Tuple[str, ...], ...] = ()
+    # the tenant-stacked class (only for a dispatcher built with a tenant
+    # context, a TenantSet): leaders whose groups stack, the per-tenant
+    # eager ones, and each member's path and reason
+    tenant_stacked: Tuple[str, ...] = ()
+    tenant_eager: Tuple[str, ...] = ()
+    tenant_members: Dict[str, Dict[str, str]] = field(default_factory=dict)
 
 
 class CollectionDispatcher:
@@ -1682,10 +1768,16 @@ class CollectionDispatcher:
     pow2-bucketed engines in the eager loop, and the rest eagerly. A member
     whose step turns out not to be capturable migrates to the eager set
     alone; the fused step is rebuilt over the remainder.
+
+    ``tenant_context`` is the :class:`~metrics_tpu_torch.tenancy.TenantSet`
+    hosting this dispatcher, if any: its partitions then carry the
+    tenant-stacked class too, and the view a ``tenant`` section (the set
+    owns the stacked state and its captured steps).
     """
 
-    def __init__(self, collection: Any) -> None:
+    def __init__(self, collection: Any, tenant_context: Any = None) -> None:
         self.collection = collection
+        self.tenant_context = tenant_context
         self.stats = PartitionStats()
         self._partition: Optional[CollectionPartition] = None
         self._update_engine: Optional[CollectionUpdateEngine] = None
@@ -1748,6 +1840,11 @@ class CollectionDispatcher:
         coll._realias_members()
         u_fused, u_bucketed, u_eager, u_members = _classify_update_groups(coll, self._migrated_update)
         c_fused, c_eager, c_members = _classify_compute_groups(coll, self._migrated_compute)
+        t_stacked: Tuple[str, ...] = ()
+        t_eager: Tuple[str, ...] = ()
+        t_members: Dict[str, Dict[str, str]] = {}
+        if self.tenant_context is not None:
+            t_stacked, t_eager, t_members = _classify_tenant_groups(coll)
         u_set, c_set = frozenset(u_fused), frozenset(c_fused)
         part = CollectionPartition(
             key=key,
@@ -1757,6 +1854,7 @@ class CollectionDispatcher:
             incremental_members=_classify_incremental_groups(coll),
             update_rest=tuple(tuple(g) for g in coll._groups if g[0] not in u_set),
             compute_rest=tuple(tuple(g) for g in coll._groups if g[0] not in c_set),
+            tenant_stacked=t_stacked, tenant_eager=t_eager, tenant_members=t_members,
         )
         self._partition = part
         self._update_engine = None
@@ -1961,11 +2059,15 @@ class CollectionDispatcher:
         part = self._partition
         if part is not None:
             u_members, c_members, i_members = part.update_members, part.compute_members, part.incremental_members
+            t_members = part.tenant_members
         else:
             u_members = _classify_update_groups(self.collection, self._migrated_update)[3]
             c_members = _classify_compute_groups(self.collection, self._migrated_compute)[2]
             i_members = _classify_incremental_groups(self.collection)
-        return {
+            t_members = {}
+            if self.tenant_context is not None:
+                t_members = _classify_tenant_groups(self.collection)[2]
+        view = {
             "update": {name: dict(info) for name, info in u_members.items()},
             "compute": {name: dict(info) for name, info in c_members.items()},
             "incremental": {name: dict(info) for name, info in i_members.items()},
@@ -1980,6 +2082,9 @@ class CollectionDispatcher:
             },
             "last_fallback_exception": self._last_fallback_exception,
         }
+        if self.tenant_context is not None:
+            view["tenant"] = {name: dict(info) for name, info in t_members.items()}
+        return view
 
 
 def collection_partition_view(coll: Any) -> Dict[str, Any]:

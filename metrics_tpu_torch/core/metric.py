@@ -198,6 +198,9 @@ class Metric:
 
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
+    # update-determined Python config (``Accuracy.mode``, ``ROC.num_classes``)
+    # that a checkpoint carries beside the state (``checkpoint.format.metric_aux``)
+    _ckpt_aux_attrs: Tuple[str, ...] = ()
     full_state_update: Optional[bool] = True
 
     def __init__(
@@ -536,23 +539,16 @@ class Metric:
         self._state_sharding = placement
         self._sync_placement = mesh.group(names[0]) if len(names) == 1 else mesh
         state = self.get_state()
-        dense = []
-        for name, axis in self._shard_axes.items():
+        for name in self._shard_axes:
             default, red = self._defaults[name], self._reductions[name]
             if isinstance(default, CatBuffer):
                 self._shard_templates[name] = default.copy()
                 self._defaults[name] = self._empty_block(default)
-                setattr(self, name, self._place_rows(self._defaults[name], state[name]))
                 continue
             keep = red != "sum" or bool(default.any())
             self._shard_templates[name] = (tuple(default.shape), default.dtype, default.clone() if keep else None)
-            block = self._own_block(name, default)
-            self._defaults[name] = block
-            identity = block if red != "sum" else torch.zeros_like(block)
-            dense.append((name, identity, state[name], axis, red))
-        if dense:
-            for name, block in _sync.reduce_scatter_merge(dense, self._sync_placement).items():
-                setattr(self, name, block)
+            self._defaults[name] = self._own_block(name, default)
+        self._place_partials(state)
         self._after_placement()
         if _otrace.active:
             _otrace.emit_complete("shard/place", "shard", t0_us, _otrace._now_us() - t0_us,
@@ -570,22 +566,9 @@ class Metric:
         if self._state_sharding is None:
             return self
         t0_us = _otrace._now_us() if _otrace.active else 0
-        whole = _sync._axis_groups(self._sync_placement)[0]
-        keeper = dist.get_rank(whole) == 0
-        for name in self._shard_axes:
-            val, template, red = getattr(self, name), self._shard_templates[name], self._reductions[name]
-            if isinstance(val, ShardedCatBuffer):
-                full = self._gather_block(name, val)
-                if not keeper and full.materialized:
-                    full = CatBuffer._from_parts(torch.zeros_like(full.data), torch.zeros_like(full.count),
-                                                 full.overflowed, 0, full._over)
-                setattr(self, name, full)
-                self._defaults[name] = template
-                continue
-            full = self._gather_block(name, val)
-            setattr(self, name, full if keeper or red != "sum" else torch.zeros_like(full))
-            shape, dtype, tensor = template
-            self._defaults[name] = tensor if tensor is not None else torch.zeros(shape, dtype=dtype, device=self._device)
+        for name, partial in self._unsharded_partials().items():
+            setattr(self, name, partial)
+            self._defaults[name] = self._unplaced_default(name)
         self._state_sharding = None
         self._sync_placement = None
         self._shard_templates = {}
@@ -594,6 +577,62 @@ class Metric:
             _otrace.emit_complete("shard/unshard", "shard", t0_us, _otrace._now_us() - t0_us,
                                   owner=type(self).__name__, leaves=len(self._shard_axes))
         return self
+
+    def _unplaced_default(self, name: str) -> StateValue:
+        """The registered default of a placed leaf before its placement."""
+        template = self._shard_templates[name]
+        if isinstance(template, CatBuffer):
+            return template
+        shape, dtype, tensor = template
+        return tensor if tensor is not None else torch.zeros(shape, dtype=dtype, device=self._device)
+
+    def _unplaced_init_state(self) -> StateDict:
+        """``init_state`` of the unplaced metric: a placed leaf at its whole
+        default (what a rank that restores no shard starts from)."""
+        state = self.init_state()
+        for name in self._shard_templates:
+            state[name] = _copy_state_value(self._unplaced_default(name))
+        return state
+
+    def _unsharded_partials(self) -> Dict[str, Any]:
+        """Each sharded leaf as this rank's partial of the unplaced state: the
+        gathered global value on the placement's rank 0, the identity on the
+        others (``max``/``min`` leaves keep the global value everywhere;
+        buffers their global overflow flag). A collective of every rank of
+        the placement; what :meth:`unshard_state` leaves and a checkpoint
+        saves."""
+        whole = _sync._axis_groups(self._sync_placement)[0]
+        keeper = dist.get_rank(whole) == 0
+        out: Dict[str, Any] = {}
+        for name in self._shard_axes:
+            val, red = getattr(self, name), self._reductions[name]
+            full = self._gather_block(name, val)
+            if isinstance(val, ShardedCatBuffer):
+                if not keeper and full.materialized:
+                    full = CatBuffer._from_parts(torch.zeros_like(full.data), torch.zeros_like(full.count),
+                                                 full.overflowed, 0, full._over)
+            elif not keeper and red == "sum":
+                full = torch.zeros_like(full)
+            out[name] = full
+        return out
+
+    def _place_partials(self, partials: StateDict) -> None:
+        """Set each sharded leaf to this rank's block of the ranks' partials
+        (their sum, or ``max``/``min``; buffers' rows in rank order): one
+        ``reduce_scatter`` per dense bucket, a gather per buffer. A
+        collective of every rank; :meth:`shard_state` and a checkpoint
+        restore place through it."""
+        dense = []
+        for name, axis in self._shard_axes.items():
+            default, red = self._defaults[name], self._reductions[name]
+            if isinstance(default, CatBuffer):
+                setattr(self, name, self._place_rows(default, partials[name]))
+                continue
+            identity = default if red != "sum" else torch.zeros_like(default)
+            dense.append((name, identity, partials[name], axis, red))
+        if dense:
+            for name, block in _sync.reduce_scatter_merge(dense, self._sync_placement).items():
+                setattr(self, name, block)
 
     def _after_placement(self) -> None:
         """A placement change: the engines' steps bind the old shapes."""
@@ -736,17 +775,18 @@ class Metric:
     def reset_state(self, state: StateDict, mask: Optional[Tensor] = None) -> StateDict:
         """Pure reset: ``state`` restored to the registered defaults.
 
-        ``init_state`` over the incoming state's structure: a materialized
-        :class:`CatBuffer` comes back as zeros of its own shape and capacity,
-        empty, with its overflow flag clear. The masked, tenant-stacked form
-        of the JAX package belongs with tenancy, which the port has not
-        ported, and raises.
+        With ``mask=None`` this is ``init_state`` over the incoming state's
+        structure: a materialized :class:`CatBuffer` comes back as zeros of
+        its own shape and capacity, empty, with its overflow flag clear.
+        With a 1-D bool ``mask`` of length N the state is tenant-stacked
+        along a leading axis of N rows and only the rows where ``mask`` is
+        True are restored: a ``torch.where`` per leaf (per component of a
+        sketch), so one captured step serves every occupancy and the other
+        rows keep their bits (:mod:`metrics_tpu_torch.tenancy`). The masked
+        form needs dense fixed-shape leaves.
         """
         if mask is not None:
-            raise NotImplementedError(
-                f"{type(self).__name__}.reset_state(state, mask): the masked (tenant-stacked) reset comes with "
-                "tenancy, which metrics_tpu_torch has not ported; call reset_state(state)"
-            )
+            return self._masked_reset_state(state, mask)
         out: StateDict = {}
         for attr, default in self._defaults.items():
             cur = state.get(attr)
@@ -760,6 +800,34 @@ class Metric:
                 out[attr] = []
             else:
                 out[attr] = _copy_state_value(default)
+        return out
+
+    def _masked_reset_state(self, state: StateDict, mask: Tensor) -> StateDict:
+        if not isinstance(mask, Tensor) or mask.dtype != torch.bool or mask.ndim != 1:
+            raise MetricsUserError(
+                f"{type(self).__name__}.reset_state: mask must be a 1-D boolean tensor over the leading (tenant)"
+                f" axis, got {getattr(mask, 'shape', None)} {getattr(mask, 'dtype', type(mask).__name__)}."
+            )
+
+        def restore(arr: Tensor, default: Tensor) -> Tensor:
+            sel = mask.reshape((-1,) + (1,) * (arr.ndim - 1))
+            return torch.where(sel, default.to(device=arr.device, dtype=arr.dtype), arr)
+
+        out: StateDict = {}
+        for attr, default in self._defaults.items():
+            cur = state[attr]
+            if isinstance(cur, (CatBuffer, list, tuple)):
+                raise MetricsUserError(
+                    f"{type(self).__name__}.reset_state: state {attr!r} is a {type(cur).__name__} — masked"
+                    " (tenant-stacked) reset needs dense fixed-shape array leaves; this metric is not"
+                    " tenant-stackable."
+                )
+            if _is_sketch(cur):
+                out[attr] = cur.replace(**{
+                    f: restore(getattr(cur, f), d) for f, d in default.components().items()
+                })
+            else:
+                out[attr] = restore(cur, default)
         return out
 
     def get_state(self) -> StateDict:

@@ -58,6 +58,16 @@
 // exact only to 2^24). Integer atomics make the result independent of the
 // order in which blocks run, so it is bitwise reproducible.
 //
+//  5. The tenant-batched launch (binned_counts_batched_launch) counts b
+//     independent problems of one shape against one threshold grid in one
+//     launch: (b, n, c) scores with (b, n, c) targets or (b, n) labels give
+//     (b, 3, c, t) counts. The grid gains a z axis of b tenants (clusters stay
+//     along x, inside one tenant), each block moves its pointers to tenant
+//     blockIdx.z first, and the rest is the code above; the global path takes
+//     one workspace slice (tickets and histogram) per tenant. This is what the
+//     Pallas kernel's grid does under jax.vmap, which batches pallas_call.
+//     An unbatched launch is the b == 1 case: z is 0 and nothing moves.
+//
 // The caller allocates the output and the workspace and passes PyTorch's
 // current stream; nothing here allocates or synchronises.
 
@@ -93,12 +103,30 @@ struct Params {
   float* out;           // (3, c, t): tp, fp, fn
   int* tickets;         // global path's workspace: one counter per class block, zero on entry and exit
   int* ws;              // global path's workspace: (2, c, t + 1) int32, zero on entry and exit
+  long long preds_stride;   // elements between tenants (n * c)
+  long long target_stride;  // bytes between tenants
+  long long out_stride;     // elements between tenants (3 * c * t)
+  long long ws_stride;      // workspace elements between tenants (tickets and histogram)
   int n, c, t;
   int cb;               // class-block width, a power of two
   int cb_log2;
   int chunk_log2;       // log2 of the chunks per row of a class block (cb / 4 vector, cb scalar)
   long long rows_per_block;
 };
+
+// The problem of tenant blockIdx.z (the whole problem when gridDim.z == 1).
+__device__ __forceinline__ Params tenant_of(const Params& in) {
+  Params p = in;
+  const long long z = blockIdx.z;
+  if (z != 0) {
+    p.preds += z * in.preds_stride;
+    p.target = static_cast<const uint8_t*>(in.target) + z * in.target_stride;
+    p.out += z * in.out_stride;
+    if (p.tickets != nullptr) p.tickets += z * in.ws_stride;
+    if (p.ws != nullptr) p.ws += z * in.ws_stride;
+  }
+  return p;
+}
 
 __device__ __forceinline__ int warp_sum(int v) {
   for (int off = kWarp / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -300,9 +328,11 @@ __device__ __forceinline__ void scan_write(const Params& p, const int* __restric
   }
 }
 
-// grid (cluster size, class blocks), one cluster along x per class block.
+// grid (cluster size, class blocks, tenants), one cluster along x per class
+// block of a tenant.
 template <int kForm, bool kVec>
-__global__ void __launch_bounds__(kThreads) binned_cluster_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) binned_cluster_kernel(Params in) {
+  const Params p = tenant_of(in);
   extern __shared__ __align__(16) int smem[];  // hist [2][cb][t + 1], then thr [t], then order [t]
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
@@ -316,7 +346,7 @@ __global__ void __launch_bounds__(kThreads) binned_cluster_kernel(Params p) {
   const long long row0 = min(static_cast<long long>(p.n), blockIdx.x * p.rows_per_block);
   const long long row1 = min(static_cast<long long>(p.n), row0 + p.rows_per_block);
 
-  // (side, class) row `item` of the histogram belongs to rank item % cs
+    // (side, class) row `item` of the histogram belongs to rank item % cs
   count_rows<kForm, kVec, true>(
       p, thr, row0, row1, c0,
       [&] {
@@ -357,12 +387,13 @@ __global__ void __launch_bounds__(kThreads) binned_cluster_kernel(Params p) {
   }
 }
 
-// T beyond shared memory: grid (row blocks, class blocks), adds go straight to
+// T beyond shared memory: grid (row blocks, class blocks, tenants), adds go straight to
 // the workspace. Once a block's adds are visible it takes its class block's
 // ticket; the last to arrive scans the rows (one warp each), zeroes them and
 // the ticket.
 template <int kForm, bool kVec>
-__global__ void __launch_bounds__(kThreads) binned_global_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) binned_global_kernel(Params in) {
+  const Params p = tenant_of(in);
   __shared__ int s_last;
   const int nb = p.t + 1;
   const int c0 = blockIdx.y * p.cb;
@@ -464,15 +495,110 @@ long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 size_t shared_bytes(int cb, int t) { return (2 * static_cast<size_t>(cb) * (t + 1) + 2 * static_cast<size_t>(t)) * sizeof(int); }
 
 // The widest class block (at most 32 classes) whose histogram fits, narrowed
-// (not below 4, the float4 width) while full clusters of the class blocks
-// would give fewer than kBlocksPerSmWanted blocks per SM: the searches are
-// latency-bound, so more, shorter blocks finish sooner. 0: none fits.
-int class_block(int c, int t, const DeviceInfo& info) {
+// (not below 4, the float4 width) while full clusters of the class blocks of
+// every tenant would give fewer than kBlocksPerSmWanted blocks per SM: the
+// searches are latency-bound, so more, shorter blocks finish sooner. 0: none
+// fits (whether one fits does not depend on the tenants).
+int class_block(int c, int t, const DeviceInfo& info, long long tenants = 1) {
   int cb = next_pow2(c < kMaxClassBlock ? c : kMaxClassBlock);
   while (cb > 1 && shared_bytes(cb, t) > static_cast<size_t>(info.smem_budget)) cb >>= 1;
   if (shared_bytes(cb, t) > static_cast<size_t>(info.smem_budget)) return 0;
-  while (cb > 4 && ceil_div(c, cb) * kMaxCluster < static_cast<long long>(kBlocksPerSmWanted) * info.sms) cb >>= 1;
+  while (cb > 4 && tenants * ceil_div(c, cb) * kMaxCluster < static_cast<long long>(kBlocksPerSmWanted) * info.sms) {
+    cb >>= 1;
+  }
   return cb;
+}
+
+// Workspace int32 elements of one tenant on the global path.
+long long tenant_workspace_len(int c, int t) { return static_cast<long long>(c) + 2LL * c * (t + 1); }
+
+// One launch for b tenants of (n, c) scores each (b == 1: the unbatched call).
+int launch(const float* preds, const void* target, int form, const float* thr_sorted, const int* order, float* out,
+           int* ws, long long ws_len, int b, int n, int c, int t, void* stream) {
+  if (form < kDense || form > kLabels64 || b < 1 || n < 1 || c < 1 || t < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the grid's z limit: the wrapper launches one slice of at most 65,535 tenants at a time
+  if (b > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  DeviceInfo info;
+  int status = device_info(&info);
+  if (status != 0) return status;
+  const int shared_cb = class_block(c, t, info, b);
+  const bool cluster_path = shared_cb > 0;
+  if (!cluster_path && (ws == nullptr || ws_len < b * tenant_workspace_len(c, t))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+
+  Params p;
+  p.preds = preds;
+  p.target = target;
+  p.thr = thr_sorted;
+  p.order = order;
+  p.out = out;
+  p.tickets = cluster_path ? nullptr : ws;
+  p.ws = cluster_path ? nullptr : ws + c;
+  p.preds_stride = static_cast<long long>(n) * c;
+  p.target_stride = form == kDense ? static_cast<long long>(n) * c : static_cast<long long>(n) * (form == kLabels32 ? 4 : 8);
+  p.out_stride = 3LL * c * t;
+  p.ws_stride = tenant_workspace_len(c, t);
+  p.n = n;
+  p.c = c;
+  p.t = t;
+
+  p.cb = cluster_path ? shared_cb : next_pow2(c < kMaxClassBlock ? c : kMaxClassBlock);
+  p.cb_log2 = log2_of(p.cb);
+  // a tenant's rows start n * c elements after the previous tenant's: aligned
+  // alike whenever c % 4 == 0
+  const bool vec = p.cb >= 4 && c % 4 == 0 && reinterpret_cast<uintptr_t>(preds) % 16 == 0 &&
+                   (form != kDense || reinterpret_cast<uintptr_t>(target) % 4 == 0);
+  p.chunk_log2 = vec ? p.cb_log2 - 2 : p.cb_log2;
+  const long long class_blocks = ceil_div(c, p.cb);
+  if (class_blocks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  // rows enough that a block reads at least kMinElemsPerBlock elements
+  const int width = c < p.cb ? c : p.cb;
+  const long long min_rows = ceil_div(kMinElemsPerBlock, width);
+  const long long row_blocks_max = ceil_div(n, min_rows);
+  const KernelFn fn = kKernels[cluster_path ? 0 : 1][form][vec ? 1 : 0];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+
+  if (!cluster_path) {
+    long long row_blocks = ceil_div(2LL * info.sms, class_blocks * b);
+    if (row_blocks > row_blocks_max) row_blocks = row_blocks_max;
+    p.rows_per_block = ceil_div(n, row_blocks);
+    row_blocks = ceil_div(n, p.rows_per_block);
+    fn<<<dim3(static_cast<unsigned>(row_blocks), static_cast<unsigned>(class_blocks), static_cast<unsigned>(b)),
+         kThreads, 0, s>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  const size_t smem = shared_bytes(p.cb, t);
+  int cs = 1;
+  while (cs * 2 <= kMaxCluster && cs * 2 <= row_blocks_max) cs *= 2;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (smem > 48 * 1024) {  // make sure such a cluster fits on the card at all
+    for (; cs > 1; cs >>= 1) {
+      attr[0].val.clusterDim.x = cs;
+      cfg.gridDim = dim3(cs, static_cast<unsigned>(class_blocks), static_cast<unsigned>(b));
+      int clusters = 0;
+      if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess && clusters > 0) break;
+    }
+    cudaGetLastError();  // a refused query leaves no error behind
+  }
+  p.rows_per_block = ceil_div(n, cs);
+  attr[0].val.clusterDim.x = cs;
+  cfg.gridDim = dim3(static_cast<unsigned>(cs), static_cast<unsigned>(class_blocks), static_cast<unsigned>(b));
+  cudaError_t err = cudaLaunchKernelEx(&cfg, fn, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -503,7 +629,13 @@ long long binned_counts_workspace_len(int c, int t) {
   DeviceInfo info;
   if (device_info(&info) != 0) return -1;
   if (class_block(c, t, info) > 0) return 0;
-  return static_cast<long long>(c) + 2LL * c * (t + 1);
+  return tenant_workspace_len(c, t);
+}
+
+// The same for a tenant-batched launch of b tenants: b slices of it.
+long long binned_counts_batched_workspace_len(int b, int c, int t) {
+  const long long one = binned_counts_workspace_len(c, t);
+  return one < 0 ? -1 : b * one;
 }
 
 // preds (n, c) f32; target (n, c) uint8 (form 0) or (n,) int32 (form 1) or
@@ -513,79 +645,17 @@ long long binned_counts_workspace_len(int c, int t) {
 // zeroed. n, c, t >= 1, all contiguous. Returns cudaGetLastError() after the launch (0 on success).
 int binned_counts_launch(const float* preds, const void* target, int form, const float* thr_sorted, const int* order,
                          float* out, int* ws, long long ws_len, int n, int c, int t, void* stream) {
-  if (form < kDense || form > kLabels64 || n < 1 || c < 1 || t < 1) return static_cast<int>(cudaErrorInvalidValue);
-  DeviceInfo info;
-  int status = device_info(&info);
-  if (status != 0) return status;
-  const int shared_cb = class_block(c, t, info);
-  const bool cluster_path = shared_cb > 0;
-  if (!cluster_path && (ws == nullptr || ws_len < static_cast<long long>(c) + 2LL * c * (t + 1))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch(preds, target, form, thr_sorted, order, out, ws, ws_len, 1, n, c, t, stream);
+}
 
-  Params p;
-  p.preds = preds;
-  p.target = target;
-  p.thr = thr_sorted;
-  p.order = order;
-  p.out = out;
-  p.tickets = ws;
-  p.ws = cluster_path ? nullptr : ws + c;
-  p.n = n;
-  p.c = c;
-  p.t = t;
-
-  p.cb = cluster_path ? shared_cb : next_pow2(c < kMaxClassBlock ? c : kMaxClassBlock);
-  p.cb_log2 = log2_of(p.cb);
-  const bool vec = p.cb >= 4 && c % 4 == 0 && reinterpret_cast<uintptr_t>(preds) % 16 == 0 &&
-                   (form != kDense || reinterpret_cast<uintptr_t>(target) % 4 == 0);
-  p.chunk_log2 = vec ? p.cb_log2 - 2 : p.cb_log2;
-  const long long class_blocks = ceil_div(c, p.cb);
-  if (class_blocks > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  // rows enough that a block reads at least kMinElemsPerBlock elements
-  const int width = c < p.cb ? c : p.cb;
-  const long long min_rows = ceil_div(kMinElemsPerBlock, width);
-  const long long row_blocks_max = ceil_div(n, min_rows);
-  const KernelFn fn = kKernels[cluster_path ? 0 : 1][form][vec ? 1 : 0];
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  if (!cluster_path) {
-    long long row_blocks = ceil_div(2LL * info.sms, class_blocks);
-    if (row_blocks > row_blocks_max) row_blocks = row_blocks_max;
-    p.rows_per_block = ceil_div(n, row_blocks);
-    row_blocks = ceil_div(n, p.rows_per_block);
-    fn<<<dim3(static_cast<unsigned>(row_blocks), static_cast<unsigned>(class_blocks)), kThreads, 0, s>>>(p);
-    return static_cast<int>(cudaGetLastError());
-  }
-
-  const size_t smem = shared_bytes(p.cb, t);
-  int cs = 1;
-  while (cs * 2 <= kMaxCluster && cs * 2 <= row_blocks_max) cs *= 2;
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (smem > 48 * 1024) {  // make sure such a cluster fits on the card at all
-    for (; cs > 1; cs >>= 1) {
-      attr[0].val.clusterDim.x = cs;
-      cfg.gridDim = dim3(cs, static_cast<unsigned>(class_blocks));
-      int clusters = 0;
-      if (cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg) == cudaSuccess && clusters > 0) break;
-    }
-    cudaGetLastError();  // a refused query leaves no error behind
-  }
-  p.rows_per_block = ceil_div(n, cs);
-  attr[0].val.clusterDim.x = cs;
-  cfg.gridDim = dim3(static_cast<unsigned>(cs), static_cast<unsigned>(class_blocks));
-  cudaError_t err = cudaLaunchKernelEx(&cfg, fn, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+// b tenants in one launch: preds (b, n, c) f32; target (b, n, c) uint8 or
+// (b, n) int32 / int64 labels; one threshold grid; out (b, 3, c, t) f32; ws
+// of ws_len >= binned_counts_batched_workspace_len(b, c, t) (NULL where that
+// is 0), left zeroed. 1 <= b <= 65535; n, c, t >= 1; all contiguous.
+int binned_counts_batched_launch(const float* preds, const void* target, int form, const float* thr_sorted,
+                                 const int* order, float* out, int* ws, long long ws_len, int b, int n, int c, int t,
+                                 void* stream) {
+  return launch(preds, target, form, thr_sorted, order, out, ws, ws_len, b, n, c, t, stream);
 }
 
 }  // extern "C"

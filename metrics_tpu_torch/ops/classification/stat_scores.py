@@ -77,8 +77,10 @@ def _scatter_count(index: Tensor, weight: Tensor, num_classes: int) -> Tensor:
     """
     index = torch.where(index < 0, index + num_classes, index)
     index = torch.where((index >= 0) & (index < num_classes), index, num_classes)
+    # out of place: a tenant-stacked update vmaps this count, and vmap refuses
+    # an in-place scatter of batched values into an unbatched tensor
     out = torch.zeros(num_classes + 1, dtype=torch.int32, device=index.device)
-    return out.scatter_add_(0, index, weight)[:num_classes]
+    return out.scatter_add(0, index, weight)[:num_classes]
 
 
 def _stat_scores_multiclass_counts(

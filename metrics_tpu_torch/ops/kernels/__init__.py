@@ -9,7 +9,9 @@ one is reused. Nothing is built or loaded when this module is imported: a
 host without ``nvcc`` or a card imports it freely and never calls ``lib()``.
 
 Every kernel keeps a plain ``launches`` counter that its wrapper bumps once
-per launch; ``reset_launch_counts`` and ``launch_counts`` let a run show that
+per launch (B1's tenant-batched entry, ``binned_counts_batched``, is an entry
+of its own that shares B1's library and counts one launch for all its
+tenants); ``reset_launch_counts`` and ``launch_counts`` let a run show that
 its main path really went through the kernels. The counts are device
 launches, not Python calls: a CUDA graph capture runs the wrapper but
 launches nothing, and a replay launches what the capture recorded, so the
@@ -71,6 +73,7 @@ class Kernel:
     source: str  # file name under csrc/
     replaces: str  # the JAX function it replaces, file:line
     signatures: Dict[str, Tuple[Sequence, object]]  # C symbol -> (argtypes, restype)
+    shares: Optional[str] = None  # the kernel whose library holds these entries, if not its own
     launches: int = 0
     build_log: str = ""
     _lib: Optional[ctypes.CDLL] = field(default=None, repr=False)
@@ -108,7 +111,7 @@ class Kernel:
         """The loaded library, built on first use."""
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
+                lib = KERNELS[self.shares].lib() if self.shares else ctypes.CDLL(str(self.build()))
                 for symbol, (argtypes, restype) in self.signatures.items():
                     fn = getattr(lib, symbol)
                     fn.argtypes = list(argtypes)
@@ -127,6 +130,19 @@ KERNELS: Dict[str, Kernel] = {
             "binned_counts_launch": ((_P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _P), ctypes.c_int),
             "binned_counts_class_block": ((_I, _I), ctypes.c_int),
             "binned_counts_max_shared_t": ((), ctypes.c_int),
+            "binned_counts_workspace_len": ((_I, _I), _L),
+        },
+    ),
+    "binned_counts_batched": Kernel(
+        name="binned_counts_batched",
+        source="binned_counts.cu",
+        # the Pallas kernel under jax.vmap, which batches pallas_call
+        replaces="metrics_tpu/ops/classification/binned_pallas.py:47",
+        shares="binned_counts",
+        signatures={
+            # preds, target, form, thr_sorted, order, out, ws, ws_len, b, n, c, t, stream
+            "binned_counts_batched_launch": ((_P, _P, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P), ctypes.c_int),
+            "binned_counts_batched_workspace_len": ((_I, _I, _I), _L),
             "binned_counts_workspace_len": ((_I, _I), _L),
         },
     ),

@@ -1131,6 +1131,72 @@ def _sync_resharded_multi(
     return out
 
 
+def sync_stacked_states(
+    states: Dict[str, Dict[str, Any]],
+    reductions: Dict[str, Dict[str, Reduction]],
+    group: Group,
+    transports: Optional[Dict[str, Dict[str, str]]] = None,
+    tolerances: Optional[Dict[str, Dict[str, float]]] = None,
+) -> Dict[str, Dict[str, Any]]:
+    """Tenant-batched bucketed sync (:mod:`metrics_tpu_torch.tenancy`).
+
+    ``states`` is ``{leader: {state: leaf}}`` whose leaves carry a leading
+    tenant axis (a :class:`~metrics_tpu_torch.tenancy.TenantSet`'s
+    capacity). An elementwise reduce of a stacked buffer is the stacked
+    elementwise reduce, so the tenant axis folds into the flat
+    ``(reduction, dtype, transport)`` buckets of :func:`_sync_bucketed`:
+    every leader's leaves join the same buckets, and the collective count
+    per sync is the bucket count, independent of N and of the number of
+    leaders. Only elementwise reductions (and sketches, component by
+    component) are legal: ``classify_tenant_member`` demotes the rest, so
+    one here raises. ``transports`` and ``tolerances`` nest like
+    ``reductions``. ``group=None`` returns the states unchanged.
+    """
+    if group is None:
+        return {lname: dict(st) for lname, st in states.items()}
+    entries: List[Tuple[str, Tensor, Reduction]] = []
+    flat_transports: Dict[str, str] = {}
+    flat_tolerances: Dict[str, float] = {}
+    sketch_templates: Dict[Tuple[str, str], Any] = {}
+    for lname, st in states.items():
+        reds = reductions[lname]
+        declared_t = (transports or {}).get(lname) or {}
+        declared_tol = (tolerances or {}).get(lname) or {}
+        for name, leaf in st.items():
+            red = reds.get(name)
+            # \x1f never appears in metric or state names: leader and state
+            # join into one flat key, so all leaders share one bucket namespace
+            key = f"{lname}\x1f{name}"
+            if red == "sketch" and is_sketch(leaf):
+                sketch_templates[(lname, name)] = leaf
+                rows = _sketch_entries(key, leaf)
+            elif red in _ELEMENTWISE:
+                rows = [(key, leaf, red)]
+            else:
+                raise ValueError(
+                    f"sync_stacked_states: state {lname!r}.{name!r} has non-elementwise reduction {red!r}: its"
+                    " tenant axis cannot fold into a flat bucket (classify_tenant_member should have demoted"
+                    " this group)."
+                )
+            for fkey, arr, fred in rows:
+                entries.append((fkey, arr, fred))
+                if name in declared_t:
+                    flat_transports[fkey] = declared_t[name]
+                if name in declared_tol:
+                    flat_tolerances[fkey] = declared_tol[name]
+    whole, _ = _axis_groups(group)
+    synced = _sync_bucketed(entries, whole, flat_transports, flat_tolerances)
+    out: Dict[str, Dict[str, Any]] = {lname: {} for lname in states}
+    for key, leaf in synced.items():
+        lname, name = key.split("\x1f", 1)
+        out[lname][name] = leaf
+    for (lname, name), template in sketch_templates.items():
+        out[lname][name] = template.replace(**{
+            f: out[lname].pop(f"{name}{_SKETCH_SEP}{f}") for f, _ in template.component_reductions()
+        })
+    return {lname: {name: out[lname][name] for name in st} for lname, st in states.items()}
+
+
 def sync_state(
     state: Dict[str, Any],
     reductions: Dict[str, Reduction],
@@ -1745,3 +1811,101 @@ def finalize_incremental_state(
         modes=modes, transports=transports, tolerances=tolerances, bucketed=bucketed,
         emission=carry.emissions + 1, shard_axes=shard_axes, keep_sharded=keep_sharded,
     )
+
+
+# --------------------------------------------------------------------------- #
+# stacked (tenancy) incremental sync: the tenant axis folds into the buckets
+# --------------------------------------------------------------------------- #
+def _stacked_flat(
+    states: Dict[str, Dict[str, Any]],
+    reductions: Dict[str, Dict[str, Reduction]],
+    transports: Optional[Dict[str, Dict[str, str]]],
+    tolerances: Optional[Dict[str, Dict[str, float]]],
+) -> Tuple[Dict[str, Any], Dict[str, Reduction], Dict[str, str], Dict[str, float]]:
+    """A ``{leader: {state: leaf}}`` stacked tree in the ``\x1f``-joined flat
+    namespace of :func:`sync_stacked_states`, under the same elementwise-only
+    contract."""
+    flat_state: Dict[str, Any] = {}
+    flat_reds: Dict[str, Reduction] = {}
+    flat_transports: Dict[str, str] = {}
+    flat_tolerances: Dict[str, float] = {}
+    for lname, st in states.items():
+        reds = reductions[lname]
+        for name, leaf in st.items():
+            red = reds.get(name)
+            if red not in _ELEMENTWISE and not (red == "sketch" and is_sketch(leaf)):
+                raise ValueError(
+                    f"incremental stacked sync: state {lname!r}.{name!r} has non-elementwise reduction {red!r}"
+                    " (classify_tenant_member should have demoted this group)."
+                )
+            key = f"{lname}\x1f{name}"
+            flat_state[key] = leaf
+            flat_reds[key] = red
+            if name in ((transports or {}).get(lname) or {}):
+                flat_transports[key] = transports[lname][name]
+            if name in ((tolerances or {}).get(lname) or {}):
+                flat_tolerances[key] = tolerances[lname][name]
+    return flat_state, flat_reds, flat_transports, flat_tolerances
+
+
+def _flat_config(per_leader: Optional[Dict[str, Dict[str, Any]]]) -> Dict[str, Any]:
+    return {f"{lname}\x1f{name}": v for lname, per in (per_leader or {}).items() for name, v in (per or {}).items()}
+
+
+def _stacked_nest(flat: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:
+    out: Dict[str, Dict[str, Any]] = {}
+    for key, leaf in flat.items():
+        lname, name = key.split("\x1f", 1)
+        out.setdefault(lname, {})[name] = leaf
+    return out
+
+
+def init_incremental_stacked(
+    states: Dict[str, Dict[str, Any]],
+    reductions: Dict[str, Dict[str, Reduction]],
+    *,
+    sync_every: Optional[int] = None,
+    transports: Optional[Dict[str, Dict[str, str]]] = None,
+    tolerances: Optional[Dict[str, Dict[str, float]]] = None,
+) -> IncrementalCarry:
+    """Incremental carry over a tenant-stacked state tree. Every stacked leaf
+    is elementwise by contract, so all are covered; the tenant axis folds
+    into the flat buckets as in :func:`sync_stacked_states`, so the
+    collective count of an emission does not grow with N or the leaders.
+    The carry holds the flat (``\x1f``-keyed) view;
+    :func:`finalize_incremental_stacked` nests it again."""
+    flat_state, flat_reds, flat_t, _ = _stacked_flat(states, reductions, transports, tolerances)
+    return init_incremental(flat_state, flat_reds, modes={k: "incremental" for k in flat_state},
+                            sync_every=sync_every, transports=flat_t)
+
+
+def advance_incremental_stacked(
+    carry: IncrementalCarry,
+    states: Dict[str, Dict[str, Any]],
+    reductions: Dict[str, Dict[str, Reduction]],
+    group: Group,
+    *,
+    transports: Optional[Dict[str, Dict[str, str]]] = None,
+    tolerances: Optional[Dict[str, Dict[str, float]]] = None,
+) -> IncrementalCarry:
+    """Stacked counterpart of :func:`advance_incremental`."""
+    flat_state, flat_reds, flat_t, flat_tol = _stacked_flat(states, reductions, transports, tolerances)
+    return advance_incremental(carry, flat_state, flat_reds, group, modes={k: "incremental" for k in flat_state},
+                               transports=flat_t, tolerances=flat_tol)
+
+
+def finalize_incremental_stacked(
+    carry: IncrementalCarry,
+    reductions: Dict[str, Dict[str, Reduction]],
+    group: Group,
+    *,
+    transports: Optional[Dict[str, Dict[str, str]]] = None,
+    tolerances: Optional[Dict[str, Dict[str, float]]] = None,
+) -> Dict[str, Dict[str, Any]]:
+    """Stacked counterpart of :func:`finalize_incremental_state`: the nested
+    ``{leader: {state: leaf}}`` synced tree."""
+    flat = finalize_incremental_state(
+        carry, _flat_config(reductions), group, modes={k: "incremental" for k in carry.state},
+        transports=_flat_config(transports), tolerances=_flat_config(tolerances),
+    )
+    return _stacked_nest(flat)

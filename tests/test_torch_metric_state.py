@@ -12,6 +12,7 @@ import torch
 import metrics_tpu as M
 import metrics_tpu_torch as mt
 from metrics_tpu.core.buffers import CatBuffer as JaxCatBuffer
+from metrics_tpu_torch.utils.exceptions import MetricsUserError
 from tests.helpers.testers import DummyMetricSum
 from tests.helpers.torch_port import assert_bitwise
 
@@ -202,12 +203,26 @@ def test_reset_state_keeps_an_overflowed_buffers_shape_and_clears_its_flag():
 
 
 def test_masked_reset_state_is_not_ported():
-    port = mt.MeanSquaredError(device="cpu")
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        port.reset_state(port.init_state(), torch.tensor([True, False]))
-    coll = mt.MetricCollection([mt.MeanSquaredError(device="cpu")])
-    with pytest.raises(NotImplementedError, match="tenancy"):
-        coll.reset_state(coll.init_state(), torch.tensor([True]))
+    # ported since tenancy: the masked (tenant-stacked) reset restores only
+    # the masked rows, as the JAX package's does, and refuses a non-bool mask
+    rng = np.random.default_rng(5)
+    ref = M.MetricCollection([M.MeanSquaredError(), M.MaxMetric()])
+    port = mt.MetricCollection([mt.MeanSquaredError(device="cpu"), mt.MaxMetric(device="cpu")])
+    stacked = {
+        lname: {k: rng.normal(size=(4, *np.shape(np.asarray(v)))).astype(np.asarray(v).dtype)
+                for k, v in st.items()}
+        for lname, st in ref.init_state().items()
+    }
+    mask = np.array([True, False, True, False])
+    want = ref.reset_state({l: {k: jnp.asarray(v) for k, v in st.items()} for l, st in stacked.items()},
+                           jnp.asarray(mask))
+    got = port.reset_state({l: {k: torch.from_numpy(v) for k, v in st.items()} for l, st in stacked.items()},
+                           torch.from_numpy(mask))
+    for lname, st in want.items():
+        for k, v in st.items():
+            np.testing.assert_array_equal(got[lname][k].numpy(), np.asarray(v))
+    with pytest.raises(MetricsUserError, match="1-D boolean"):
+        port.reset_state(port.init_state(), torch.tensor([1, 0]))
 
 
 def test_collection_reset_state_matches_jax():
