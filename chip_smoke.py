@@ -370,6 +370,32 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    shape by its two routes, the direct launch and the
    ``metrics_tpu::binned_counts`` operator. The phase stays under 60 s.
 
+18. Serve and cluster, B1's tenant-batched launch under HTTP ingest, every
+   input made on the host with numpy (it crosses HTTP). The template is
+   config2's collection (10 classes) plus BinnedAveragePrecision (10 classes,
+   21 thresholds), fed 64-row batches of probabilities and labels. (a) An
+   IngestServer on 127.0.0.1 over a 1,024-slot TenantSet; 1,024 tenants of 4
+   steps (every fourth 8), half as single-step npz bodies and half as bodies
+   of 4 steps, posted by 8 client threads in a seeded order: after the drain
+   the ledger's admitted equal its applied with no dead letter, every
+   tenant's staleness-0 read is bitwise the offline replay of the admitted
+   log through plain (eager) metrics on the card, the batched B1 launched
+   once a stacked update, the set's captured steps are those of the bucket
+   widths it met (observed, not assumed) and nothing fell back; a 4-slot
+   queue answers 429 queue_full with Retry-After. (b) Two replicas, each an
+   IngestServer over its own 1,024-slot set, behind a ClusterCoordinator and
+   ClusterClients over HTTP: both dispatchers warm up at once; 256 tenants
+   posted through the clients, 8 of them moved r0 -> r1 while their posts go
+   on (fenced, then redirected by 307); a checkpoint of both, a step applied
+   on r1 after it, r1 lost, posts to it refused, r1 recovered from its
+   checkpoint and the client's replay of every step past the restored
+   watermark; every read bitwise its replay, the moved tenants' snapshots
+   byte for byte those of a CPU twin fed the same steps, the batched B1
+   launches equal the three sets' stacked updates, the ``cluster/*`` events
+   and ``metrics_tpu_cluster_*`` series present. Throughput, POST and read
+   latencies, dispatch widths, fence windows and the recovery time are
+   printed. The phase stays under 60 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions (B1's tenant-batched launch also against B unbatched launches, at
 the tenancy shape, unaligned rows, labels out of range, one tenant, the
@@ -1064,19 +1090,19 @@ def chunk_inputs(torch, metric, im):
     return (boxes_sorted, gt_boxes, det_counts, gt_counts), match_args
 
 
-def profile_compute(torch, metric) -> dict:
-    """Device busy time and wall time of one compute() under the profiler."""
+def profile_evaluation(torch, metric, classes) -> dict:
+    """Device time of compute()'s device half, the per-image evaluation,
+    under the profiler: its other half, the curves (``_calculate``), is numpy
+    on the host and runs no device work, so it is timed alone and not run a
+    second time here."""
     from torch.profiler import ProfilerActivity, profile
 
-    metric._computed = None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         lead_in(torch)
-        t0 = time.perf_counter()
-        metric.compute()
+        metric._evaluate_images(classes)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    return {"wall_us": wall_us, **split_profile(prof)}
+    return split_profile(prof)
 
 
 def detection_phase(torch, mt, kernels_mod):
@@ -1196,9 +1222,9 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
     t0 = time.perf_counter()
     metric._calculate(classes, evals)
     calc_s = time.perf_counter() - t0
-    prof = profile_compute(torch, metric)
+    prof = profile_evaluation(torch, metric, classes)
     busy = sum(prof["device_us"].values())
-    idle = max(0.0, 1.0 - busy / prof["wall_us"]) if prof["device_us"] else None
+    idle = max(0.0, 1.0 - busy / ((eval_s + calc_s) * 1e6)) if prof["device_us"] else None
     print(f"phase 4 detection ({smi}): pairwise_iou with counts at {(b, d, g)} {iou_ms * 1e3:.1f} us/call"
           f" (device {iou_device_us} us), plain {iou_plain_ms * 1e3:.1f} us, bound {iou_bound_ms * 1e3:.2f} us ({iou_by});"
           f" without counts {count_free_ms * 1e3:.1f} us/call; IoU then mask and where {unfused_ms * 1e3:.1f} us/call"
@@ -1208,8 +1234,8 @@ def detection_timing(torch, mt, im, metric, stream, name, smi):
           f" {wide_device_us} us), bound {wide_bound_ms * 1e3:.2f} us ({wide_by})")
     print(f"  update of {COCO_BATCH} images: {update_ms * 1e3:.1f} us by events, {update_host_ms * 1e3:.1f} us of host time;"
           f" compute: device evaluation {eval_s:.3f} s + host curves {calc_s:.3f} s;"
-          f" profiled compute {prof['wall_us'] / 1e6:.3f} s, device busy {busy / 1e3:.1f} ms,"
-          f" idle share {'not measured' if idle is None else f'{idle:.4f}'}")
+          f" device busy {busy / 1e3:.1f} ms (the evaluation profiled again; the curves run none),"
+          f" idle share {'not measured' if idle is None else f'{idle:.4f}'} of the compute")
     for key, us in sorted(prof["device_us"].items(), key=lambda kv: -kv[1])[:6]:
         print(f"    device {us:11.1f} us  {key[:110]}")
     shapes = {"pairwise_iou": [b, d, g], "greedy_match": [b, a, t, d, g]}
@@ -7200,6 +7226,537 @@ def phase_seventeen(torch, mt, np, kernels_mod, sync, binned_mod, smi) -> dict:
             "launches": launches}
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: serve and cluster (B1's tenant-batched launch under HTTP ingest)
+# --------------------------------------------------------------------------- #
+PHASE18_LIMIT_S = 60.0
+# config2's collection (10 classes) plus BinnedAveragePrecision(10 classes,
+# 21 thresholds), fed entry()'s 64-row batches of probabilities and labels
+SERVE_CLASSES, SERVE_THRESHOLDS, SERVE_ROWS = 10, 21, 64
+SERVE_TENANTS, SERVE_STEPS, SERVE_CLIENTS = 1024, 4, 8
+SMALL_QUEUE = 4
+ORACLE_PROCS = 6  # worker processes of the offline replay (the card machine has 8 cores)
+CLUSTER_TENANTS, CLUSTER_STEPS, CLUSTER_MOVES, CLUSTER_CLIENTS = 256, 4, 8, 4
+
+
+def serve_template(mt, device=None, compiled: bool = True):
+    """The served template: config2's collection and the binned AP. The
+    offline oracle builds it with the engines off (plain eager metrics)."""
+    flags = {} if compiled else dict(compiled_update=False, compiled_compute=False)
+    c, kw = SERVE_CLASSES, dict(device=device, **flags)
+    return mt.MetricCollection({
+        "acc": mt.Accuracy(num_classes=c, average="micro", **kw),
+        "f1": mt.F1Score(num_classes=c, average="macro", **kw),
+        "precision": mt.Precision(num_classes=c, average="macro", **kw),
+        "recall": mt.Recall(num_classes=c, average="macro", **kw),
+        "binned_ap": mt.BinnedAveragePrecision(num_classes=c, thresholds=SERVE_THRESHOLDS, **kw),
+    }, **flags)
+
+
+def oracle_init(device: str) -> None:
+    """A replay worker: the port imported and the device's context made while
+    the phase's ingest runs."""
+    import torch
+
+    import metrics_tpu_torch as mt
+
+    serve_template(mt, device, compiled=False)
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def oracle_replay(job):
+    """``offline_replay`` of one share of the tenants' logs, in a worker."""
+    device, log = job
+    import metrics_tpu_torch as mt
+    from metrics_tpu_torch import serve as msv
+
+    return msv.offline_replay(lambda: serve_template(mt, device, compiled=False), log)
+
+
+def parallel_replay(pool, device: str, log: list):
+    """The offline replay of an admitted log through plain metrics, its
+    tenants dealt to the pool's worker processes (one tenant's observations
+    stay together and in order): what ``offline_replay`` of the whole log
+    gives, made by ORACLE_PROCS processes instead of one interpreter. Returns
+    a function that waits for it and merges the shares."""
+    tenants = sorted({tid for tid, _, _ in log}, key=str)
+    share = {tid: i % ORACLE_PROCS for i, tid in enumerate(tenants)}
+    jobs = [(device, [e for e in log if share[e[0]] == k]) for k in range(ORACLE_PROCS)]
+    pending = pool.map_async(oracle_replay, [j for j in jobs if j[1]])
+
+    def result() -> dict:
+        out = {}
+        for part in pending.get():
+            out.update(part)
+        return out
+
+    return result
+
+
+def serve_rows(np, rng, n: int):
+    """n steps of (64, 10) float32 probabilities and (64,) int32 labels,
+    made on the host: they cross HTTP."""
+    raw = rng.random((n, SERVE_ROWS, SERVE_CLASSES), dtype=np.float32) + np.float32(1e-3)
+    probs = (raw / raw.sum(-1, keepdims=True)).astype(np.float32)
+    return probs, rng.integers(0, SERVE_CLASSES, (n, SERVE_ROWS), dtype=np.int32)
+
+
+def pct(values, q: float) -> float:
+    s = sorted(values)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))] if s else float("nan")
+
+
+def host_bits_equal(np, got, want) -> bool:
+    """A read's JSON values against the oracle's array: dtype, shape, bits."""
+    got = np.asarray(got, dtype=want.dtype)
+    return got.shape == want.shape and np.array_equal(
+        got.reshape(-1).view(np.uint8), np.ascontiguousarray(want).reshape(-1).view(np.uint8))
+
+
+def take_reads(label: str, read, tenants) -> tuple:
+    """Every tenant's staleness-0 read, and each read's latency in ms."""
+    docs, lat = {}, []
+    for tid in tenants:
+        t0 = time.perf_counter()
+        doc = docs[tid] = read(tid)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        check(doc.get("status") == 200 and doc.get("staleness_steps") == 0, f"{label}: read of {tid}: {doc}")
+    return docs, lat
+
+
+def compare_reads(np, label: str, docs: dict, oracle: dict) -> None:
+    """Every read bitwise its tenant's offline replay."""
+    check(docs.keys() == oracle.keys(), f"{label}: {len(docs)} reads for {len(oracle)} replayed tenants")
+    for tid, want in oracle.items():
+        check(docs[tid]["values"].keys() == want.keys(), f"{label}: {tid} reads {sorted(docs[tid]['values'])}")
+        for name, value in want.items():
+            check(host_bits_equal(np, docs[tid]["values"][name], value), f"{label}: {tid} {name} differs from its replay")
+
+
+def recording_widths(ts) -> list:
+    """Record the width of every stacked update the set dispatches."""
+    widths, apply = [], ts.apply_batch
+
+    def record(ids, *args, **kwargs):
+        widths.append(len(ids))
+        return apply(ids, *args, **kwargs)
+
+    ts.apply_batch = record
+    return widths
+
+
+def check_set(label: str, ts, widths: list, kernels_mod) -> dict:
+    """The set's captured steps are those of the widths it met, each built
+    once, every one a graph; nothing fell back; every dispatch recorded."""
+    update_widths = sorted({kernels_mod.next_pow2(k) for k in widths})
+    built = sorted(k[1] for k in ts._steps if k[0] == "update")
+    check(built == update_widths, f"{label}: update steps at widths {built}, dispatched {update_widths}")
+    check(ts.stats.compiles == len(ts._steps), f"{label}: {ts.stats.compiles} compiles for {len(ts._steps)} steps")
+    check(all(step.graph is not None for step in ts._steps.values()), f"{label}: a step holds no graph")
+    paths = {info["path"] for info in ts.partition_view()["tenant"].values()}
+    check(paths == {"tenant_stacked"}, f"{label}: members {paths}")
+    reasons = ts.template.engine_stats()["fallback_reasons"]
+    check(not reasons, f"{label}: fallback reasons {reasons}")
+    check(ts.stats.dispatches == len(widths), f"{label}: {ts.stats.dispatches} dispatches, {len(widths)} recorded")
+    return {"update_widths": update_widths, "compiles": ts.stats.compiles, "dispatches": ts.stats.dispatches,
+            "mean_width": sum(widths) / max(1, len(widths))}
+
+
+class KeepAlive:
+    """One persistent HTTP/1.1 connection (a client thread's): the server's
+    handler thread then serves the whole stream instead of one thread a
+    request."""
+
+    def __init__(self, url: str) -> None:
+        import http.client
+        import socket
+        import urllib.parse
+
+        parts = urllib.parse.urlsplit(url)
+        self.conn = http.client.HTTPConnection(parts.hostname, parts.port, timeout=120)
+        self.conn.connect()
+        # a body past one segment goes out after the headers: no Nagle wait
+        self.conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+    def request(self, path: str, body=None, ctype: str = "application/x-npz"):
+        headers = {"Content-Type": ctype} if body is not None else {}
+        self.conn.request("POST" if body is not None else "GET", path, body=body, headers=headers)
+        resp = self.conn.getresponse()
+        doc = json.loads(resp.read().decode())
+        doc["status"] = resp.status
+        if resp.getheader("Retry-After") is not None:
+            doc["retry_after_s"] = float(resp.getheader("Retry-After"))
+        return doc
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def post_requests(msv, url, requests, probs, labels, ready):
+    """One client thread's requests over one connection, each body encoded
+    before the clock starts, a rejected remainder re-posted until every step
+    is admitted; returns the admitted (seq, tenant, step), each POST's
+    latency in ms and the rejections."""
+    bodies = [msv.encode_npz(probs[s[0]], labels[s[0]]) if len(s) == 1 else msv.encode_npz_steps(probs[s], labels[s])
+              for _, s in requests]
+    ready.wait()
+    conn = KeepAlive(url)
+    admitted, lat, rejected = [], [], 0
+    for (tid, steps), body in zip(requests, bodies):
+        k = 0
+        while k < len(steps):
+            t0 = time.perf_counter()
+            doc = conn.request(f"/ingest/{tid}", body)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            seqs = doc.get("seqs", [doc["seq"]] if doc.get("admitted") else [])
+            admitted.extend((seq, tid, s) for seq, s in zip(seqs, steps[k:]))
+            k += len(seqs)
+            if k < len(steps):
+                check(doc["status"] in (429, 503), f"18(a): post of {tid}: {doc}")
+                rejected += 1
+                rest = steps[k:]
+                body = msv.encode_npz_steps(probs[rest], labels[rest]) if len(steps) > 1 else body
+                time.sleep(min(doc.get("retry_after_s", 0.05), 0.02))
+    conn.close()
+    return admitted, lat, rejected
+
+
+def phase_eighteen_a(torch, mt, np, kernels_mod, pool, smi, device="cuda"):
+    """18(a): 1,024 tenants over HTTP into one 1,024-slot TenantSet. Returns
+    the function that holds the reads against the replay, made meanwhile in
+    the workers, and reports (phase 18 calls it after 18(b))."""
+    import threading
+
+    from metrics_tpu_torch import serve as msv
+
+    rng = np.random.default_rng(SEED + 180)
+    # every fourth tenant posts twice as often; even tenants one step a body,
+    # odd ones a body of SERVE_STEPS steps
+    counts = [2 * SERVE_STEPS if i % 4 == 0 else SERVE_STEPS for i in range(SERVE_TENANTS)]
+    probs, labels = serve_rows(np, rng, sum(counts))
+    requests, offset = [], 0
+    for i, n in enumerate(counts):
+        steps = list(range(offset, offset + n))
+        offset += n
+        size = 1 if i % 2 == 0 else SERVE_STEPS
+        requests += [(f"t{i}", steps[j:j + size]) for j in range(0, n, size)]
+    order = rng.permutation(len(requests))
+    per_thread = [[requests[j] for j in order[t::SERVE_CLIENTS]] for t in range(SERVE_CLIENTS)]
+    total = sum(counts)
+
+    ts = mt.TenantSet(serve_template(mt, device), name="serve-18a")
+    check(ts.capacity == SERVE_TENANTS, f"18(a): default capacity {ts.capacity}")
+    widths = recording_widths(ts)
+    # a queue that holds the whole stream: backpressure is 429'd by the small
+    # server below, not paid for in retries here
+    server = msv.IngestServer(ts, name="phase18", queue_capacity=2 * total).start()
+    check(server.host == "127.0.0.1", f"18(a): bound to {server.host}")
+    kernels_mod.reset_launch_counts()
+    results = [None] * SERVE_CLIENTS
+    timings = {}
+    try:
+        ready = threading.Event()
+
+        def run(t):
+            results[t] = post_requests(msv, server.url, per_thread[t], probs, labels, ready)
+
+        threads = [threading.Thread(target=run, args=(t,)) for t in range(SERVE_CLIENTS)]
+        for th in threads:
+            th.start()
+        time.sleep(0.5)  # the bodies are encoded
+        t0 = time.perf_counter()
+        ready.set()
+        for th in threads:
+            th.join()
+        timings["posted_s"] = time.perf_counter() - t0
+        check(all(r is not None for r in results), "18(a): a client thread failed")
+        check(server.drain(120.0), "18(a): the drain timed out")
+        timings["ingest_s"] = ingest_s = time.perf_counter() - t0
+        stats = server.stats()
+        check(stats["ledger"]["admitted"] == stats["ledger"]["applied"] == total,
+              f"18(a): ledger {stats['ledger']['admitted']} admitted, {stats['ledger']['applied']} applied of {total}")
+        check(stats["ledger"]["dead_lettered"] == 0 and stats["dispatcher"]["dead_letters"] == 0,
+              f"18(a): dead letters {stats['dispatcher']}")
+        log = sorted(entry for r in results for entry in r[0])
+        check(len(log) == total and len({seq for seq, _, _ in log}) == total, f"18(a): {len(log)} admitted of {total}")
+        launches = kernels_mod.launch_counts()
+
+        # the replay runs in the workers while the reads, 18(a)'s other checks
+        # and 18(b) run here; the reads are held against it at the end
+        replay = parallel_replay(pool, device, [(tid, (probs[s], labels[s]), {}) for _, tid, s in log])
+        t1 = time.perf_counter()
+        reader = KeepAlive(server.url)
+        reads, read_lat = take_reads("18(a)", lambda tid: reader.request(f"/read/{tid}?max_staleness_steps=0"),
+                                     [f"t{i}" for i in range(SERVE_TENANTS)])
+        reader.close()
+        timings["reads_s"] = time.perf_counter() - t1
+        set_info = check_set("18(a)", ts, widths, kernels_mod)
+        check(launches["binned_counts_batched"] == ts.stats.dispatches and launches["binned_counts"] == 0,
+              f"18(a): kernel launches {launches} for {ts.stats.dispatches} stacked updates")
+        check(ts.stats.compiles == len(set_info["update_widths"]) + 1,
+              f"18(a): {ts.stats.compiles} compiles for widths {set_info['update_widths']} and the reads' width 1")
+    finally:
+        server.stop(drain=False, timeout=10.0)
+
+    # backpressure: a 4-slot queue whose dispatcher is held answers 429
+    t1 = time.perf_counter()
+    small = msv.IngestServer(mt.TenantSet(serve_template(mt, device), capacity=128, name="serve-18a-small"),
+                             queue_capacity=SMALL_QUEUE, name="phase18-small").start()
+    try:
+        client = msv.IngestClient(small.url, timeout=60.0)
+        full = None
+        with small.pipeline.apply_lock:
+            for i in range(100):
+                doc = client.post(f"q{i}", probs[i], labels[i])
+                if not doc["admitted"]:
+                    full = doc
+                    break
+        check(full is not None and full["status"] == 429 and full["reason"] == "queue_full"
+              and full.get("retry_after_s", 0) >= 1, f"18(a): a full {SMALL_QUEUE}-slot queue answered {full}")
+        check(small.drain(60.0), "18(a): the small server's drain timed out")
+    finally:
+        small.stop(drain=False, timeout=10.0)
+    timings["small_s"] = time.perf_counter() - t1
+
+    post_lat = [x for r in results for x in r[1]]
+    out = {"observations": total, "requests": len(requests), "ingest_s": ingest_s,
+           "obs_per_s": total / ingest_s, "post_p50_ms": pct(post_lat, 0.5), "post_p99_ms": pct(post_lat, 0.99),
+           "read_p50_ms": pct(read_lat, 0.5), "read_p99_ms": pct(read_lat, 0.99),
+           "rejected": sum(r[2] for r in results), "launches": launches, "timings": timings, **set_info}
+
+    def finish() -> dict:
+        t1 = time.perf_counter()
+        compare_reads(np, "18(a)", reads, replay())
+        timings["replay_wait_s"] = time.perf_counter() - t1
+        report_eighteen_a(out, full, smi)
+        return out
+
+    return finish
+
+
+def report_eighteen_a(out: dict, full: dict, smi: str) -> None:
+    print(f"phase 18(a) ({smi}): {out['observations']} observations of {SERVE_TENANTS} tenants in {out['requests']}"
+          f" POSTs from {SERVE_CLIENTS} threads: {out['obs_per_s']:.0f} observations/s through HTTP"
+          f" ({out['ingest_s']:.2f} s to drained); POST p50 {out['post_p50_ms']:.2f} ms, p99 {out['post_p99_ms']:.2f} ms;"
+          f" read p50 {out['read_p50_ms']:.2f} ms, p99 {out['read_p99_ms']:.2f} ms; {out['dispatches']} dispatches of"
+          f" mean width {out['mean_width']:.1f} (buckets {out['update_widths']}, {out['compiles']} captured steps);"
+          f" {out['rejected']} retried on backpressure; the batched B1 launched"
+          f" {out['launches']['binned_counts_batched']} times; every read bitwise its replay; a {SMALL_QUEUE}-slot"
+          f" queue answered 429 queue_full with Retry-After {full['retry_after_s']:g}; seconds"
+          f" {json.dumps({k: round(v, 3) for k, v in out['timings'].items()})}")
+
+
+def phase_eighteen_b(torch, mt, np, kernels_mod, pool, tmp, smi, device="cuda") -> dict:
+    """18(b): two replicas on one card behind a coordinator and the client."""
+    import threading
+
+    from metrics_tpu_torch import observability as obs
+    from metrics_tpu_torch import serve as msv
+    from metrics_tpu_torch.cluster import ClusterClient, ClusterCoordinator, encode_tenant_snapshot
+
+    rng = np.random.default_rng(SEED + 181)
+    probs, labels = serve_rows(np, rng, CLUSTER_TENANTS * (CLUSTER_STEPS + 2))
+    fresh = iter(range(len(probs)))
+    tenants = [f"c{i}" for i in range(CLUSTER_TENANTS)]
+    steps = {tid: [] for tid in tenants}  # the client's own log, in posting order
+    lock = threading.Lock()
+
+    def stack(rid):
+        ts = mt.TenantSet(serve_template(mt, device), name=f"cluster-18b-{rid}")
+        sets.append((ts, recording_widths(ts)))
+        return msv.IngestServer(ts, name=f"phase18-{rid}")
+
+    def post(client, tid):
+        with lock:
+            s = next(fresh)
+        doc = client.post_with_retry(tid, probs[s], labels[s], max_attempts=200, max_backoff_s=0.02)
+        check(doc.get("admitted"), f"18(b): post of {tid}: {doc}")
+        with lock:
+            steps[tid].append(s)
+
+    sets = []
+    timings = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        timings[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    kernels_mod.reset_launch_counts()
+    with obs.trace(capacity=1 << 18) as tracer:
+        servers = {rid: stack(rid) for rid in ("r0", "r1")}
+        coordinator = ClusterCoordinator(servers, checkpoint_root=f"{tmp}/cluster", name="phase18").start()
+        try:
+            urls = {rid: srv.url for rid, srv in servers.items()}
+            owner0 = {rid: next(t for t in tenants if coordinator.owner(t) == rid) for rid in urls}
+            # both dispatchers probe and capture at once
+            barrier = threading.Barrier(2)
+
+            def warm(rid):
+                client = ClusterClient(dict(urls), coordinator)
+                barrier.wait()
+                post(client, owner0[rid])
+
+            threads = [threading.Thread(target=warm, args=(rid,)) for rid in urls]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            lap("warm_s")
+            moving = [t for t in tenants if coordinator.owner(t) == "r0"][:CLUSTER_MOVES]
+            others = [t for t in tenants if t not in moving]
+
+            def post_round(rounds, group, pause=0.0):
+                client = ClusterClient(dict(urls), coordinator)
+                for _ in range(rounds):
+                    for tid in group:
+                        post(client, tid)
+                        time.sleep(pause)
+                return client
+
+            clients = []
+            for tid in moving:  # the moving tenants' first step lands on r0
+                post(ClusterClient(dict(urls), coordinator), tid)
+            workers = [threading.Thread(target=lambda g=g: clients.append(post_round(CLUSTER_STEPS, g)))
+                       for g in (others[k::CLUSTER_CLIENTS - 1] for k in range(CLUSTER_CLIENTS - 1))]
+            for th in workers:
+                th.start()
+            # the moves start once half the other posts are in (the buckets
+            # warm), while the moved tenants' own posts go on
+            while sum(map(len, steps.values())) < len(others) * CLUSTER_STEPS // 2 and any(
+                    th.is_alive() for th in workers):
+                time.sleep(0.005)
+            workers.append(threading.Thread(
+                target=lambda: clients.append(post_round(CLUSTER_STEPS - 1, moving, pause=0.002))))
+            workers[-1].start()
+            records = [coordinator.migrate(tid, "r1") for tid in moving]
+            for th in workers:
+                th.join()
+            check(all(r.outcome == "committed" for r in records), f"18(b): migrations {[r.to_dict() for r in records]}")
+            check(all(coordinator.owner(t) == "r1" for t in moving), "18(b): a moved tenant is not routed to r1")
+            check(all(len(steps[t]) == CLUSTER_STEPS + (t == owner0["r0"] or t == owner0["r1"]) for t in tenants),
+                  "18(b): a tenant's posts are missing")
+            for replica in coordinator.replicas.values():
+                check(replica.pipeline.drain(60.0), f"18(b): {replica.replica_id} did not drain")
+            lap("posts_and_moves_s")
+
+            # checkpoint, one more step applied on r1 after it, then r1 dies
+            coordinator.checkpoint_all(step=1)
+            lap("checkpoint_s")
+            on_r1 = [t for t in tenants if coordinator.owner(t) == "r1"]
+            client = ClusterClient(dict(urls), coordinator)
+            for tid in on_r1:
+                post(client, tid)
+            check(coordinator.replicas["r1"].pipeline.drain(60.0), "18(b): r1 did not drain")
+            lap("post_after_checkpoint_s")
+            coordinator.mark_lost("r1")
+            check(coordinator.status()["degraded"], "18(b): losing r1 left the cluster healthy")
+            lap("loss_s")
+            unacked, refused_ms = 0, []
+            # never acknowledged: the replica is gone (a client that knows it
+            # waits a second at most for a connection)
+            refusing = ClusterClient(dict(urls), coordinator, timeout=1.0)
+            for tid in on_r1:
+                s = next(fresh)
+                t1 = time.perf_counter()
+                try:
+                    doc = refusing.post(tid, probs[s], labels[s])
+                except OSError:
+                    doc = {}
+                refused_ms.append((time.perf_counter() - t1) * 1e3)
+                check(not doc.get("admitted"), f"18(b): a post to the lost r1 was admitted: {doc}")
+                with lock:
+                    steps[tid].append(s)
+                unacked += 1
+            lap("refused_posts_s")
+            t_rec = time.perf_counter()
+            coordinator.recover_replica("r1", stack("r1-recovered"))
+            recovery_s = time.perf_counter() - t_rec
+            check(not coordinator.status()["degraded"], "18(b): the recovered cluster is degraded")
+            urls["r1"] = coordinator.replicas["r1"].url
+            client.add_target("r1", urls["r1"])
+            # the client replays every step past the restored watermark
+            replayed = 0
+            for tid in on_r1:
+                applied = client.read(tid)["last_applied_step"]
+                check(applied == len(steps[tid]) - 2, f"18(b): {tid} restored at step {applied} of {len(steps[tid])}")
+                for s in steps[tid][applied:]:
+                    doc = client.post_with_retry(tid, probs[s], labels[s], max_attempts=200, max_backoff_s=0.02)
+                    check(doc.get("admitted"), f"18(b): replay of {tid}: {doc}")
+                    replayed += 1
+            for replica in coordinator.replicas.values():
+                check(replica.pipeline.drain(60.0), f"18(b): {replica.replica_id} did not drain after recovery")
+            lap("recovery_and_replay_s")
+
+            launches = kernels_mod.launch_counts()
+            dispatches = sum(ts.stats.dispatches for ts, _ in sets)
+            check(launches["binned_counts_batched"] == dispatches and launches["binned_counts"] == 0,
+                  f"18(b): kernel launches {launches} for {dispatches} stacked updates of three sets")
+            for ts, widths in sets:
+                check_set(f"18(b) {ts.name}", ts, widths, kernels_mod)
+            log = [(tid, (probs[s], labels[s]), {}) for tid in tenants for s in steps[tid]]
+            replay = parallel_replay(pool, device, log)
+            reads, read_lat = take_reads("18(b)", lambda tid: client.read(tid, max_staleness_steps=0, timeout_s=60.0),
+                                         tenants)
+            lap("reads_s")
+            compare_reads(np, "18(b)", reads, replay())
+            lap("replay_wait_s")
+            # a moved tenant's snapshot on the card, byte for byte a CPU twin's
+            for tid in moving:
+                twin = mt.TenantSet(serve_template(mt, "cpu"), capacity=8, name="cluster-18b-twin")
+                for s in steps[tid]:
+                    twin.apply_batch([tid], probs[s][None], labels[s][None], auto_admit=True)
+                blob = encode_tenant_snapshot(coordinator.replicas["r1"].export_tenant(tid))
+                check(blob == encode_tenant_snapshot(twin.export_tenant(tid)),
+                      f"18(b): the card's snapshot of {tid} differs from the CPU twin's")
+            redirects = sum(c.redirects_followed for c in clients)
+            lap("twins_s")
+        finally:
+            coordinator.stop(drain=False, timeout=10.0)
+        events = {e.name for e in tracer.events()}
+    wanted = {f"cluster/{p}" for p in ("fence", "drain", "export", "transfer", "import", "cutover",
+                                       "replica_lost", "replica_restored")}
+    check(wanted <= events, f"18(b): events missing: {sorted(wanted - events)}")
+    prom = obs.to_prometheus_text()
+    series = ("metrics_tpu_cluster_epoch", "metrics_tpu_cluster_migrations_total", "metrics_tpu_cluster_fence_seconds",
+              "metrics_tpu_cluster_replica_losses_total", "metrics_tpu_ingest_dispatch_dispatches_total")
+    check(all(s in prom for s in series), f"18(b): series missing: {[s for s in series if s not in prom]}")
+    fence_ms = [r.downtime_s * 1e3 for r in records]
+    timings["refused_post_max_ms"] = max(refused_ms)
+    out = {"fence_ms": fence_ms, "recovery_s": recovery_s, "replayed": replayed, "unacked": unacked, "timings": timings,
+           "dispatches": dispatches, "launches": launches, "redirects": redirects,
+           "read_p50_ms": pct(read_lat, 0.5), "read_p99_ms": pct(read_lat, 0.99)}
+    print(f"phase 18(b) ({smi}): {CLUSTER_TENANTS} tenants over 2 replicas through the client; {CLUSTER_MOVES}"
+          f" migrations r0 -> r1 under posts, fence {statistics.median(fence_ms):.2f} ms median,"
+          f" {max(fence_ms):.2f} ms max ({redirects} redirects followed); r1 lost and recovered from its checkpoint in"
+          f" {recovery_s:.3f} s, {replayed} steps replayed past the watermark ({unacked} never acknowledged);"
+          f" {dispatches} stacked updates over three sets, the batched B1 launched"
+          f" {launches['binned_counts_batched']} times; every read bitwise its replay, the moved tenants' snapshots"
+          f" byte for byte a CPU twin's; fences ms {[round(x, 2) for x in fence_ms]}; seconds"
+          f" {json.dumps({k: round(v, 3) for k, v in timings.items()})}")
+    return out
+
+
+def phase_eighteen(torch, mt, np, kernels_mod, smi, device="cuda") -> dict:
+    import multiprocessing
+    import tempfile
+
+    t0 = time.perf_counter()
+    # the replay workers start with the phase and are ready by its first replay
+    with multiprocessing.get_context("spawn").Pool(ORACLE_PROCS, oracle_init, (device,)) as pool:
+        finish_a = phase_eighteen_a(torch, mt, np, kernels_mod, pool, smi, device)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_phase18_") as tmp:
+            b = phase_eighteen_b(torch, mt, np, kernels_mod, pool, tmp, smi, device)
+        a = finish_a()
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    elapsed = time.perf_counter() - t0
+    print(f"phase 18 ({smi}): {elapsed:.1f} s in all (limit {PHASE18_LIMIT_S:.0f} s); kernel launches {launches}")
+    check(elapsed < PHASE18_LIMIT_S, f"phase 18 took {elapsed:.1f} s, over its {PHASE18_LIMIT_S:.0f} s")
+    return {"a": a, "b": b, "seconds": elapsed, "launches": launches}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -7413,6 +7970,9 @@ def main() -> None:
     # ---- phase 17: checkpoint and tenancy (B1's tenant-batched launch on the stacked updates)
     seventeen = phase_seventeen(torch, mt, np, kernels_mod, sync, binned, smi)
 
+    # ---- phase 18: serve and cluster (the batched B1 launch under HTTP ingest, two replicas)
+    eighteen = phase_eighteen(torch, mt, np, kernels_mod, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
@@ -7438,6 +7998,7 @@ def main() -> None:
             "phase15_launches": fifteen["launches"][kname],
             "phase16_launches": sixteen["launches"][kname],
             "phase17_launches": seventeen["launches"][kname],
+            "phase18_launches": eighteen["launches"][kname],
             **us,
             **extra,
         }
@@ -7514,8 +8075,12 @@ def main() -> None:
         "shape": batched["shape"], "device_us": batched["device_us"], "graph_device_us": batched["graph_device_us"],
         **{f"phase{p}_launches": r["launches"].get("binned_counts_batched", 0)
            for p, r in ((8, eight), (9, nine), (10, ten), (11, eleven), (12, twelve), (13, thirteen), (14, fourteen),
-                        (15, fifteen), (16, sixteen), (17, seventeen))},
+                        (15, fifteen), (16, sixteen), (17, seventeen), (18, eighteen))},
         "phase17_stacked_update_launches": seventeen["d"]["main_launches"],
+        "phase18_serve": {k: eighteen["a"][k] for k in ("observations", "obs_per_s", "post_p50_ms", "post_p99_ms",
+                                                         "read_p50_ms", "read_p99_ms", "dispatches", "mean_width",
+                                                         "update_widths")},
+        "phase18_cluster": {k: eighteen["b"][k] for k in ("fence_ms", "recovery_s", "replayed", "dispatches")},
         "phase17_checkpoint": {"a": seventeen["a"]["timings"], "b": seventeen["b"]},
         "phase17_tenancy_us": {str(n): r for n, r in seventeen["d"]["timing"].items()},
         "us": batched["ms"] * 1e3, "plain_us": batched["plain_ms"] * 1e3, "bound_us": batched["bound_ms"] * 1e3,

@@ -10,8 +10,10 @@ switches below turn that off). ``observability`` traces, counts and serves
 what the engines do and ``resilience`` injects seeded faults, retries and
 guards state against NaN, as the JAX package's subpackages of those names
 do; all are off by default. ``checkpoint`` saves and restores state in the
-JAX package's on-disk format, and ``tenancy`` stacks many tenants' states
-behind one captured step a bucket.
+JAX package's on-disk format, ``tenancy`` stacks many tenants' states
+behind one captured step a bucket, and ``serve`` feeds such a set from an
+HTTP ingest queue (``cluster``, imported on its own, spreads tenants over
+several of them).
 """
 from metrics_tpu_torch.__about__ import __version__
 from metrics_tpu_torch import functional
@@ -104,6 +106,7 @@ from metrics_tpu_torch.checkpoint import (  # noqa: F401
 )
 from metrics_tpu_torch import tenancy  # noqa: F401
 from metrics_tpu_torch.tenancy import TenantSet  # noqa: F401
+from metrics_tpu_torch import serve  # noqa: F401
 from metrics_tpu_torch.parallel import (
     bucketed_sync_enabled,
     set_bucketed_sync,

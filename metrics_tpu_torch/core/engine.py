@@ -52,8 +52,19 @@ after a 1,024-row batch was captured first).
 
 **Launch counts stay honest.** A kernel wrapper counts a launch when it
 launches; a capture launches nothing, and a replay launches what the capture
-recorded. So :class:`CapturedStep` takes back each kernel's count delta of
-the capture and adds it again at every replay (``ops.kernels.launch_counts``).
+recorded. So :class:`CapturedStep` records the capturing thread's launches
+apart from the counts (``ops.kernels.recording_launches``) and adds them at
+every replay.
+
+**Threads.** A serving replica's dispatcher thread, the HTTP handlers and
+the caller may all drive engines on one card at once. What a probe or a
+capture changes is the calling thread's own: the dispatch mode, the checks
+switch, the refusal of ``tolist``/``numpy`` (the methods refuse in a probing
+thread and work in every other), the side stream (one a thread and device),
+the launch record and the capture's error mode (``thread_local``). What is
+the process's is held under locks: every probe and capture on the card runs
+under one lock, so two threads never capture at once, and the garbage
+collector stays off while any capture runs (a counted hold).
 
 **Buffer states** (``core/buffers.py``) are three leaves each: the data, the
 0-d ``count`` and the 0-d ``overflowed``. A captured append cannot grow the
@@ -136,10 +147,11 @@ import gc
 import inspect
 import os
 import sys
+import threading
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -539,33 +551,67 @@ class _ProbeMode(TorchDispatchMode):
         return func(*args, **kwargs)
 
 
-def _refuse_host_read(*_: Any, **__: Any) -> Any:
-    raise Uncapturable("Tensor.tolist/numpy reads a value back to the host")
+# the probe refuses Tensor.tolist/numpy in the probing thread only: another
+# thread (a second replica's reads, the caller's oracle) keeps its own
+_PROBE_LOCAL = threading.local()
+_PROBE_PATCH_LOCK = threading.Lock()
+_probe_patches = 0  # probes in progress in any thread; the patch lives while > 0
+_PATCHED_SAVED: Dict[str, Any] = {}
+
+
+def _probing() -> bool:
+    return getattr(_PROBE_LOCAL, "depth", 0) > 0
+
+
+def _refusing(name: str, original: Callable) -> Callable:
+    def method(self, *args: Any, **kwargs: Any) -> Any:
+        if _probing():
+            raise Uncapturable(f"Tensor.{name} reads a value back to the host")
+        return original(self, *args, **kwargs)
+
+    method.__name__ = name
+    return method
 
 
 class _probe:
     """The probe context: the dispatch mode, ``tolist``/``numpy`` refused
-    (they reach no operator on the CPU), value checks off, no autograd."""
+    (they reach no operator on the CPU), value checks off, no autograd.
+
+    The dispatch mode, the checks switch and ``no_grad`` are the calling
+    thread's own. ``tolist`` and ``numpy`` are methods of the one class:
+    while any thread probes they are replaced by methods that refuse in a
+    probing thread and call the saved ones in every other."""
 
     _PATCHED = ("tolist", "numpy")
 
     def __enter__(self) -> "_probe":
-        self._saved = {name: torch.Tensor.__dict__.get(name) for name in self._PATCHED}
-        for name in self._PATCHED:
-            setattr(torch.Tensor, name, _refuse_host_read)
+        global _probe_patches
+        with _PROBE_PATCH_LOCK:
+            if _probe_patches == 0:
+                for name in self._PATCHED:
+                    _PATCHED_SAVED[name] = torch.Tensor.__dict__.get(name)
+                    setattr(torch.Tensor, name, _refusing(name, getattr(torch.Tensor, name)))
+            _probe_patches += 1
+        _PROBE_LOCAL.depth = getattr(_PROBE_LOCAL, "depth", 0) + 1
         self._ctx = [_checks_off(), torch.no_grad(), _ProbeMode()]
         for ctx in self._ctx:
             ctx.__enter__()
         return self
 
     def __exit__(self, *exc: Any) -> None:
+        global _probe_patches
         for ctx in reversed(self._ctx):
             ctx.__exit__(*exc)
-        for name, saved in self._saved.items():
-            if saved is None:
-                delattr(torch.Tensor, name)
-            else:
-                setattr(torch.Tensor, name, saved)
+        _PROBE_LOCAL.depth -= 1
+        with _PROBE_PATCH_LOCK:
+            _probe_patches -= 1
+            if _probe_patches == 0:
+                for name, saved in _PATCHED_SAVED.items():
+                    if saved is None:
+                        delattr(torch.Tensor, name)
+                    else:
+                        setattr(torch.Tensor, name, saved)
+                _PATCHED_SAVED.clear()
 
 
 class _steady:
@@ -581,20 +627,47 @@ class _steady:
             ctx.__exit__(*exc)
 
 
-_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+# one lock for every probe and capture on the card, in every thread: two
+# dispatcher threads never capture at once, so neither can spoil the other's
+# capture, and the collector is held off while any capture runs
+_CAPTURE_LOCK = threading.RLock()
+_GC_LOCK = threading.Lock()
+_gc_holds = 0
+_gc_was_enabled = False
+_STREAMS = threading.local()
 
 
 def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
-    """The side stream the engines probe and capture on, one per device."""
+    """The side stream this thread probes and captures on, one per device. A
+    graph keeps using what a kernel wrapper made per stream at its probe (B1's
+    workspace), so two threads' graphs, which may replay at once, share none."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = _CAPTURE_STREAMS.get(index)
+    streams = getattr(_STREAMS, "by_device", None)
+    if streams is None:
+        streams = _STREAMS.by_device = {}
+    stream = streams.get(index)
     if stream is None:
-        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+        stream = streams[index] = torch.cuda.Stream(device=index)
     return stream
 
 
-def _sub_counts(a: Dict[str, int], b: Dict[str, int]) -> Dict[str, int]:
-    return {k: a[k] - b.get(k, 0) for k in a if a[k] != b.get(k, 0)}
+@contextlib.contextmanager
+def _collector_held() -> Iterator[None]:
+    """Python's garbage collector off for the body, counted across threads:
+    it comes back on when the last hold ends, if it was on at the first."""
+    global _gc_holds, _gc_was_enabled
+    with _GC_LOCK:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _GC_LOCK:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
 
 
 class CapturedStep:
@@ -653,22 +726,23 @@ class CapturedStep:
 
         current = torch.cuda.current_stream(device)
         side = _capture_stream(device)
-        side.wait_stream(current)
-        try:
-            with torch.cuda.stream(side):
-                # the probe runs where the capture will: per-stream resources
-                # a kernel wrapper makes on first use exist before the capture
-                with _probe(), _sync.count_collectives() as self.collectives:
-                    out = self.fn(state, args, kwargs)
-                out_leaves = self._check_out(state, state_leaves, out)
-            with torch.cuda.stream(current):
-                self._make_statics(state_leaves, arg_leaves, out_leaves)
+        with _CAPTURE_LOCK:
             side.wait_stream(current)
-            self._capture(side)
-        finally:
-            # every use of the side stream starts by waiting for the current
-            # one, so the probe's results (made there) may be handed out
-            current.wait_stream(side)
+            try:
+                with torch.cuda.stream(side):
+                    # the probe runs where the capture will: per-stream resources
+                    # a kernel wrapper makes on first use exist before the capture
+                    with _probe(), _sync.count_collectives() as self.collectives:
+                        out = self.fn(state, args, kwargs)
+                    out_leaves = self._check_out(state, state_leaves, out)
+                with torch.cuda.stream(current):
+                    self._make_statics(state_leaves, arg_leaves, out_leaves)
+                side.wait_stream(current)
+                self._capture(side)
+            finally:
+                # every use of the side stream starts by waiting for the current
+                # one, so the probe's results (made there) may be handed out
+                current.wait_stream(side)
         return out
 
     def _check_out(self, state: Any, state_leaves: list, out: Any) -> list:
@@ -725,17 +799,19 @@ class CapturedStep:
 
     def _capture(self, side: "torch.cuda.Stream") -> None:
         graph = torch.cuda.CUDAGraph()
-        before = _kernels.launch_counts()
         # no garbage collection inside the capture: a collection there can
         # free another engine's graph (engines and metrics form reference
         # cycles), whose destruction the capturing stream refuses, and the
         # capture fails ("operation not permitted when stream is capturing");
-        # torch.cuda.graph no longer collects on entry
-        collecting = gc.isenabled()
-        gc.disable()
+        # torch.cuda.graph no longer collects on entry. The capture's error
+        # mode is this thread's: another thread's allocation or
+        # synchronisation meanwhile neither fails it nor fails there. A
+        # capture records launches, this thread's only; it makes none.
         try:
-            with _steady(), _sync._muted(), torch.cuda.graph(graph, pool=self.pool, stream=side):
-                self._body()
+            with _collector_held(), _kernels.recording_launches() as launches:
+                with _steady(), _sync._muted(), torch.cuda.graph(graph, pool=self.pool, stream=side,
+                                                                 capture_error_mode="thread_local"):
+                    self._body()
         except RuntimeError as err:
             first = str(err).splitlines()[0][:200] if str(err) else type(err).__name__
             if self.collectives and self.collectives["count"]:
@@ -744,12 +820,7 @@ class CapturedStep:
             if "captur" not in str(err).lower():
                 raise
             raise Uncapturable(f"the CUDA graph capture refused the step: {first}") from err
-        finally:
-            if collecting:
-                gc.enable()
-            # a capture records launches; it makes none
-            self.launch_delta = _sub_counts(_kernels.launch_counts(), before)
-            _kernels.add_launches({k: -n for k, n in self.launch_delta.items()})
+        self.launch_delta = {k: n for k, n in launches.items() if n}
         self.graph = graph
 
     def replay(self) -> None:

@@ -44,7 +44,7 @@ import torch
 from torch import Tensor
 from torch._C._functorch import is_batchedtensor
 
-from metrics_tpu_torch.ops.kernels import KERNELS
+from metrics_tpu_torch.ops.kernels import KERNELS, count_launch
 from metrics_tpu_torch.utils.exceptions import Uncapturable
 
 KERNEL = KERNELS["binned_counts"]
@@ -211,7 +211,7 @@ def _launch(preds: Tensor, target: Tensor, grid: SortedThresholds, b: Optional[i
                 err = launch(p, y, o, bs)
         if err != 0:
             raise RuntimeError(f"binned_counts kernel launch failed with CUDA error {err}")
-        kernel.launches += 1
+        count_launch(kernel)
     return out
 
 

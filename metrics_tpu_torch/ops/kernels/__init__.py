@@ -15,8 +15,14 @@ tenants); ``reset_launch_counts`` and ``launch_counts`` let a run show that
 its main path really went through the kernels. The counts are device
 launches, not Python calls: a CUDA graph capture runs the wrapper but
 launches nothing, and a replay launches what the capture recorded, so the
-compiled engines' ``CapturedStep`` takes back a capture's counts
-(:func:`add_launches` with the negated delta) and adds them at every replay.
+compiled engines' ``CapturedStep`` records a capture's launches apart
+(:func:`recording_launches`) and adds them at every replay.
+
+Several threads may launch at once (a serving replica's dispatcher, HTTP
+handlers, the caller). A wrapper counts through :func:`count_launch`, under
+one lock; while a thread captures, its launches go to that thread's record
+and not to the counters, so another thread's launches made meanwhile are
+never taken for the capture's.
 """
 from __future__ import annotations
 
@@ -28,9 +34,10 @@ import subprocess
 import tempfile
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,10 +81,25 @@ class Kernel:
     replaces: str  # the JAX function it replaces, file:line
     signatures: Dict[str, Tuple[Sequence, object]]  # C symbol -> (argtypes, restype)
     shares: Optional[str] = None  # the kernel whose library holds these entries, if not its own
-    launches: int = 0
+    _launches: int = field(default=0, repr=False)
     build_log: str = ""
     _lib: Optional[ctypes.CDLL] = field(default=None, repr=False)
     _lock: threading.Lock = field(default_factory=threading.Lock, repr=False)
+
+    @property
+    def launches(self) -> int:
+        """Launches counted so far (a capture in progress on this thread adds
+        to its own record instead, see :func:`recording_launches`)."""
+        return self._launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        record = _recording()
+        with _COUNT_LOCK:
+            if record is None:
+                self._launches = int(value)
+            else:
+                record[self.name] = record.get(self.name, 0) + int(value) - self._launches
 
     @property
     def source_path(self) -> Path:
@@ -207,19 +229,57 @@ def next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
 
 
+_COUNT_LOCK = threading.Lock()
+_local = threading.local()
+
+
+def _recording() -> Optional[Dict[str, int]]:
+    records = getattr(_local, "records", None)
+    return records[-1] if records else None
+
+
+def count_launch(kernel: Kernel) -> None:
+    """One launch of ``kernel``: what a wrapper calls where it launches."""
+    record = _recording()
+    with _COUNT_LOCK:
+        if record is None:
+            kernel._launches += 1
+        else:
+            record[kernel.name] = record.get(kernel.name, 0) + 1
+
+
+@contextmanager
+def recording_launches() -> Iterator[Dict[str, int]]:
+    """Collect this thread's launches into the yielded dict instead of the
+    counters: a CUDA graph capture runs the wrappers and launches nothing.
+    Other threads keep counting as before."""
+    record: Dict[str, int] = {}
+    records = getattr(_local, "records", None)
+    if records is None:
+        records = _local.records = []
+    records.append(record)
+    try:
+        yield record
+    finally:
+        records.pop()
+
+
 def reset_launch_counts() -> None:
-    for kernel in KERNELS.values():
-        kernel.launches = 0
+    with _COUNT_LOCK:
+        for kernel in KERNELS.values():
+            kernel._launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: kernel.launches for name, kernel in KERNELS.items()}
+    with _COUNT_LOCK:
+        return {name: kernel._launches for name, kernel in KERNELS.items()}
 
 
 def add_launches(delta: Dict[str, int]) -> None:
     """Add ``delta[name]`` launches to each named kernel's count."""
-    for name, n in delta.items():
-        KERNELS[name].launches += n
+    with _COUNT_LOCK:
+        for name, n in delta.items():
+            KERNELS[name]._launches += n
 
 
 # the kernels' public wrappers, as the JAX package's ``ops.kernels`` exports them

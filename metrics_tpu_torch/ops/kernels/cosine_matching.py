@@ -28,7 +28,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, current_stream
+from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, count_launch, current_stream
 
 __all__ = ["maxsim", "maxsim_plain", "pairwise_cosine_pr"]
 
@@ -131,7 +131,7 @@ def maxsim(preds_embeddings: Tensor, target_embeddings: Tensor, *, plain: bool =
         )
     if err != 0:
         raise RuntimeError(f"{MAXSIM_KERNEL.name} kernel launch failed with CUDA error {err}")
-    MAXSIM_KERNEL.launches += 1
+    count_launch(MAXSIM_KERNEL)
     return rowmax, colmax
 
 

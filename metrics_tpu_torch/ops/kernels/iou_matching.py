@@ -40,7 +40,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops.detection.boxes import box_area, box_iou
-from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, current_stream
+from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, count_launch, current_stream
 
 __all__ = [
     "evaluate_given_ious", "evaluate_matches", "greedy_match", "greedy_match_plain", "match_flags", "match_given_ious",
@@ -132,7 +132,7 @@ def pairwise_iou(det_boxes: Tensor, gt_boxes: Tensor, det_counts: Optional[Tenso
             err = lib.pairwise_iou_launch(*args)
     if err != 0:
         raise RuntimeError(f"pairwise_iou kernel launch failed with CUDA error {err}")
-    IOU_KERNEL.launches += 1
+    count_launch(IOU_KERNEL)
     return out
 
 
@@ -217,7 +217,7 @@ def greedy_match(
         )
     if err != 0:
         raise RuntimeError(f"greedy_match kernel launch failed with CUDA error {err}")
-    MATCH_KERNEL.launches += 1
+    count_launch(MATCH_KERNEL)
     return out
 
 

@@ -87,6 +87,19 @@ def _is_array(x: Any) -> bool:
     return isinstance(x, (Tensor, np.ndarray))
 
 
+def _state_on(value: Any, device: Any) -> Any:
+    """A fresh copy of one state value (a tensor, a list of tensors, a
+    buffer or a sketch; numpy arrays from a decoded snapshot too) on
+    ``device``."""
+    if isinstance(value, list):
+        return [_state_on(x, device) for x in value]
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.array(value)).to(device)
+    if isinstance(value, Tensor):
+        return value.detach().to(device, copy=True)
+    return _copy_state_value(value).to(device)
+
+
 class TenantSet:
     """N structurally identical collections behind one captured step a bucket.
 
@@ -346,6 +359,9 @@ class TenantSet:
         k = len(tenant_ids)
         if k == 0:
             return
+        # host rows (the ingest dispatcher's numpy) go to the set's device
+        args = tuple(self._on_device(a) for a in args)
+        kwargs = {kk: self._on_device(v) for kk, v in kwargs.items()}
         slots = self._slots_for(tenant_ids)
         width = self._bucket(k)
         if self._flat:
@@ -374,6 +390,13 @@ class TenantSet:
                     self.admit(tid)
         self.update(tenant_ids, *args, **kwargs)
         return {tid: int(self._update_counts[self._slot_of[tid]]) for tid in tenant_ids}
+
+    def _on_device(self, leaf: Any) -> Any:
+        if isinstance(leaf, np.ndarray):
+            return torch.as_tensor(leaf, device=self._device)
+        if isinstance(leaf, Tensor) and leaf.device != self._device:
+            return leaf.to(self._device)
+        return leaf
 
     def _split_leaves(self, k: int, width: int, args: Tuple, kwargs: Dict) -> Tuple[Any, List[Tensor], List[Tensor], Tuple]:
         """Update-argument leaves by role: batched (padded to the bucket
@@ -633,7 +656,7 @@ class TenantSet:
             for lname, (leaves, spec) in self._flat.items()
         }
         eager = {
-            lname: {k: _copy_state_value(v) for k, v in self._eager_states[lname][slot].items()}
+            lname: {k: _state_on(v, "cpu") for k, v in self._eager_states[lname][slot].items()}
             for lname in self._eager_states
         }
         return {
@@ -650,10 +673,13 @@ class TenantSet:
         if slot is None:
             slot = self.admit(tenant_id)
         if self._flat:
-            rows = [
-                [torch.as_tensor(x).to(self._device) for x in _engine.tree_leaves(snapshot["states"][lname])]
-                for lname in self._flat
-            ]
+            # leaves in the set's own state order: a decoded wire snapshot
+            # holds each member's states sorted by name
+            rows = []
+            for lname, (leaves, spec) in self._flat.items():
+                st = snapshot["states"][lname]
+                ordered = {k: st[k] for k in _engine.tree_unflatten(leaves, spec)}
+                rows.append([torch.as_tensor(x).to(self._device) for x in _engine.tree_leaves(ordered)])
 
             def make() -> Callable:
                 def import_rows(inputs: Tuple, _args: Tuple, _kwargs: Dict) -> Tuple:
@@ -666,7 +692,7 @@ class TenantSet:
             self._run(("import",), make, (torch.tensor([slot], device=self._device), rows))
         for lname, st in (snapshot.get("eager_states") or {}).items():
             if lname in self._eager_states:
-                self._eager_states[lname][slot] = {k: _copy_state_value(v) for k, v in st.items()}
+                self._eager_states[lname][slot] = {k: _state_on(v, self._device) for k, v in st.items()}
         self._apply_template_aux(snapshot.get("aux") or {})
         self._update_counts[slot] = int(snapshot.get("update_count", 0))
         return slot

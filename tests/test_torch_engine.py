@@ -596,7 +596,8 @@ def test_captured_step_counts_a_launch_per_replay(monkeypatch):
         return {"x": state["x"] + args[0]}
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool=None, stream=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None, stream=None, capture_error_mode=None: contextlib.nullcontext())
     kernels_mod.reset_launch_counts()
     captured = engine_mod.CapturedStep(step, writes_state=True)
     state, args = {"x": torch.zeros(3)}, (torch.ones(3),)
@@ -624,7 +625,8 @@ def test_a_failed_capture_takes_its_counts_back(monkeypatch):
         raise RuntimeError("operation not permitted when stream is capturing")
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
-    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool=None, stream=None: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda graph, pool=None, stream=None, capture_error_mode=None: contextlib.nullcontext())
     kernels_mod.reset_launch_counts()
     captured = engine_mod.CapturedStep(step, writes_state=True)
     captured._state_spec = engine_mod.tree_flatten({"x": torch.zeros(1)})[1]

@@ -28,7 +28,7 @@ import metrics_tpu_torch as mt_torch
 pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
-    "A19": "serve and cluster (A19b; checkpoint, A18, and tenancy, A19a, are ported)",
+    "A19": "serve and cluster (A19b), checkpoint (A18) and tenancy (A19a): all ported; none may be missing",
     "A20": "autotune and the kernel registry's telemetry (A20b; observability and resilience, A20a, are ported)",
     "A21": "analysis (ANALYSIS_SPECS and the analyzer surfaces)",
     "B1": "the Pallas module of B1, whose port is ops/classification/binned_counts.py",
@@ -40,7 +40,6 @@ def _items(item, names):
 
 MISSING = {
     "": {
-        **_items("A19", ["serve"]),
         **_items("A20", ["PolicyConfig", "TunedPlan", "autotune", "autotune_enabled", "export_tuned_plan",
                          "set_autotune"]),
     },
@@ -50,6 +49,8 @@ MISSING = {
     "resilience": {},
     "checkpoint": {},
     "tenancy": {"ANALYSIS_MODULE_SPECS": "A21"},
+    "serve": {"ANALYSIS_MODULE_SPECS": "A21"},
+    "cluster": {"ANALYSIS_MODULE_SPECS": "A21"},
     "parallel": {"ANALYSIS_MODULE_SPECS": "A21"},
     "functional": {},
     "ops": {},
@@ -123,10 +124,11 @@ def test_missing_names_are_the_unported_items(sub, fresh_names):
 
 def test_every_listed_item_is_unported():
     # the wrappers (A11b), text (A13), the rest of detection (A12), image
-    # (A14), audio (A15), the sketches (A16), sharded state (A17b) and
-    # checkpoint (A18) are ported: none of their names may be missing
+    # (A14), audio (A15), the sketches (A16), sharded state (A17b),
+    # checkpoint (A18), tenancy (A19a), serve and cluster (A19b) are ported:
+    # none of their names may be missing
     for sub, names in MISSING.items():
-        assert not {"A11b", "A12", "A13", "A14", "A15", "A16", "A17b", "A18"} & set(names.values()), sub
+        assert not {"A11b", "A12", "A13", "A14", "A15", "A16", "A17b", "A18", "A19"} & set(names.values()), sub
     for name in ("BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
                  "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance",
                  "CharErrorRate", "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",
@@ -135,7 +137,7 @@ def test_every_listed_item_is_unported():
                  "FrechetInceptionDistance", "PeakSignalNoiseRatio", "image", "nets",
                  "SignalNoiseRatio", "PermutationInvariantTraining", "PerceptualEvaluationSpeechQuality", "audio",
                  "observability", "resilience", "checkpoint", "save_checkpoint", "restore_checkpoint",
-                 "verify_checkpoint", "tenancy", "TenantSet"):
+                 "verify_checkpoint", "tenancy", "TenantSet", "serve"):
         assert hasattr(mt_torch, name), name
 
 

@@ -364,7 +364,7 @@ def test_a_capture_holds_the_collector_off(monkeypatch):
     class FakeCapture:
         fail = False
 
-        def __init__(self, graph, pool=None, stream=None):
+        def __init__(self, graph, pool=None, stream=None, capture_error_mode=None):
             pass
 
         def __enter__(self):

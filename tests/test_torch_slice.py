@@ -284,6 +284,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "from metrics_tpu_torch.parallel import psum_result, gather_result, shard_spec, grid_sharded  # sharded state\n"
         "import metrics_tpu_torch.observability, metrics_tpu_torch.observability.__main__, metrics_tpu_torch.resilience\n"
         "import metrics_tpu_torch.utils.httpd, metrics_tpu_torch.utils.profiling, metrics_tpu_torch.observability.regress\n"
+        "import metrics_tpu_torch.serve, metrics_tpu_torch.cluster, metrics_tpu_torch.cluster.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'metrics_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
