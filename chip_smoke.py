@@ -396,6 +396,34 @@ stay those of the eager path. Phases 6 and 7 run the compiled engines.
    latencies, dispatch widths, fence windows and the recovery time are
    printed. The phase stays under 60 s.
 
+19. Self-tuning sync and the heavy-kernel registry, in a world of one NCCL
+   rank with a gloo group of one for the CPU twins. (a) ``set_autotune(True)``
+   on phase 18's template (config2 + BinnedAveragePrecision, 10 classes, 21
+   thresholds, engines at their defaults), 16 rounds of 4 updates of 64
+   seeded rows and one synced compute: every bucket commits through
+   gate-admissible transports, the ``sync/tune_decision`` events are the
+   decisions, 16 more rounds make no decision, leave the epoch, the
+   partition and the captures as they were, B1 launched once an update
+   (replays counted), the tuned synced states lie within
+   ``transport_error_bound(t, 1)`` of exact relative to each bucket's
+   largest value, and a ``device="cpu"`` twin through gloo, from a fresh
+   controller, makes the same decisions and bitwise the same computes.
+   (b) The exported plan saved as JSON and pinned from the file: all 32
+   rounds again with no decision, a constant epoch, one build and one
+   capture each, the post-commit rounds bitwise (a)'s; the captured synced
+   compute timed under the committed transports and under exact.
+   (c) ``sync_state`` of the JAX package's autotune test state (8,192
+   float32 and 1,000 int32 sum elements, a 2-element float32 max), 12 times
+   on the card and on its twin: equal decisions, both sum buckets on int8
+   with cadence 4, the max bucket exact, int8 within its bound, the synced
+   values bitwise the twin's. (d) Under the tracer, ``evaluate_matches`` on
+   three COCO chunks at (256, 4, 10, 128, 32), two of one shape, one of 64
+   images; ``pairwise_cosine_pr`` on two (64, 1, 512, 512, 1024) chunks; one
+   bucketed feature forward of 48 rows: ``heavy_kernel_calls`` (``cuda`` for
+   the kernels, ``torch`` for the forward), the launch counters, the
+   bucket-width histogram (128, 512, 64), the ``kernel/dispatch`` events, no
+   fallback and the trace counts (2 and 1). The phase stays under 60 s.
+
 Phase 2 holds the integer and IoU kernels bit for bit against their plain
 versions (B1's tenant-batched launch also against B unbatched launches, at
 the tenancy shape, unaligned rows, labels out of range, one tenant, the
@@ -631,7 +659,7 @@ def binned_cases(torch, max_shared_t):
 
 
 def check_binned_kernel(torch, kernels_mod, binned):
-    kernel = kernels_mod.KERNELS["binned_counts"]
+    kernel = kernels_mod.CUDA_KERNELS["binned_counts"]
     lib = kernel.lib()
     max_t = lib.binned_counts_max_shared_t()
     check(lib.binned_counts_class_block(1000, 100) >= 4, "T=100 should take the cluster path, at least 4 classes a block")
@@ -668,7 +696,7 @@ def check_binned_kernel(torch, kernels_mod, binned):
 def check_batched_binned_kernel(torch, kernels_mod, binned):
     """B1's tenant-batched launch: one launch for B tenants, bitwise equal to
     the batched plain version and to B unbatched launches."""
-    kernel = kernels_mod.KERNELS["binned_counts_batched"]
+    kernel = kernels_mod.CUDA_KERNELS["binned_counts_batched"]
     lib = kernel.lib()
     max_t = lib.binned_counts_max_shared_t()
     check(lib.binned_counts_batched_workspace_len(5, 3, max_t + 1) == 5 * lib.binned_counts_workspace_len(3, max_t + 1),
@@ -875,7 +903,7 @@ def iou_cases(torch):
 
 
 def check_iou_kernel(torch, kernels_mod, im):
-    kernel = kernels_mod.KERNELS["pairwise_iou"]
+    kernel = kernels_mod.CUDA_KERNELS["pairwise_iou"]
     worst = 0.0
     for label, det, gt, det_counts, gt_counts in iou_cases(torch):
         before = kernel.launches
@@ -930,7 +958,7 @@ def threshold_tie_case(torch, gen, b=16, a=4, t=10, d=8, g=32):
 
 
 def check_match_kernel(torch, kernels_mod, im):
-    kernel = kernels_mod.KERNELS["greedy_match"]
+    kernel = kernels_mod.CUDA_KERNELS["greedy_match"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [
         ("COCO chunk B=256 A=4 T=10 D=128 G=64", match_case(torch, im, gen, 256, 4, 10, 128, 64)),
@@ -1325,7 +1353,7 @@ def check_maxsim_kernel(torch, kernels_mod, cm):
     """The 3xTF32 kernel on every case: operands TMA describes as they are,
     and padded copies of the others (D = 7, a base not 16-byte aligned).
     Returns the worst error."""
-    kernel = kernels_mod.KERNELS["maxsim_tf32x3"]
+    kernel = kernels_mod.CUDA_KERNELS["maxsim_tf32x3"]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     worst = 0.0
     for label, pe, te in maxsim_cases(torch):
@@ -1930,7 +1958,7 @@ def large_t_capture(torch, mt, kernels_mod) -> None:
               for _ in range(4)]
     compiled = mt.BinnedPrecisionRecallCurve(num_classes=3, thresholds=t)
     eager = mt.BinnedPrecisionRecallCurve(num_classes=3, thresholds=t, compiled_update=False, compiled_compute=False)
-    check(kernels_mod.KERNELS["binned_counts"].lib().binned_counts_workspace_len(3, t) > 0,
+    check(kernels_mod.CUDA_KERNELS["binned_counts"].lib().binned_counts_workspace_len(3, t) > 0,
           f"T={t} should take B1's workspace path")
     kernels_mod.reset_launch_counts()
     for preds, labels in inputs:
@@ -7757,6 +7785,366 @@ def phase_eighteen(torch, mt, np, kernels_mod, smi, device="cuda") -> dict:
     return {"a": a, "b": b, "seconds": elapsed, "launches": launches}
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: self-tuning sync and the heavy-kernel registry's telemetry (A20b)
+# --------------------------------------------------------------------------- #
+PHASE19_LIMIT_S = 60.0
+TUNE_ROUNDS, TUNE_UPDATES = 16, 4  # rounds of 4 updates and one synced compute
+TUNE_SYNCS = 12  # tests/autotune/test_sync_integration.py's state, synced 12 times
+COCO_CHUNK = (256, 4, 10, 128, 32)  # images, area ranges, IoU thresholds, detections, ground truths
+COCO_SMALL_CHUNK = 64  # images of the third chunk (the same D and G)
+BERT_CHUNK = (64, 1, 512, 512, 1024)  # pairs, layers, P, R, D
+FEATURE_ROWS, FEATURE_BUCKET = 48, 64
+
+
+def tune_stream(torch, np, device: str) -> list:
+    """2 x TUNE_ROUNDS x TUNE_UPDATES seeded batches of (64, 10) float32
+    probabilities and (64,) int32 labels (made on the host, so the card and
+    its CPU twin see the same bits)."""
+    probs, labels = serve_rows(np, np.random.default_rng(SEED + 190), 2 * TUNE_ROUNDS * TUNE_UPDATES)
+    return [(torch.from_numpy(p).to(device), torch.from_numpy(l).to(device)) for p, l in zip(probs, labels)]
+
+
+def tune_rounds(torch, sync, coll, stream, group, first: int, rounds: int, synced=None) -> list:
+    """``rounds`` rounds from round ``first``: TUNE_UPDATES updates, then one
+    synced compute each. Returns the computes; appends to ``synced``, if
+    given, each round's states synced after its compute under the tuner's
+    transports of the moment (quiet: they observe and decide nothing)."""
+    out = []
+    for r in range(first, first + rounds):
+        for probs, labels in stream[r * TUNE_UPDATES:(r + 1) * TUNE_UPDATES]:
+            coll.update(probs, labels)
+        with sync.sync_axes(group):
+            for m in coll.values():
+                m._computed = None
+            out.append(coll.compute())
+        if synced is not None:
+            with sync._quiet():
+                synced.append({names[0]: coll[names[0]].sync_states(coll[names[0]].get_state(), group)
+                               for names in coll.compute_groups.values()})
+    return out
+
+
+def tune_snapshot(coll) -> dict:
+    """What must not move once the tuner has committed: the partition's
+    builds, the engines in use and their captures."""
+    stats = coll.engine_stats()
+    return {"builds": coll._dispatcher.stats.builds,
+            "engines": (id(coll._update_engine), id(coll._compute_engine)),
+            "captures": tuple(None if stats[k] is None else stats[k].cache_misses for k in ("update", "compute"))}
+
+
+def same_computes(torch, label: str, got: list, want: list, atol: dict = None) -> dict:
+    """Each round's computes bitwise, or, for the keys of ``atol``, within
+    its absolute tolerance; returns the largest difference of those keys."""
+    atol = atol or {}
+    worst = {key: 0.0 for key in atol}
+    check(len(got) == len(want), f"{label}: {len(got)} computes for {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(g.keys() == w.keys(), f"{label}: round {i} keys {sorted(g)}")
+        for key in w:
+            if key in atol:
+                gl, wl = torch.utils._pytree.tree_leaves(g[key]), torch.utils._pytree.tree_leaves(w[key])
+                diff = max(float((a.double() - b.double()).abs().max()) for a, b in zip(gl, wl))
+                check(len(gl) == len(wl) and diff <= atol[key], f"{label}: round {i} {key} differs by {diff:.3e}")
+                worst[key] = max(worst[key], diff)
+            else:
+                check(same_tree(torch, g[key], w[key]), f"{label}: round {i} {key} differs")
+    return worst
+
+
+def tuned_bucket_error(torch, sync, coll, group) -> dict:
+    """Each leader's sum buckets synced under the tuner's current transports
+    (quiet: no observation, no decision), against the local state, which is
+    the exact sync in a world of one: the error relative to each bucket's
+    largest value, as phase 14 holds it."""
+    out = {}
+    for group_names in coll.compute_groups.values():
+        leader = coll[group_names[0]]
+        state = leader.get_state()
+        with sync._quiet():
+            synced = leader.sync_states(state, group)
+        out[group_names[0]] = bucket_error(torch, leader, synced, state)
+    return out
+
+
+def phase_nineteen_a(torch, mt, np, kernels_mod, sync, obs, world, twin_group, device, smi) -> dict:
+    """19(a): live tuning on config2 + binned AP, the card against its CPU twin;
+    then 19(b), the exported plan pinned and replayed."""
+    import tempfile
+
+    at = mt.autotune
+    stream, twin_stream = tune_stream(torch, np, device), tune_stream(torch, np, "cpu")
+    kernels_mod.reset_launch_counts()
+    mt.set_autotune(True)
+    coll = serve_template(mt, device)
+    synced = []
+    with obs.trace() as tracer:
+        explore = tune_rounds(torch, sync, coll, stream, world, 0, TUNE_ROUNDS, synced)
+    ctl = at.get_controller()
+    decisions = [dict(d) for d in ctl.decisions]
+    events = [e.args for e in tracer.events() if e.name == "sync/tune_decision"]
+    check(events == decisions, f"19(a): {len(events)} sync/tune_decision events for {len(decisions)} decisions")
+    check(decisions and all(t.phase == "committed" for t in ctl.buckets.values()),
+          f"19(a): buckets {[(k, t.phase, t.current) for k, t in ctl.buckets.items()]} after {TUNE_ROUNDS} rounds")
+    for d in decisions:  # every transport the tuner chose passes the gate at its bucket's parameters
+        tuner = ctl.buckets[d["bucket"]]
+        final, refusal = sync._gate_transport(d["to"], tuner.red, tuner.dtype, tuner.nelems, tuner.world,
+                                              tuner.tolerance_for(d["to"]) if d["to"] != "exact" else None,
+                                              error_scale=tuner.max_error_scale)
+        check(final == d["to"] and refusal is None, f"19(a): decision {d} is not admissible: {refusal}")
+    committed = {k: (t.current, t.cadence) for k, t in ctl.buckets.items()}
+    epoch, before = at.decision_epoch(), tune_snapshot(coll)
+    post = tune_rounds(torch, sync, coll, stream, world, TUNE_ROUNDS, TUNE_ROUNDS, synced)
+    after = tune_snapshot(coll)
+    check(ctl.decisions == decisions and at.decision_epoch() == epoch,
+          f"19(a): {len(ctl.decisions) - len(decisions)} decisions after the commit, epoch {epoch} -> {at.decision_epoch()}")
+    check(after == before, f"19(a): the post-commit rounds rebuilt or captured: {before} -> {after}")
+    errors = tuned_bucket_error(torch, sync, coll, world)
+    worst_bound = max(sync.transport_error_bound(t, 1) for t, _ in committed.values())
+    check(max(errors.values()) <= worst_bound, f"19(a): synced-state errors {errors} past the bound {worst_bound:.3e}")
+    updates = 2 * TUNE_ROUNDS * TUNE_UPDATES
+    launches = kernels_mod.launch_counts()
+    check(launches["binned_counts"] == updates, f"19(a): B1 launched {launches['binned_counts']} times for {updates} updates")
+    stats = coll.engine_stats()
+    check(not stats["fallback_reasons"], f"19(a): fallbacks {stats['fallback_reasons']}")
+    plan = at.export_plan()
+
+    # the CPU twin, from a fresh controller, through gloo
+    mt.set_autotune(True)
+    twin = serve_template(mt, "cpu")
+    twin_synced = []
+    twin_results = tune_rounds(torch, sync, twin, twin_stream, twin_group, 0, 2 * TUNE_ROUNDS, twin_synced)
+    twin_ctl = at.get_controller()
+    check(json.dumps(twin_ctl.decisions, sort_keys=True) == json.dumps(decisions, sort_keys=True),
+          f"19(a): the CPU twin decided {twin_ctl.decisions}, the card {decisions}")
+    for i, (mine, theirs) in enumerate(zip(synced, twin_synced)):
+        check(same_tree(torch, mine, theirs), f"19(a): round {i}'s tuned synced states differ from the CPU twin's")
+    # the macro averages and the binned AP reduce over classes and thresholds
+    # in another order on the card than on the CPU (their synced states are
+    # bitwise the twin's, above); micro accuracy is bitwise
+    twin_diff = same_computes(torch, "19(a) card against its CPU twin",
+                              [torch.utils._pytree.tree_map(lambda x: x.cpu(), r) for r in explore + post],
+                              twin_results, atol={k: CURVE_ATOL for k in ("f1", "precision", "recall", "binned_ap")})
+    print(f"phase 19(a) ({smi}): {len(decisions)} decisions in {TUNE_ROUNDS} rounds, committed {committed};"
+          f" synced-state error {errors} (bound {worst_bound:.3e}); {TUNE_ROUNDS} more rounds: no decision, epoch"
+          f" {epoch}, no rebuild or capture ({after}); B1 launched {launches['binned_counts']} times for {updates}"
+          f" updates; decisions, synced states and accuracy bitwise equal to the CPU twin's; the other computes within"
+          f" {twin_diff} (tolerance {CURVE_ATOL:g})")
+
+    # 19(b): the plan saved, pinned from its file, replayed on a fresh collection
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_phase19_") as tmp:
+        path = os.path.join(tmp, "tuned_plan.json")
+        plan.save(path)
+        mt.set_autotune(path)
+        pinned_epoch = at.decision_epoch()
+        pinned = serve_template(mt, device)
+        replay = tune_rounds(torch, sync, pinned, stream, world, 0, 2 * TUNE_ROUNDS)
+    pin_ctl = at.get_controller()
+    check(pin_ctl.pinned is not None and pin_ctl.decisions == [] and at.decision_epoch() == pinned_epoch,
+          f"19(b): the pinned run decided {pin_ctl.decisions}, epoch {pinned_epoch} -> {at.decision_epoch()}")
+    snap = tune_snapshot(pinned)
+    check(snap["builds"] == 1 and snap["captures"] == (1, 1), f"19(b): the pinned run rebuilt or recaptured: {snap}")
+    same_computes(torch, "19(b) pinned replay against 19(a)'s post-commit rounds", replay[TUNE_ROUNDS:], post)
+    # the synced compute's time, captured, under the committed transports and under exact
+    times = {}
+    for label in ("committed", "exact"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_phase19_") as tmp:
+            if label == "committed":
+                path = os.path.join(tmp, "tuned_plan.json")
+                plan.save(path)
+                mt.set_autotune(path)
+            else:
+                mt.set_autotune(False)
+            timed = serve_template(mt, device)
+            tune_rounds(torch, sync, timed, stream, world, 0, 3)
+            samples = []
+            with sync.sync_axes(world):
+                for _ in range(20):
+                    for m in timed.values():
+                        m._computed = None
+                    samples.append(event_ms(torch, timed.compute)[1])
+        times[label] = statistics.median(samples)
+    mt.set_autotune(None)
+    print(f"phase 19(b) ({smi}): the plan pinned from its JSON: no decision, epoch {pinned_epoch} unmoved, one build and"
+          f" one capture each for update and compute; rounds {TUNE_ROUNDS + 1}-{2 * TUNE_ROUNDS} bitwise equal to 19(a)'s;"
+          f" synced compute (captured, median of 20 by CUDA events) {times['committed']:.3f} ms under the committed"
+          f" transports, {times['exact']:.3f} ms exact (a world of one moves nothing over a link)")
+    return {"decisions": len(decisions), "committed": committed, "errors": errors, "launches": launches,
+            "compute_ms": times, "plan": plan.to_dict()}
+
+
+def phase_nineteen_c(torch, mt, sync, world, twin_group, device, smi) -> dict:
+    """19(c): sync_state of tests/autotune/test_sync_integration.py's state,
+    12 times, on the card and on its CPU twin."""
+    at = mt.autotune
+    base = {"big": torch.linspace(0.1, 40.0, 8192, dtype=torch.float32),
+            "counts": torch.arange(1000, dtype=torch.int32) % 7,
+            "mx": torch.tensor([7.0, 1.0], dtype=torch.float32)}
+    reds = {"big": "sum", "counts": "sum", "mx": "max"}
+    runs = {}
+    for label, dev, group in (("card", device, world), ("twin", "cpu", twin_group)):
+        state = {k: v.to(dev) for k, v in base.items()}
+        mt.set_autotune(True)
+        outs = [sync.sync_state(state, reds, group, bucketed=True) for _ in range(TUNE_SYNCS)]
+        ctl = at.get_controller()
+        runs[label] = (ctl, outs, state)
+    ctl, outs, state = runs["card"]
+    twin_ctl, twin_outs, _ = runs["twin"]
+    check(json.dumps(ctl.decisions, sort_keys=True) == json.dumps(twin_ctl.decisions, sort_keys=True),
+          f"19(c): the card decided {ctl.decisions}, the CPU twin {twin_ctl.decisions}")
+    got = {k: (t.current, t.cadence, t.phase) for k, t in ctl.buckets.items()}
+    want = {"sum|float32|psum": ("int8", 4, "committed"), "sum|int32|psum": ("int8", 4, "committed"),
+            "max|float32|psum": ("exact", ctl.config.max_cadence, "committed")}
+    check(got == want, f"19(c): buckets {got}, expected {want}")
+    check(all(d["to"] == "exact" for d in ctl.decisions if d["bucket"] == "max|float32|psum"),
+          f"19(c): the max bucket left exact: {ctl.decisions}")
+    for out, twin_out in zip(outs, twin_outs):
+        for k in base:
+            check(same_bits(torch, out[k], twin_out[k]), f"19(c): synced {k} differs from the CPU twin's")
+    worst = {}
+    for k in ("big", "counts"):
+        exact64, got64 = state[k].double(), outs[-1][k].double()
+        worst[k] = float((got64 - exact64).abs().max()) / float(exact64.abs().max())
+    bound_rel = sync.transport_error_bound("int8", 1)
+    check(max(worst.values()) <= bound_rel, f"19(c): int8 errors {worst} past the bound {bound_rel:.3e}")
+    check(same_bits(torch, outs[-1]["mx"], state["mx"]), "19(c): the max bucket is not exact")
+    print(f"phase 19(c) ({smi}): {len(ctl.decisions)} decisions in {TUNE_SYNCS} syncs, equal to the CPU twin's; committed"
+          f" {got}; int8 error {worst} (bound {bound_rel:.3e}); max exact; synced values bitwise equal to the twin's")
+    mt.set_autotune(None)
+    return {"decisions": len(ctl.decisions), "committed": got, "errors": worst}
+
+
+def coco_chunk(torch, b: int, d: int, g: int, a: int, t: int, device: str, seed: int) -> tuple:
+    """evaluate_matches' inputs for ``b`` padded COCO images (80 classes padded
+    to 128, the four area ranges, ``t`` IoU thresholds from 0.5)."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def boxes(n):
+        xy = torch.rand((b, n, 2), generator=gen) * 500.0
+        wh = 1.0 + torch.rand((b, n, 2), generator=gen) * 199.0
+        return torch.cat([xy, xy + wh], dim=-1)
+
+    areas = torch.tensor([[0.0, 1e10], [0.0, 32.0 ** 2], [32.0 ** 2, 96.0 ** 2], [96.0 ** 2, 1e10]])[:a]
+    args = (boxes(d), torch.rand((b, d), generator=gen), torch.randint(0, 80, (b, d), generator=gen, dtype=torch.int32),
+            torch.randint(0, d + 1, (b,), generator=gen, dtype=torch.int32), boxes(g),
+            torch.randint(0, 80, (b, g), generator=gen, dtype=torch.int32),
+            torch.randint(0, g + 1, (b,), generator=gen, dtype=torch.int32), torch.arange(128, dtype=torch.int32),
+            torch.arange(128) < 80, areas, 0.5 + 0.05 * torch.arange(t, dtype=torch.float32))
+    return tuple(x.to(device).contiguous() for x in args)
+
+
+def heavy_series(registry) -> dict:
+    """The heavy-kernel series: calls by (kernel, impl), bucket-width
+    histogram counts by kernel, fallbacks by kernel."""
+    out = {"calls": {}, "widths": {}, "fallbacks": {}}
+    for sample in registry.samples():
+        labels = sample.labels
+        if sample.name == "metrics_tpu_heavy_kernel_calls":
+            out["calls"][(labels["kernel"], labels["impl"])] = sample.value
+        elif sample.name == "metrics_tpu_heavy_kernel_bucket_width_bucket":
+            out["widths"][(labels["kernel"], labels["le"])] = sample.value
+        elif sample.name == "metrics_tpu_heavy_kernel_fallbacks":
+            out["fallbacks"][labels["kernel"]] = sample.value
+    return out
+
+
+def series_delta(after: dict, before: dict) -> dict:
+    return {part: {k: v - before[part].get(k, 0.0) for k, v in after[part].items() if v != before[part].get(k, 0.0)}
+            for part in after}
+
+
+def phase_nineteen_d(torch, mt, kernels_mod, obs, device, smi) -> dict:
+    """19(d): evaluate_matches, pairwise_cosine_pr and a bucketed feature
+    forward under the tracer: the registry's series, events and trace counts
+    against the calls and the launch counters."""
+    from metrics_tpu_torch.observability.instruments import REGISTRY
+    from metrics_tpu_torch.ops.kernels import features as feats
+
+    b, a, t, d, g = COCO_CHUNK
+    chunks = [coco_chunk(torch, b, d, g, a, t, device, SEED + 191), coco_chunk(torch, b, d, g, a, t, device, SEED + 192),
+              coco_chunk(torch, COCO_SMALL_CHUNK, d, g, a, t, device, SEED + 193)]
+    pb, pl, pp, pr, pd = BERT_CHUNK
+    gen = torch.Generator().manual_seed(SEED + 194)
+
+    def unit(*shape):
+        x = torch.randn(shape, generator=gen)
+        return (x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)).to(device)
+
+    texts = [(unit(pb, pl, pp, pd), unit(pb, pl, pr, pd), torch.full((pb, pp), 1.0 / pp, device=device),
+              torch.full((pb, pr), 1.0 / pr, device=device)) for _ in range(2)]
+    conv = torch.nn.Conv2d(3, 8, 3).to(device)
+    extractor = mt.ops.kernels.BucketedFeatureExtractor(lambda x: conv(x).mean(dim=(2, 3)))
+    images = torch.randn((FEATURE_ROWS, 3, 32, 32), generator=gen).to(device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    kernels_mod.reset_trace_counts()
+    kernels_mod.reset_launch_counts()
+    before = heavy_series(REGISTRY)
+    with obs.trace() as tracer, torch.no_grad():
+        for chunk in chunks:
+            kernels_mod.evaluate_matches(*chunk, max_det=100)
+        for text in texts:
+            kernels_mod.pairwise_cosine_pr(*text)
+        feats_out = extractor(images)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    delta = series_delta(heavy_series(REGISTRY), before)
+    launches = kernels_mod.launch_counts()
+    traces = kernels_mod.trace_counts()
+    impl = "cuda" if device == "cuda" else "torch"
+    check(feats_out.shape == (FEATURE_ROWS, 8), f"19(d): the bucketed forward returned {tuple(feats_out.shape)}")
+    check(delta["calls"] == {("iou_matching", impl): 3.0, ("cosine_matching", impl): 2.0,
+                             ("feature_extract", "torch"): 1.0}, f"19(d): heavy_kernel_calls moved by {delta['calls']}")
+    want_launches = {"pairwise_iou": 3, "greedy_match": 3, "maxsim_tf32x3": 2} if device == "cuda" else {}
+    moved = {k: n for k, n in launches.items() if n}
+    check(moved == want_launches, f"19(d): launches {moved}, expected {want_launches}")
+    widths = {}
+    for (kernel, le), n in delta["widths"].items():  # cumulative buckets: the smallest le that moved
+        if le != "+Inf" and (kernel not in widths or float(le) < widths[kernel][0]):
+            widths[kernel] = (float(le), n)
+    check(widths == {"iou_matching": (float(d), 3.0), "cosine_matching": (float(pp), 2.0),
+                     "feature_extract": (float(FEATURE_BUCKET), 1.0)}, f"19(d): bucket widths {widths}")
+    events = [e.args for e in tracer.events() if e.name == "kernel/dispatch"]
+    want_events = ([{"kernel": "iou_matching", "impl": impl, "bucket_width": d}] * 3
+                   + [{"kernel": "cosine_matching", "impl": impl, "bucket_width": pp}] * 2
+                   + [{"kernel": "feature_extract", "impl": "torch", "bucket_width": FEATURE_BUCKET}])
+    check(events == want_events, f"19(d): kernel/dispatch events {events}")
+    check(not delta["fallbacks"] and not any(e.name == "kernel/fallback" for e in tracer.events()),
+          f"19(d): fallbacks recorded: {delta['fallbacks']}")
+    check(traces == {"iou_matching": 2, "cosine_matching": 1}, f"19(d): trace counts {traces}")
+    print(f"phase 19(d) ({smi}): heavy_kernel_calls moved by {delta['calls']}; launches {moved}; bucket widths {widths};"
+          f" {len(events)} kernel/dispatch events; no fallback; trace counts {traces} (the repeated shapes counted once)")
+    return {"launches": launches, "calls": {f"{k}/{i}": n for (k, i), n in delta["calls"].items()}, "traces": traces}
+
+
+def phase_nineteen(torch, mt, np, kernels_mod, sync, smi, device="cuda") -> dict:
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import observability as obs
+
+    t0 = time.perf_counter()
+    if device == "cuda":
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                                device_id=torch.device("cuda", 0))
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        world = dist.group.WORLD
+        twin_group = dist.new_group(ranks=[0], backend="gloo")
+        a = phase_nineteen_a(torch, mt, np, kernels_mod, sync, obs, world, twin_group, device, smi)
+        c = phase_nineteen_c(torch, mt, sync, world, twin_group, device, smi)
+    finally:
+        mt.set_autotune(None)
+        dist.destroy_process_group()
+    d = phase_nineteen_d(torch, mt, kernels_mod, obs, device, smi)
+    launches = {k: a["launches"][k] + d["launches"][k] for k in a["launches"]}
+    elapsed = time.perf_counter() - t0
+    print(f"phase 19 ({smi}): {elapsed:.1f} s in all (limit {PHASE19_LIMIT_S:.0f} s); kernel launches {launches}")
+    check(elapsed < PHASE19_LIMIT_S, f"phase 19 took {elapsed:.1f} s, over its {PHASE19_LIMIT_S:.0f} s")
+    return {"a": a, "c": c, "d": d, "seconds": elapsed, "launches": launches}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -7788,8 +8176,8 @@ def main() -> None:
     # ---- phase 2: build every kernel, hold each against its plain version
     t0 = time.perf_counter()
     kernels_mod.build_all()
-    print(f"phase 2: built {sorted(kernels_mod.KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    for kernel in kernels_mod.KERNELS.values():
+    print(f"phase 2: built {sorted(kernels_mod.CUDA_KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for kernel in kernels_mod.CUDA_KERNELS.values():
         for line in kernel.build_log.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line or "arning" in line:
                 print(f"  ptxas {kernel.name}: {line.strip()}")
@@ -7973,13 +8361,17 @@ def main() -> None:
     # ---- phase 18: serve and cluster (the batched B1 launch under HTTP ingest, two replicas)
     eighteen = phase_eighteen(torch, mt, np, kernels_mod, smi)
 
+    # ---- phase 19: self-tuning sync (B1 on the tuned main path) and the heavy-kernel registry's telemetry
+    # (B2 + the matcher and B3 dispatched under it)
+    nineteen = phase_nineteen(torch, mt, np, kernels_mod, sync, smi)
+
     def record(kname, timing, **extra):
         us = {"us": timing["ms"] * 1e3, "plain_us": timing["plain_ms"] * 1e3, "bound_us": timing["bound_ms"] * 1e3}
         return {
             "name": kname,
             "route": "cuda",
-            "source": f"metrics_tpu_torch/csrc/{kernels_mod.KERNELS[kname].source}",
-            "replaces": kernels_mod.KERNELS[kname].replaces,
+            "source": f"metrics_tpu_torch/csrc/{kernels_mod.CUDA_KERNELS[kname].source}",
+            "replaces": kernels_mod.CUDA_KERNELS[kname].replaces,
             "launches": launches[kname],
             "max_abs_err": worst_err[kname],
             "ms": timing["ms"],
@@ -7999,6 +8391,7 @@ def main() -> None:
             "phase16_launches": sixteen["launches"][kname],
             "phase17_launches": seventeen["launches"][kname],
             "phase18_launches": eighteen["launches"][kname],
+            "phase19_launches": nineteen["launches"][kname],
             **us,
             **extra,
         }
@@ -8035,7 +8428,9 @@ def main() -> None:
                phase16_step_us={"tracer_off": sixteen["f"]["off_us"], "tracer_on": sixteen["f"]["on_us"]},
                phase16_correlation={k: sixteen["b"][k] for k in ("matched", "unmatched", "host_dispatches")},
                phase17_restored_run_launches=seventeen["a"]["launches_after_restore"],
-               phase17_route_us=seventeen["routes"]),
+               phase17_route_us=seventeen["routes"],
+               phase19_tuned={"decisions": nineteen["a"]["decisions"], "committed": nineteen["a"]["committed"],
+                              "synced_compute_ms": nineteen["a"]["compute_ms"]}),
         record("pairwise_iou", {k: v for k, v in det["pairwise_iou"].items() if k in ("ms", "plain_ms", "bound_ms", "bound_by")},
                library_note="no single PyTorch call computes batched pairwise IoU",
                compiled_map_compute_launches=seven["map"]["launches"]["pairwise_iou"],
@@ -8064,8 +8459,8 @@ def main() -> None:
     kernels.append({
         "name": "binned_counts_batched",
         "route": "cuda",
-        "source": f"metrics_tpu_torch/csrc/{kernels_mod.KERNELS['binned_counts_batched'].source}",
-        "replaces": kernels_mod.KERNELS["binned_counts_batched"].replaces,
+        "source": f"metrics_tpu_torch/csrc/{kernels_mod.CUDA_KERNELS['binned_counts_batched'].source}",
+        "replaces": kernels_mod.CUDA_KERNELS["binned_counts_batched"].replaces,
         "launches": seventeen["launches"]["binned_counts_batched"],
         "max_abs_err": worst_err["binned_counts_batched"],
         **{k: batched[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
@@ -8075,7 +8470,7 @@ def main() -> None:
         "shape": batched["shape"], "device_us": batched["device_us"], "graph_device_us": batched["graph_device_us"],
         **{f"phase{p}_launches": r["launches"].get("binned_counts_batched", 0)
            for p, r in ((8, eight), (9, nine), (10, ten), (11, eleven), (12, twelve), (13, thirteen), (14, fourteen),
-                        (15, fifteen), (16, sixteen), (17, seventeen), (18, eighteen))},
+                        (15, fifteen), (16, sixteen), (17, seventeen), (18, eighteen), (19, nineteen))},
         "phase17_stacked_update_launches": seventeen["d"]["main_launches"],
         "phase18_serve": {k: eighteen["a"][k] for k in ("observations", "obs_per_s", "post_p50_ms", "post_p99_ms",
                                                          "read_p50_ms", "read_p99_ms", "dispatches", "mean_width",

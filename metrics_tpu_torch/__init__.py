@@ -13,7 +13,9 @@ do; all are off by default. ``checkpoint`` saves and restores state in the
 JAX package's on-disk format, ``tenancy`` stacks many tenants' states
 behind one captured step a bucket, and ``serve`` feeds such a set from an
 HTTP ingest queue (``cluster``, imported on its own, spreads tenants over
-several of them).
+several of them). ``autotune`` picks each sync bucket's transport and
+cadence under the error-budget gate (off unless ``set_autotune`` or
+``METRICS_TPU_AUTOTUNE`` turns it on).
 """
 from metrics_tpu_torch.__about__ import __version__
 from metrics_tpu_torch import functional
@@ -107,6 +109,14 @@ from metrics_tpu_torch.checkpoint import (  # noqa: F401
 from metrics_tpu_torch import tenancy  # noqa: F401
 from metrics_tpu_torch.tenancy import TenantSet  # noqa: F401
 from metrics_tpu_torch import serve  # noqa: F401
+from metrics_tpu_torch import autotune  # noqa: F401
+from metrics_tpu_torch.autotune import (  # noqa: F401
+    PolicyConfig,
+    TunedPlan,
+    autotune_enabled,
+    set_autotune,
+)
+from metrics_tpu_torch.autotune import export_plan as export_tuned_plan  # noqa: F401
 from metrics_tpu_torch.parallel import (
     bucketed_sync_enabled,
     set_bucketed_sync,
@@ -269,4 +279,6 @@ __all__ = [
     # sync transports, modes and cadence
     "set_sync_cadence", "set_sync_mode", "set_sync_transport", "sync_cadence_default", "sync_mode_default",
     "sync_transport_default", "transport_error_bound",
+    # autotune (self-tuning sync)
+    "autotune", "set_autotune", "autotune_enabled", "export_tuned_plan", "PolicyConfig", "TunedPlan",
 ]

@@ -132,7 +132,17 @@ partition and grows a ``tenant`` section in its view. The TenantSet owns
 the stacked state and its captured steps (one ``torch.func.vmap`` of the
 members' pure protocol per bucket width, a :class:`CapturedStep` each).
 
-Not here, and queued elsewhere: the autotune token (A20b).
+**Self-tuning sync** (:mod:`metrics_tpu_torch.autotune`). A decision of
+the tuner moves its epoch (:func:`_autotune_token`, a constant while tuning
+is off), which joins the dispatcher's partition key, a metric's key of a
+synced compute and the incremental step's key of an emitting call,
+as the JAX dispatcher keys on it: a decision rebuilds at the next call, and
+a committed tuner or a pinned plan adds no rebuild or capture. A probe
+records the transports (and cadence) the tuner gave its syncs
+(``parallel.sync.recording_tuned``) and every later run of the captured body
+replays them (``replaying_tuned``): the probe's own observation may move the
+tuner, and the graph must sync as the probe did. The controller's lock is the
+only state this adds that threads share.
 
 Global switches: ``set_compiled_update``, ``set_compiled_compute`` and
 ``set_fused_update`` (environment variables ``METRICS_TPU_COMPILED_UPDATE``,
@@ -178,6 +188,15 @@ _ENV_FLAG_COMPUTE = "METRICS_TPU_COMPILED_COMPUTE"
 _ENV_FLAG_FUSED = "METRICS_TPU_FUSED_UPDATE"
 
 _SCALAR_TYPES = (int, float, bool, complex)
+
+
+def _autotune_token() -> int:
+    """The self-tuning sync decision epoch (a constant while tuning is off).
+    A lazy import: the autotune package sits above ``parallel``, which this
+    module imports too."""
+    from metrics_tpu_torch.autotune import controller as _at
+
+    return _at.partition_token()
 
 
 def _env_default(flag: str = _ENV_FLAG) -> bool:
@@ -704,6 +723,8 @@ class CapturedStep:
         self.launch_delta: Dict[str, int] = {}
         # the probe's collectives, counted again at every replay
         self.collectives: Optional[Dict[str, Any]] = None
+        # the tuner's answers to the probe's syncs, replayed by every later run
+        self.tuned: List[Tuple[Tuple, Any]] = []
         self.buffer_rows: Tuple[int, ...] = ()
         self._state_spec = self._args_spec = self._out_spec = None
         self._consts: List[Any] = []
@@ -718,7 +739,7 @@ class CapturedStep:
         self._consts = [None if isinstance(x, Tensor) else x for x in arg_leaves]
         device = next((x.device for x in state_leaves + arg_leaves if isinstance(x, Tensor)), torch.device("cpu"))
         if device.type != "cuda":
-            with _probe(), _sync.count_collectives() as self.collectives:
+            with _probe(), _sync.count_collectives() as self.collectives, _sync.recording_tuned() as self.tuned:
                 out = self.fn(state, args, kwargs)
             out_leaves = self._check_out(state, state_leaves, out)
             self._make_statics(state_leaves, arg_leaves, out_leaves)
@@ -732,7 +753,8 @@ class CapturedStep:
                 with torch.cuda.stream(side):
                     # the probe runs where the capture will: per-stream resources
                     # a kernel wrapper makes on first use exist before the capture
-                    with _probe(), _sync.count_collectives() as self.collectives:
+                    with _probe(), _sync.count_collectives() as self.collectives, \
+                            _sync.recording_tuned() as self.tuned:
                         out = self.fn(state, args, kwargs)
                     out_leaves = self._check_out(state, state_leaves, out)
                 with torch.cuda.stream(current):
@@ -780,6 +802,10 @@ class CapturedStep:
         return state, args, kwargs
 
     def _body(self) -> None:
+        with _sync.replaying_tuned(self.tuned):
+            self._run_body()
+
+    def _run_body(self) -> None:
         state, args, kwargs = self._static_inputs()
         if self.writes_state:
             with writes_in_place():
@@ -844,7 +870,7 @@ class CapturedStep:
         a backup. Returns the new state tree."""
         hand_out_statics = donate and all(free)
         if self.graph is None:  # the CPU: run the step, no graph; quiet, as a replay
-            with _steady(), _sync._quiet():
+            with _steady(), _sync._quiet(), _sync.replaying_tuned(self.tuned):
                 out = tree_leaves(self.fn(state, args, kwargs))
             if hand_out_statics:
                 for dst, src in zip(self.state_static, out):
@@ -869,7 +895,7 @@ class CapturedStep:
     def run_compute(self, state: Any, leaves: list, args: Tuple = (), kwargs: Optional[Dict] = None) -> Any:
         """A steady-state compute; returns fresh tensors."""
         if self.graph is None:
-            with _steady(), _sync._quiet():
+            with _steady(), _sync._quiet(), _sync.replaying_tuned(self.tuned):
                 return self.fn(state, args, kwargs or {})
         for s, x in zip(self.state_static, leaves):
             s.copy_(x)
@@ -1621,7 +1647,10 @@ class CompiledComputeEngine(_EngineBase):
         state = m.get_state()
         if not _leaves_compilable(state):
             return False, None
-        return self._dispatch(state, (self._groups.key(_compute_group(m)),), {}, frozenset())
+        group_key = self._groups.key(_compute_group(m))
+        # a synced compute keys on the tuner's epoch too: a decision captures anew
+        args = (group_key,) if group_key is None else (group_key, _autotune_token())
+        return self._dispatch(state, args, {}, frozenset())
 
 
 class CollectionComputeEngine(_EngineBase):
@@ -1771,6 +1800,8 @@ class CompiledIncrementalStep(_EngineBase):
                 )
             key.append((emits, gates))
             nxt[name] = (pending, emissions)
+        if any(emits for emits, _ in key):
+            key.append(_autotune_token())  # the tuner's epoch: a decision captures anew
         return tuple(key), nxt
 
     def __call__(self, carry: Any, *args: Any, **kwargs: Any) -> Any:
@@ -1872,7 +1903,12 @@ class CollectionDispatcher:
     # ------------------------------------------------------------------ #
     def _partition_key(self) -> Tuple:
         coll = self.collection
-        parts: List[Any] = [("sync_mode", _sync.sync_mode_default())]
+        parts: List[Any] = [
+            ("sync_mode", _sync.sync_mode_default()),
+            # the autotune decision epoch: a tuner decision repartitions (and
+            # recaptures) once; a committed tuner adds no rebuild
+            ("autotune", _autotune_token()),
+        ]
         for group in coll._groups:
             leader = coll._metrics[group[0]]
             parts.append((

@@ -523,12 +523,9 @@ def _autotune_samples() -> Iterable[Sample]:
     """Derived self-tuning-sync gauges read off the live controller at
     snapshot time (the per-decision counters/gauges are pushed by the
     controller itself; these cover the controller-level view). Lazy import:
-    observability must stay importable without the autotune package, which
-    the port does not have yet: the import fails and nothing is yielded."""
-    try:
-        from metrics_tpu_torch.autotune import controller as _at  # type: ignore[import-not-found]
-    except Exception:
-        return
+    the autotune package imports the sync layer, which imports this module."""
+    from metrics_tpu_torch.autotune import controller as _at
+
     enabled = _at.autotune_enabled()
     yield Sample(f"{PREFIX}autotune_enabled", {},
                  1.0 if enabled else 0.0, "gauge",

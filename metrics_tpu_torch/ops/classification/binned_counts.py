@@ -44,11 +44,11 @@ import torch
 from torch import Tensor
 from torch._C._functorch import is_batchedtensor
 
-from metrics_tpu_torch.ops.kernels import KERNELS, count_launch
+from metrics_tpu_torch.ops.kernels import CUDA_KERNELS, count_launch
 from metrics_tpu_torch.utils.exceptions import Uncapturable
 
-KERNEL = KERNELS["binned_counts"]
-BATCHED_KERNEL = KERNELS["binned_counts_batched"]
+KERNEL = CUDA_KERNELS["binned_counts"]
+BATCHED_KERNEL = CUDA_KERNELS["binned_counts_batched"]
 
 Counts = Tuple[Tensor, Tensor, Tensor]
 

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels: build with ``nvcc``, load with ``ctypes``,
-count launches.
+"""The heavy-kernel layer: the hand-written CUDA kernels (build with
+``nvcc``, load with ``ctypes``, count launches) and the heavy-kernel
+registry with its dispatch telemetry.
 
 Each kernel is one ``.cu`` file under ``metrics_tpu_torch/csrc/`` with a
 plain C interface. It is compiled for ``sm_90a`` at first use into
@@ -23,6 +24,37 @@ handlers, the caller). A wrapper counts through :func:`count_launch`, under
 one lock; while a thread captures, its launches go to that thread's record
 and not to the counters, so another thread's launches made meanwhile are
 never taken for the capture's.
+
+**The registry.** :data:`CUDA_KERNELS` holds the CUDA loader's ``Kernel``
+entries, one a C entry family. :data:`KERNELS` is the JAX package's
+registry of heavy kernels (``metrics_tpu/ops/kernels/__init__.py``): one
+:class:`KernelSpec` each for ``iou_matching``, ``cosine_matching`` and
+``feature_extract``, the same keys and fields, ``module`` naming the port's
+module. The wrappers record their dispatches as the JAX wrappers do: the
+``metrics_tpu_heavy_kernel_calls{kernel,impl}`` counter, the
+``metrics_tpu_heavy_kernel_bucket_width{kernel}`` histogram on the same pow2
+buckets, and a ``kernel/dispatch`` tracer event. Where the port departs:
+
+- ``impl`` is ``"cuda"`` for a dispatch that launches hand kernels and
+  ``"torch"`` for the plain versions on the CPU and for torch code such as
+  the feature forward (the JAX package's ``jit``; its ``pallas`` and
+  ``pallas_interpret`` have no counterpart).
+- No fallback: a kernel's build or launch error raises. :func:`record_fallback`
+  keeps its series (``metrics_tpu_heavy_kernel_fallbacks``) and its
+  ``kernel/fallback`` event, and no wrapper calls it.
+- :func:`resolve_use_pallas` keeps the JAX modes and their ``ValueError``,
+  reads no environment variable and never answers ``interpret=True``.
+- :func:`trace_counts` counts, per kernel and process, each input signature
+  (shapes, dtypes, device and the static arguments) the first time a
+  wrapper sees it, until :func:`reset_trace_counts`: what a jit cache
+  counts, so the same shapes twice count once and ragged widths are bounded
+  by their pow2 buckets.
+- Dispatches and trace counts are recorded where the wrapper's Python runs:
+  eagerly and at a compiled engine's probe, not in a capture's second run or
+  the CPU's stand-in for a replay (``parallel.sync._quiet``), and not at a
+  replay, which runs no Python, as a jitted JAX body records at trace time
+  only. The launch counters above do add a replay's launches, so on a
+  compiled path the two counts differ by design.
 """
 from __future__ import annotations
 
@@ -37,9 +69,12 @@ from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import torch
+
+from metrics_tpu_torch.observability import instruments as _instruments
+from metrics_tpu_torch.observability import tracer as _otrace
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -133,7 +168,7 @@ class Kernel:
         """The loaded library, built on first use."""
         with self._lock:
             if self._lib is None:
-                lib = KERNELS[self.shares].lib() if self.shares else ctypes.CDLL(str(self.build()))
+                lib = CUDA_KERNELS[self.shares].lib() if self.shares else ctypes.CDLL(str(self.build()))
                 for symbol, (argtypes, restype) in self.signatures.items():
                     fn = getattr(lib, symbol)
                     fn.argtypes = list(argtypes)
@@ -142,7 +177,7 @@ class Kernel:
             return self._lib
 
 
-KERNELS: Dict[str, Kernel] = {
+CUDA_KERNELS: Dict[str, Kernel] = {
     "binned_counts": Kernel(
         name="binned_counts",
         source="binned_counts.cu",
@@ -218,8 +253,8 @@ def current_stream(x: torch.Tensor) -> int:
 
 def build_all() -> None:
     """Build (and load) every kernel, one ``nvcc`` each, all started together."""
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        for future in [pool.submit(k.lib) for k in KERNELS.values()]:
+    with ThreadPoolExecutor(max_workers=len(CUDA_KERNELS)) as pool:
+        for future in [pool.submit(k.lib) for k in CUDA_KERNELS.values()]:
             future.result()
 
 
@@ -266,20 +301,181 @@ def recording_launches() -> Iterator[Dict[str, int]]:
 
 def reset_launch_counts() -> None:
     with _COUNT_LOCK:
-        for kernel in KERNELS.values():
+        for kernel in CUDA_KERNELS.values():
             kernel._launches = 0
 
 
 def launch_counts() -> Dict[str, int]:
     with _COUNT_LOCK:
-        return {name: kernel._launches for name, kernel in KERNELS.items()}
+        return {name: kernel._launches for name, kernel in CUDA_KERNELS.items()}
 
 
 def add_launches(delta: Dict[str, int]) -> None:
     """Add ``delta[name]`` launches to each named kernel's count."""
     with _COUNT_LOCK:
         for name, n in delta.items():
-            KERNELS[name]._launches += n
+            CUDA_KERNELS[name]._launches += n
+
+
+# --------------------------------------------------------------------------- #
+# the heavy-kernel registry and its dispatch telemetry
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class KernelSpec:
+    """One registered heavy kernel: its name, owning module, and what the
+    hand-written variant covers (``pallas_scope``, the JAX package's field
+    name; the rest of the kernel stays torch code either way)."""
+
+    name: str
+    module: str
+    description: str
+    pallas_scope: str
+
+
+KERNELS: Dict[str, KernelSpec] = {
+    "iou_matching": KernelSpec(
+        name="iou_matching",
+        module="metrics_tpu_torch.ops.kernels.iou_matching",
+        description=(
+            "Fused pairwise-IoU + greedy COCO matching over pow2-padded "
+            "detection/groundtruth buffers (batched across images and classes)"
+        ),
+        pallas_scope="pairwise IoU matrix (csrc/pairwise_iou.cu) and the merged-class greedy matcher "
+                     "(csrc/greedy_match.cu)",
+    ),
+    "cosine_matching": KernelSpec(
+        name="cosine_matching",
+        module="metrics_tpu_torch.ops.kernels.cosine_matching",
+        description=(
+            "Pairwise token cosine-similarity + greedy max matching for "
+            "BERTScore precision/recall/F1"
+        ),
+        pallas_scope="row/col max of the token similarity matrix (csrc/maxsim_tc.cu)",
+    ),
+    "feature_extract": KernelSpec(
+        name="feature_extract",
+        module="metrics_tpu_torch.ops.kernels.features",
+        description=(
+            "pow2-bucketed batched feature extraction (Inception, LPIPS) so "
+            "ragged update batches reuse at most log2(N) forward signatures"
+        ),
+        pallas_scope="none (the network forward is torch code)",
+    ),
+}
+
+# pow2 histogram buckets for the bucket-width series: 1..8192 covers every
+# batch/token width the engines produce (wider observations land in +Inf)
+_WIDTH_BUCKETS = tuple(float(1 << i) for i in range(14))
+
+# per kernel: the input signatures seen since the last reset, and their count
+_TRACE_COUNTS: Dict[str, int] = {}
+_SIGNATURES: Dict[str, set] = {}
+_TRACE_LOCK = threading.Lock()
+
+
+def _signature(args: Sequence[Any]) -> Tuple:
+    """What a jit cache keys on: each tensor's shape, dtype and device, and
+    every other argument as it is."""
+    return tuple(
+        (tuple(a.shape), a.dtype, a.device) if isinstance(a, torch.Tensor) else a for a in args
+    )
+
+
+def bump_trace_count(kernel: str, signature: Optional[Tuple] = None) -> None:
+    """Count one new input signature of ``kernel``: ``signature`` (a tuple
+    of the call's tensors and static arguments) counts the first time it is
+    seen since the last :func:`reset_trace_counts`; with none, every call
+    counts, as in the JAX package."""
+    with _TRACE_LOCK:
+        if signature is not None:
+            key = _signature(signature)
+            seen = _SIGNATURES.setdefault(kernel, set())
+            if key in seen:
+                return
+            seen.add(key)
+        _TRACE_COUNTS[kernel] = _TRACE_COUNTS.get(kernel, 0) + 1
+
+
+def trace_counts() -> Dict[str, int]:
+    """Snapshot of per-kernel signature counts since process start or the
+    last reset."""
+    with _TRACE_LOCK:
+        return dict(_TRACE_COUNTS)
+
+
+def reset_trace_counts() -> None:
+    """Clear the counts and the signatures seen: every signature counts again."""
+    with _TRACE_LOCK:
+        _TRACE_COUNTS.clear()
+        _SIGNATURES.clear()
+
+
+def resolve_use_pallas(use_pallas: str, *, traced: bool = False) -> Tuple[bool, bool]:
+    """Resolve a kernel's ``use_pallas`` mode to ``(use, interpret)``, as the
+    JAX package does: ``"never"`` and ``"force"`` are explicit, ``"auto"``
+    claims the hand-written path only on a host with a card and never while
+    ``traced``. ``interpret`` is always False: a CUDA kernel has no interpret
+    mode. No environment variable is read."""
+    if use_pallas not in ("auto", "force", "never"):
+        raise ValueError(f"use_pallas must be 'auto', 'force' or 'never', got {use_pallas!r}")
+    if use_pallas == "never":
+        return False, False
+    if use_pallas == "auto" and (traced or not torch.cuda.is_available()):
+        return False, False
+    return True, False
+
+
+def record_dispatch(kernel: str, impl: str, bucket_width: Optional[int] = None) -> None:
+    """Count one kernel dispatch (``impl`` is ``"cuda"`` or ``"torch"``) and
+    observe the pow2 bucket width it ran at."""
+    _instruments.REGISTRY.counter(
+        "heavy_kernel_calls",
+        help="heavy-kernel dispatches by kernel and implementation",
+        kernel=kernel,
+        impl=impl,
+    ).inc()
+    if bucket_width is not None:
+        _instruments.REGISTRY.histogram(
+            "heavy_kernel_bucket_width",
+            help="pow2 bucket widths heavy kernels dispatched at",
+            buckets=_WIDTH_BUCKETS,
+            kernel=kernel,
+        ).observe(float(bucket_width))
+    if _otrace.active:
+        _otrace.emit_instant(
+            "kernel/dispatch", "kernel",
+            kernel=kernel, impl=impl,
+            **({"bucket_width": int(bucket_width)} if bucket_width is not None else {}),
+        )
+
+
+def record_fallback(kernel: str, reason: str) -> None:
+    """Count one fallback of ``kernel`` (the JAX package's Pallas -> XLA
+    fallback). Kept for its series and event: no port wrapper falls back."""
+    _instruments.REGISTRY.counter(
+        "heavy_kernel_fallbacks",
+        help="heavy-kernel Pallas->XLA fallbacks",
+        kernel=kernel,
+    ).inc()
+    if _otrace.active:
+        _otrace.emit_instant(
+            "kernel/fallback", "kernel",
+            kernel=kernel, reason=str(reason).splitlines()[0][:200],
+        )
+
+
+def dispatched(kernel: str, on_cuda: bool, bucket_width: Optional[int], signature: Optional[Tuple] = None) -> None:
+    """A wrapper's telemetry for one dispatch: its trace count (when given a
+    ``signature``) and :func:`record_dispatch` with ``impl`` ``"cuda"`` or
+    ``"torch"``; nothing while the sync layer is quiet (a capture's second
+    run, the CPU's stand-in for a replay)."""
+    from metrics_tpu_torch.parallel import sync as _sync  # parallel imports this package's users
+
+    if _sync._hooks_quiet():
+        return
+    if signature is not None:
+        bump_trace_count(kernel, signature)
+    record_dispatch(kernel, "cuda" if on_cuda else "torch", bucket_width=bucket_width)
 
 
 # the kernels' public wrappers, as the JAX package's ``ops.kernels`` exports them

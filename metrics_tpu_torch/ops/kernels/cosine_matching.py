@@ -28,11 +28,11 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, count_launch, current_stream
+from metrics_tpu_torch.ops.kernels import CUDA_KERNELS, check_kernel_inputs, count_launch, current_stream, dispatched
 
 __all__ = ["maxsim", "maxsim_plain", "pairwise_cosine_pr"]
 
-MAXSIM_KERNEL = KERNELS["maxsim_tf32x3"]
+MAXSIM_KERNEL = CUDA_KERNELS["maxsim_tf32x3"]
 
 
 def _tma_route(preds_embeddings: Tensor, target_embeddings: Tensor) -> bool:
@@ -142,6 +142,12 @@ def pairwise_cosine_pr(
     target_idf_scale: Tensor,  # (B, R)
 ) -> Tuple[Tensor, Tensor, Tensor]:
     """BERTScore greedy-matching precision, recall and F1 per sentence (and
-    layer), shaped (L, B) and squeezed, through :func:`maxsim`."""
+    layer), shaped (L, B) and squeezed, through :func:`maxsim`. Records its
+    dispatch as ``cosine_matching`` with ``bucket_width`` = P, as the JAX
+    function does, and bumps the kernel's trace count once per new input
+    signature."""
     rowmax, colmax = maxsim(preds_embeddings, target_embeddings)
-    return _finalize(rowmax, colmax, preds_idf_scale, target_idf_scale)
+    out = _finalize(rowmax, colmax, preds_idf_scale, target_idf_scale)
+    dispatched("cosine_matching", preds_embeddings.is_cuda, int(preds_embeddings.shape[2]),
+               (preds_embeddings, target_embeddings, preds_idf_scale, target_idf_scale))
+    return out

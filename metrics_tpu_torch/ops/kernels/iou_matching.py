@@ -31,6 +31,11 @@ sort and per-class and per-area flags (:func:`match_flags`), the IoU (B2 on
 the sorted boxes), and the matcher on a given IoU tensor
 (:func:`match_given_ious`). :func:`evaluate_given_ious` runs the first and
 the last on IoUs and areas computed elsewhere: the ``segm`` route's mask IoUs.
+
+Both record their dispatch as the JAX function does (``iou_matching`` in the
+heavy-kernel registry, ``bucket_width`` = D, ``impl`` ``"cuda"`` when the
+kernels launch and ``"torch"`` for the plain versions) and bump the kernel's
+trace count once per new input signature (``ops.kernels``, "The registry").
 """
 from __future__ import annotations
 
@@ -40,15 +45,15 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.ops.detection.boxes import box_area, box_iou
-from metrics_tpu_torch.ops.kernels import KERNELS, check_kernel_inputs, count_launch, current_stream
+from metrics_tpu_torch.ops.kernels import CUDA_KERNELS, check_kernel_inputs, count_launch, current_stream, dispatched
 
 __all__ = [
     "evaluate_given_ious", "evaluate_matches", "greedy_match", "greedy_match_plain", "match_flags", "match_given_ious",
     "pairwise_iou", "pairwise_iou_plain",
 ]
 
-IOU_KERNEL = KERNELS["pairwise_iou"]
-MATCH_KERNEL = KERNELS["greedy_match"]
+IOU_KERNEL = CUDA_KERNELS["pairwise_iou"]
+MATCH_KERNEL = CUDA_KERNELS["greedy_match"]
 
 _MAX_GRID_YZ = 65535
 
@@ -354,7 +359,12 @@ def evaluate_matches(
     # the kernel writes every other pair as 0
     ious = pairwise_iou(prep["boxes_sorted"].contiguous(), gt_boxes.contiguous(), det_counts.contiguous(),
                         gt_counts.contiguous(), plain=plain)
-    return match_given_ious(ious, prep, gt_labels, thresholds, plain=plain)
+    out = match_given_ious(ious, prep, gt_labels, thresholds, plain=plain)
+    dispatched("iou_matching", det_boxes.is_cuda and not plain, int(det_boxes.shape[1]), (
+        "boxes", det_boxes, det_scores, det_labels, det_counts, gt_boxes, gt_labels, gt_counts,
+        class_ids, class_mask, area_ranges, thresholds, int(max_det), plain,
+    ))
+    return out
 
 
 def evaluate_given_ious(
@@ -383,5 +393,10 @@ def evaluate_given_ious(
         order, det_scores, det_labels, det_counts, det_areas, gt_labels, gt_counts, gt_areas,
         class_ids, class_mask, area_ranges, max_det,
     )
-    ious = torch.gather(ious, 1, order[..., None].expand(ious.shape))
-    return match_given_ious(ious.contiguous(), flags, gt_labels, thresholds, plain=plain)
+    sorted_ious = torch.gather(ious, 1, order[..., None].expand(ious.shape))
+    out = match_given_ious(sorted_ious.contiguous(), flags, gt_labels, thresholds, plain=plain)
+    dispatched("iou_matching", ious.is_cuda and not plain, int(ious.shape[1]), (
+        "given_ious", ious, det_areas, det_scores, det_labels, det_counts, gt_areas, gt_labels, gt_counts,
+        class_ids, class_mask, area_ranges, thresholds, int(max_det), plain,
+    ))
+    return out

@@ -79,9 +79,19 @@ and go quiet (:func:`_quiet`) in a capture's second run of the step and in
 the CPU's stand-in for a replay, so the card and the CPU record the same
 events, fire the same faults and tally the same bytes.
 
-Not ported here: tenant-stacked sync (A19), and the autotune controller that
-``_resolve_transport`` and ``sync_cadence_default`` consult in the JAX
-package (A20b): they fall through to the global defaults.
+**Self-tuning** (:mod:`metrics_tpu_torch.autotune`). A bucket with no
+per-state transport declaration takes the tuner's transport for its
+``(reduction, dtype, kind)`` key while tuning is on
+(:func:`_resolve_transport`: declaration, then tuner, then the global
+default), and :func:`sync_cadence_default` falls back to the tuner's
+committed cadence. ``_sync_bucketed`` (elementwise buckets, so the
+tenant-stacked sync and the incremental emissions too) and
+``_sync_resharded`` feed each such bucket's gate outcome to the tuner, where
+the sync's Python runs and not while quiet. A compiled engine's probe
+records the tuner's answers in call order (:func:`recording_tuned`) and every
+later run of the captured body replays them (:func:`replaying_tuned`), so a
+graph syncs the way its probe did even when the probe's own observations
+moved the tuner.
 """
 from __future__ import annotations
 
@@ -210,8 +220,9 @@ def set_sync_mode(mode: Optional[str]) -> None:
 
 def sync_cadence_default() -> int:
     """The default emission cadence K (every K-th update of an incremental
-    streak emits): ``set_sync_cadence`` > ``METRICS_TPU_SYNC_EVERY`` > 1. The
-    ``sync_every=`` argument of :func:`init_incremental` outranks all of them."""
+    streak emits): ``set_sync_cadence`` > ``METRICS_TPU_SYNC_EVERY`` > the
+    autotune controller's committed cadence > 1. The ``sync_every=``
+    argument of :func:`init_incremental` outranks all of them."""
     if _sync_cadence_default is not None:
         return _sync_cadence_default
     env = os.environ.get(_ENV_SYNC_EVERY)
@@ -220,7 +231,14 @@ def sync_cadence_default() -> int:
             return max(1, int(env))
         except ValueError:
             return 1
-    return 1
+    tuned = _replayed(("cadence",))
+    if tuned is _NOT_RECORDED:
+        ctl = _autotune_controller()
+        if ctl is None:
+            return 1
+        tuned = ctl.cadence()
+        _record(("cadence",), tuned)
+    return 1 if tuned is None else max(1, int(tuned))
 
 
 def set_sync_cadence(sync_every: Optional[int]) -> None:
@@ -409,12 +427,91 @@ def _gate_transport(
     return transport, None
 
 
-def _resolve_transport(name: str, transports: Optional[Dict[str, str]]) -> str:
-    """Per-state declaration > global default."""
+def _autotune_controller() -> Any:
+    """The live autotune controller, or None. A lazy import: the autotune
+    package imports this module at module level."""
+    from metrics_tpu_torch.autotune import controller as _at
+
+    if not _at.autotune_enabled():
+        return None
+    return _at.get_controller()
+
+
+# the tuner's answers of a probe, in call order, and their replay in the
+# captured body's later runs (this thread's: see recording_tuned)
+_NOT_RECORDED = object()
+
+
+@contextlib.contextmanager
+def recording_tuned() -> Iterator[List[Tuple[Tuple, Any]]]:
+    """Record into the yielded list every answer the autotune controller
+    gives this thread's syncs while the block runs (a compiled engine's
+    probe): each bucket's transport and the cadence, in call order."""
+    record: List[Tuple[Tuple, Any]] = []
+    prev = getattr(_counter, "tuned_record", None)
+    _counter.tuned_record = record
+    try:
+        yield record
+    finally:
+        _counter.tuned_record = prev
+
+
+@contextlib.contextmanager
+def replaying_tuned(record: Optional[List[Tuple[Tuple, Any]]]) -> Iterator[None]:
+    """Answer this thread's syncs from ``record`` (a probe's
+    :func:`recording_tuned`) while the block runs, in order, instead of
+    asking the controller: the capture and the CPU's runs of a captured step
+    sync the way its probe did. A question the record does not hold next
+    asks the controller."""
+    prev = getattr(_counter, "tuned_replay", None)
+    _counter.tuned_replay = (record or [], [0])
+    try:
+        yield
+    finally:
+        _counter.tuned_replay = prev
+
+
+def _replayed(key: Tuple) -> Any:
+    replay = getattr(_counter, "tuned_replay", None)
+    if replay is None:
+        return _NOT_RECORDED
+    record, cursor = replay
+    i = cursor[0]
+    if i < len(record) and record[i][0] == key:
+        cursor[0] = i + 1
+        return record[i][1]
+    return _NOT_RECORDED
+
+
+def _record(key: Tuple, answer: Any) -> None:
+    record = getattr(_counter, "tuned_record", None)
+    if record is not None:
+        record.append((key, answer))
+
+
+def _resolve_transport(name: str, transports: Optional[Dict[str, str]], red: Any = None, dtype: Any = None,
+                       kind: str = "psum") -> str:
+    """Per-state declaration > autotune controller > global default.
+
+    The tuner speaks only for buckets it can key (elementwise reductions and
+    reshard leaves) and only when the caller gives the ``(reduction,
+    dtype)`` identity; declared buckets are invisible to it."""
     t = (transports or {}).get(name)
     if t is not None and t not in TRANSPORTS:
         raise ValueError(f"unknown sync transport {t!r} for state {name!r}; expected one of {TRANSPORTS}")
-    return t if t is not None else sync_transport_default()
+    if t is not None:
+        return t
+    if dtype is not None and (kind == "reshard" or red in _ELEMENTWISE):
+        key = ("transport", "reshard" if kind == "reshard" else str(red), _dtype_name(dtype), kind)
+        tuned = _replayed(key)
+        if tuned is not _NOT_RECORDED:
+            return tuned
+        ctl = _autotune_controller()
+        if ctl is not None:
+            tuned = ctl.transport_for(red, dtype, kind=kind)
+            _record(key, tuned)
+            return tuned
+    return sync_transport_default()
 
 
 def _bucket_tolerance(names: Sequence[str], tolerances: Optional[Dict[str, float]]) -> Optional[float]:
@@ -459,7 +556,7 @@ def transport_plan(
             continue
         flat_items.append((name, val, red))
     for name, val, red in flat_items:
-        t = _resolve_transport(name, eff_transports)
+        t = _resolve_transport(name, eff_transports, red=red, dtype=val.dtype)
         groups.setdefault((red, _dtype_name(val.dtype), t, "psum"), []).append((name, val))
     plan: List[Dict[str, Any]] = []
     for (red, dtype, requested, kind), items in groups.items():
@@ -952,24 +1049,34 @@ def _sync_bucketed(
     with ``torch.cat`` and unflattened by offsets, bitwise equal to the
     per-leaf path. A singleton exact bucket goes straight through
     :func:`sync_array`. Every leaf resolves its transport (declaration >
-    global default), so a state with no declaration buckets exactly as
-    before; a quantized bucket passes the gate first, and a refused one syncs
-    exact (splitting an elementwise bucket changes no leaf's value)."""
+    autotune controller > global default), so a state with no declaration
+    and no tuner buckets exactly as before; a quantized bucket passes the
+    gate first, and a refused one syncs exact (splitting an elementwise
+    bucket changes no leaf's value). While tuning is on, each elementwise
+    bucket with no declared leaf feeds its gate outcome to the tuner (not
+    while quiet)."""
     out: Dict[str, Tensor] = {}
+    ctl = _autotune_controller()
     buckets: Dict[Tuple[Reduction, torch.dtype, str], List[Tuple[str, Tensor]]] = {}
     for name, x, red in entries:
-        buckets.setdefault((red, x.dtype, _resolve_transport(name, transports)), []).append((name, x))
-    world = dist.get_world_size(group) if any(t != "exact" for _, _, t in buckets) else None
+        buckets.setdefault((red, x.dtype, _resolve_transport(name, transports, red=red, dtype=x.dtype)), []).append(
+            (name, x)
+        )
+    world = dist.get_world_size(group) if ctl is not None or any(t != "exact" for _, _, t in buckets) else None
     for (red, dtype, requested), items in buckets.items():
-        transport = requested
-        if requested != "exact":
-            names = [n for n, _ in items]
+        transport, refusal = requested, None
+        names = [n for n, _ in items]
+        if requested != "exact" or ctl is not None:
             nelems = sum(x.numel() for _, x in items)
-            transport, refusal = _gate_transport(
-                requested, red, dtype, nelems, world, _bucket_tolerance(names, tolerances), error_scale=error_scale
-            )
+            tol = _bucket_tolerance(names, tolerances)
+        if requested != "exact":
+            transport, refusal = _gate_transport(requested, red, dtype, nelems, world, tol, error_scale=error_scale)
             if refusal is not None:
                 _tick_refusal(dict(refusal, reduction=str(red), dtype=_dtype_name(dtype), states=names))
+        if (ctl is not None and red in _ELEMENTWISE and not _hooks_quiet()
+                and not any(n in (transports or {}) for n in names)):
+            ctl.observe_bucket(red, dtype, kind="psum", requested=requested, transport=transport, refusal=refusal,
+                               nelems=nelems, world=world, tolerance=tol, error_scale=error_scale)
         if transport != "exact":
             flat = items[0][1].reshape(-1) if len(items) == 1 else torch.cat([x.reshape(-1) for _, x in items])
             synced = _CODECS[transport](flat, group, dtype)
@@ -1060,26 +1167,31 @@ def _sync_resharded(
     Transports: ``bf16`` casts each way; ``int8`` quantizes against one
     bucket-global max-abs scale (a MAX ``all_reduce`` of one float32,
     ``logical=0``). Neither accumulates, so both pass the gate with
-    ``kind="reshard"`` bounds; ``sparse_count`` never applies here.
+    ``kind="reshard"`` bounds; ``sparse_count`` never applies here. An
+    undeclared bucket takes the tuner's ``reshard`` transport for its dtype
+    and feeds it its gate outcome, as :func:`_sync_bucketed` does.
     """
     out: Dict[str, Tensor] = {}
+    ctl = _autotune_controller()
     buckets: Dict[Tuple[torch.dtype, int, str], List[Tuple[str, Tensor, int]]] = {}
     for name, arr, axis in entries:
         axis %= max(arr.ndim, 1)
-        buckets.setdefault((arr.dtype, int(arr.shape[axis]), _resolve_transport(name, transports)), []).append(
-            (name, arr, axis)
-        )
-    world = dist.get_world_size(group) if any(t != "exact" for _, _, t in buckets) else None
+        t = _resolve_transport(name, transports, dtype=arr.dtype, kind="reshard")
+        buckets.setdefault((arr.dtype, int(arr.shape[axis]), t), []).append((name, arr, axis))
+    world = dist.get_world_size(group) if ctl is not None or any(t != "exact" for _, _, t in buckets) else None
     for (dtype, dim, requested), items in buckets.items():
-        transport = requested
-        if requested != "exact":
-            names = [n for n, _, _ in items]
+        transport, refusal = requested, None
+        names = [n for n, _, _ in items]
+        if requested != "exact" or ctl is not None:
             nelems = sum(a.numel() for _, a, _ in items)
-            transport, refusal = _gate_transport(
-                requested, None, dtype, nelems, world, _bucket_tolerance(names, tolerances), kind="reshard"
-            )
+            tol = _bucket_tolerance(names, tolerances)
+        if requested != "exact":
+            transport, refusal = _gate_transport(requested, None, dtype, nelems, world, tol, kind="reshard")
             if refusal is not None:
                 _tick_refusal(dict(refusal, reduction="reshard", dtype=_dtype_name(dtype), states=names))
+        if ctl is not None and not _hooks_quiet() and not any(n in (transports or {}) for n in names):
+            ctl.observe_bucket("reshard", dtype, kind="reshard", requested=requested, transport=transport,
+                               refusal=refusal, nelems=nelems, world=world, tolerance=tol)
         if transport == "exact" and len(items) == 1:
             name, arr, axis = items[0]
             out[name] = torch.cat(_all_gather(arr, group, kind="reshard"), dim=axis)
@@ -1533,7 +1645,7 @@ def init_incremental(
     plan = incremental_plan(state, reductions, modes=modes, shard_axes=shard_axes)
     acc: Dict[str, Tensor] = {}
     last: Dict[str, Tensor] = {}
-    covered: List[str] = []
+    covered: List[Tuple[str, Reduction, torch.dtype]] = []
     eff_transports: Dict[str, str] = dict(transports or {})
     for name, entry in plan.items():
         if entry["mode"] != "incremental":
@@ -1545,14 +1657,14 @@ def init_incremental(
                 acc[key] = torch.zeros_like(comp)
                 if _sketch_field_codec(fred, comp.dtype) == "fold":
                     last[key] = torch.zeros_like(comp)
-                covered.append(key)
+                covered.append((key, fred, comp.dtype))
             continue
         leaf = state[name]
         acc[name] = torch.zeros_like(leaf)
         if entry["codec"] == "fold":
             last[name] = torch.zeros_like(leaf)
-        covered.append(name)
-    track = any(_resolve_transport(n, eff_transports) != "exact" for n in covered)
+        covered.append((name, reductions.get(name), leaf.dtype))
+    track = any(_resolve_transport(n, eff_transports, red=red, dtype=dtype) != "exact" for n, red, dtype in covered)
     return IncrementalCarry(dict(state), acc, last, sync_every=k, pending=0, emissions=0, track_emissions=track)
 
 

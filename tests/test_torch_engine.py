@@ -589,7 +589,7 @@ class _FakeGraph:
 
 
 def test_captured_step_counts_a_launch_per_replay(monkeypatch):
-    kernel = kernels_mod.KERNELS["binned_counts"]
+    kernel = kernels_mod.CUDA_KERNELS["binned_counts"]
 
     def step(state, args, kwargs):
         kernel.launches += 1  # what a kernel wrapper does where it launches
@@ -618,7 +618,7 @@ def test_captured_step_counts_a_launch_per_replay(monkeypatch):
 
 
 def test_a_failed_capture_takes_its_counts_back(monkeypatch):
-    kernel = kernels_mod.KERNELS["pairwise_iou"]
+    kernel = kernels_mod.CUDA_KERNELS["pairwise_iou"]
 
     def step(state, args, kwargs):
         kernel.launches += 1

@@ -27,7 +27,7 @@ import torch
 from metrics_tpu.ops.detection.boxes import box_iou as jax_box_iou
 from metrics_tpu.ops.kernels.iou_matching import _merged_greedy_match, _pairwise_iou_pallas
 from metrics_tpu.ops.kernels.iou_matching import evaluate_matches as jax_evaluate_matches
-from metrics_tpu_torch.ops.kernels import KERNELS, launch_counts
+from metrics_tpu_torch.ops.kernels import CUDA_KERNELS, launch_counts
 from metrics_tpu_torch.ops.kernels.cosine_matching import maxsim, maxsim_plain
 from metrics_tpu_torch.ops.kernels.iou_matching import (
     evaluate_matches,
@@ -245,7 +245,7 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
         for g, w in zip(maxsim(pe, te), maxsim_plain(pe, te)):
             assert_bitwise(g, w)
     assert launch_counts() == before
-    assert all(kernel._lib is None for kernel in KERNELS.values())
+    assert all(kernel._lib is None for kernel in CUDA_KERNELS.values())
 
 
 def test_wrappers_reject_other_devices_and_shapes():

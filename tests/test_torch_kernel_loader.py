@@ -1,7 +1,8 @@
-"""The port's kernel registry (``metrics_tpu_torch/ops/kernels/__init__.py``),
-on a host without ``nvcc``. Nothing here compiles or loads a kernel."""
+"""The port's CUDA kernel loader (``metrics_tpu_torch/ops/kernels/__init__.py``,
+``CUDA_KERNELS``), on a host without ``nvcc``. Nothing here compiles or loads
+a kernel."""
 from metrics_tpu_torch.ops import kernels as kernels_mod
-from metrics_tpu_torch.ops.kernels import CSRC_DIR, KERNELS
+from metrics_tpu_torch.ops.kernels import CSRC_DIR, CUDA_KERNELS as KERNELS
 
 
 def test_registry_names_sources_and_counters():

@@ -321,9 +321,8 @@ def test_prometheus_names_labels_and_types_equal_the_jax_packages(world1):
     torch_text, keep_t = _exposition(_Torch, tinst, world1)
     j_shapes, j_types, j_samples = _families(jax_text)
     t_shapes, t_types, t_samples = _families(torch_text)
-    autotune = {"metrics_tpu_autotune_enabled", "metrics_tpu_autotune_decision_epoch"}  # A20b
-    assert t_shapes == {s for s in j_shapes if s[0] not in autotune}
-    assert t_types == {k: v for k, v in j_types.items() if k not in autotune}
+    assert t_shapes == j_shapes
+    assert t_types == j_types
     for family in ("eager_calls", "cache_misses", "cache_hits"):
         name = f"metrics_tpu_engine_{family}"
 
@@ -344,7 +343,7 @@ def test_registry_instruments_behave_as_the_jax_packages():
         h = reg.histogram("h_seconds", "a histogram", buckets=(0.1, 1.0), endpoint="/metrics")
         for v in (0.05, 0.5, 5.0):
             h.observe(v)
-    def manual(text):  # the process, tracer and (JAX-only, A20b) autotune gauges aside
+    def manual(text):  # the process, tracer and autotune gauges aside
         return [line for line in text.splitlines() if re.search(r"metrics_tpu_(c_total|g|h_seconds(_bucket|_sum|_count)?)\b", line)]
 
     assert manual(tobs.to_prometheus_text(regs[0])) == manual(jobs.to_prometheus_text(regs[1]))

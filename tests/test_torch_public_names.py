@@ -29,7 +29,8 @@ pytestmark = pytest.mark.filterwarnings("ignore")
 
 ITEMS = {
     "A19": "serve and cluster (A19b), checkpoint (A18) and tenancy (A19a): all ported; none may be missing",
-    "A20": "autotune and the kernel registry's telemetry (A20b; observability and resilience, A20a, are ported)",
+    "A20": "observability and resilience (A20a), autotune and the kernel registry's telemetry (A20b): all ported; "
+           "none may be missing",
     "A21": "analysis (ANALYSIS_SPECS and the analyzer surfaces)",
     "B1": "the Pallas module of B1, whose port is ops/classification/binned_counts.py",
 }
@@ -39,10 +40,7 @@ def _items(item, names):
 
 
 MISSING = {
-    "": {
-        **_items("A20", ["PolicyConfig", "TunedPlan", "autotune", "autotune_enabled", "export_tuned_plan",
-                         "set_autotune"]),
-    },
+    "": {},
     "core": {},
     "utils": {},
     "observability": {"ANALYSIS_MODULE_SPECS": "A21"},
@@ -61,10 +59,7 @@ MISSING = {
     "ops.retrieval": {},
     "ops.pairwise": {},
     "ops.detection": {},
-    "ops.kernels": {
-        **_items("A20", ["KernelSpec", "bump_trace_count", "record_dispatch", "record_fallback", "reset_trace_counts",
-                         "resolve_use_pallas", "trace_counts"]),
-    },
+    "ops.kernels": {},
     "aggregation": {"ANALYSIS_SPECS": "A21"},
     **{sub: {"ANALYSIS_SPECS": "A21"} for sub in ("audio", "text", "wrappers", "classification", "regression", "retrieval",
                                                   "detection")},
@@ -125,10 +120,11 @@ def test_missing_names_are_the_unported_items(sub, fresh_names):
 def test_every_listed_item_is_unported():
     # the wrappers (A11b), text (A13), the rest of detection (A12), image
     # (A14), audio (A15), the sketches (A16), sharded state (A17b),
-    # checkpoint (A18), tenancy (A19a), serve and cluster (A19b) are ported:
-    # none of their names may be missing
+    # checkpoint (A18), tenancy (A19a), serve and cluster (A19b),
+    # observability, resilience, autotune and the kernel registry (A20) are
+    # ported: none of their names may be missing
     for sub, names in MISSING.items():
-        assert not {"A11b", "A12", "A13", "A14", "A15", "A16", "A17b", "A18", "A19"} & set(names.values()), sub
+        assert not {"A11b", "A12", "A13", "A14", "A15", "A16", "A17b", "A18", "A19", "A20"} & set(names.values()), sub
     for name in ("BootStrapper", "ClasswiseWrapper", "MetricTracker", "MinMaxMetric", "MultioutputWrapper",
                  "BLEUScore", "SacreBLEUScore", "CHRFScore", "TranslationEditRate", "ExtendedEditDistance",
                  "CharErrorRate", "WordErrorRate", "MatchErrorRate", "WordInfoLost", "WordInfoPreserved",
@@ -137,8 +133,12 @@ def test_every_listed_item_is_unported():
                  "FrechetInceptionDistance", "PeakSignalNoiseRatio", "image", "nets",
                  "SignalNoiseRatio", "PermutationInvariantTraining", "PerceptualEvaluationSpeechQuality", "audio",
                  "observability", "resilience", "checkpoint", "save_checkpoint", "restore_checkpoint",
-                 "verify_checkpoint", "tenancy", "TenantSet", "serve"):
+                 "verify_checkpoint", "tenancy", "TenantSet", "serve", "autotune", "set_autotune",
+                 "autotune_enabled", "export_tuned_plan", "PolicyConfig", "TunedPlan"):
         assert hasattr(mt_torch, name), name
+    for name in ("KernelSpec", "KERNELS", "bump_trace_count", "record_dispatch", "record_fallback",
+                 "reset_trace_counts", "resolve_use_pallas", "trace_counts"):
+        assert hasattr(mt_torch.ops.kernels, name), name
 
 
 def test_the_c2_names_resolve():

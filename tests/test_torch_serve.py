@@ -474,7 +474,7 @@ class _FakeGraph:
 
 
 def test_a_capture_records_only_its_own_threads_launches(monkeypatch):
-    kernel = kernels_mod.KERNELS["binned_counts"]
+    kernel = kernels_mod.CUDA_KERNELS["binned_counts"]
     inside, done, block = threading.Event(), threading.Event(), threading.Event()
 
     def step(state, args, kwargs):
